@@ -1,0 +1,2 @@
+"""Device ops of the port: top-k search (kernel B1), fused attention
+(kernel B3), normalization and image preprocessing."""

@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain torch versions, on a card.
+
+Every test here needs an NVIDIA card and ``nvcc`` (the hand-written kernels
+have no CPU mode), carries the ``cuda`` marker and skips elsewhere. The file
+imports no JAX, so it runs on a machine without it; there the repo's
+``tests/conftest.py`` (which imports JAX) is skipped:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: B1 chunk maxima 1e-3 (the kernel sums in another order than
+the f32 matmul of the plain version); top-k tie-aware (5e-4); B3 f32 1e-5,
+bf16 2e-2.
+"""
+
+import pytest
+import torch
+
+from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention as tatt
+from intelligent_video_analysis_retrieval_system_tpu_torch.ops import topk as ttopk
+from intelligent_video_analysis_retrieval_system_tpu_torch.testing import tie_aware_equal
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 20, 33, 128, 160])
+@pytest.mark.parametrize("d", [96, 40])
+def test_chunk_max_kernel_matches_plain(cuda_device, dtype, b, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(b)
+    x = torch.randn(8192, d, generator=gen, device=cuda_device).to(dtype)
+    q = torch.randn(b, d, generator=gen, device=cuda_device).to(dtype)
+    dead = (torch.rand(8192, generator=gen, device=cuda_device) < 0.01).to(torch.int8)
+    before = ttopk.chunk_max_sweep.launches
+    got = ttopk.chunk_max_sweep(x, q, 8000, dead)
+    torch.cuda.synchronize()
+    assert ttopk.chunk_max_sweep.launches == before + 1
+    assert got.shape == (8192 // ttopk.CHUNK, b)
+    want = ttopk.chunk_max_plain(x, q, 8000, dead)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_topk_search_on_card_matches_reference(cuda_device, dtype, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.nn.functional.normalize(
+        torch.randn(20000, 64, generator=gen, device=cuda_device), dim=-1).to(dtype)
+    q = torch.nn.functional.normalize(
+        torch.randn(5, 64, generator=gen, device=cuda_device), dim=-1).to(dtype)
+    dead = (torch.rand(20000, generator=gen, device=cuda_device) < 0.01).to(torch.int8)
+    res = ttopk.topk_search(x, q, k, n_valid=19000, deleted=dead)
+    ref = ttopk.topk_masked_reference(x, q, k, 19000, deleted=dead)
+    for i in range(5):
+        tie_aware_equal(res.indices[i].cpu().numpy(), res.scores[i].cpu().numpy(),
+                        ref.indices[i].cpu().numpy(), ref.scores[i].cpu().numpy())
+
+
+def test_chunk_max_refuses_misaligned_rows(cuda_device):
+    x = torch.zeros(ttopk.TILE_N * 16 + 1, dtype=torch.bfloat16, device=cuda_device)
+    x = x[1:].view(ttopk.TILE_N, 16)  # 2-byte offset
+    with pytest.raises(ValueError):
+        ttopk.chunk_max_sweep(x, torch.zeros(2, 16, dtype=torch.bfloat16,
+                                             device=cuda_device), 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 64, 4), (1, 257, 1024, 16), (2, 50, 768, 12),
+                                   (1, 33, 120, 3), (2, 20, 36, 3)])
+def test_mha_kernel_matches_plain(cuda_device, dtype, shape):
+    b, t, d, h = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    q, k, v = (torch.randn(b, t, d, generator=gen, device=cuda_device).to(dtype)
+               for _ in range(3))
+    before = tatt.fused_mha.launches
+    got = tatt.fused_mha(q, k, v, h)
+    torch.cuda.synchronize()
+    assert tatt.fused_mha.launches == before + 1
+    want = tatt._einsum_attention(q, k, v, h)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_mha_gradient_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ts = [torch.randn(2, 17, 32, generator=gen, device=cuda_device).requires_grad_(True)
+          for _ in range(3)]
+    g = torch.randn(2, 17, 32, generator=gen, device=cuda_device)
+    tatt.fused_mha(*ts, 4).backward(g)
+    refs = [t.detach().clone().requires_grad_(True) for t in ts]
+    tatt._einsum_attention(*refs, 4).backward(g)
+    for t, r in zip(ts, refs):
+        torch.testing.assert_close(t.grad, r.grad, atol=1e-5, rtol=1e-5)

@@ -1,0 +1,327 @@
+"""The PyTorch port's serving slice against the JAX facade, end to end.
+
+Both facades get the same carried-across tower params (a JAX init of
+``CLIPConfig.tiny_test()`` through ``models.convert.from_jax_params``) and
+the same ``.rvdb``, and answer the same text queries.
+
+- f32 parity mode: the same keyframes in the same order, scores within 1e-5.
+- bf16: tie-aware. The two frameworks round bf16 at different places (the
+  JAX package itself differs between its jitted and eager attention by one
+  bf16 step), so the query embeddings agree only to the towers' cosine
+  gate. With unit rows a score can move by at most ``|q_jax - q_port|``, so
+  scores are compared within that bound plus the 5e-4 of the repo's
+  tie-aware rule.
+
+Also here: the request layer and the micro-batcher around the port, a run
+of the whole slice with JAX blocked from importing, the CLI, and
+``chip_smoke.py`` refusing to run without a card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from intelligent_video_analysis_retrieval_system_tpu.index.container import (
+    IndexContainer as JaxContainer,
+)
+from intelligent_video_analysis_retrieval_system_tpu.models.clip import (
+    CLIPConfig as JaxCLIPConfig,
+)
+from intelligent_video_analysis_retrieval_system_tpu.system.embedder import (
+    CLIPEmbedder as JaxEmbedder,
+)
+from intelligent_video_analysis_retrieval_system_tpu.system.facade import (
+    EnhancedRetrievalSystem as JaxSystem,
+)
+from intelligent_video_analysis_retrieval_system_tpu.system.facade import (
+    SearchOptions as JaxOptions,
+)
+from intelligent_video_analysis_retrieval_system_tpu.utils.config import Config
+from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+from intelligent_video_analysis_retrieval_system_tpu_torch.models.convert import (
+    from_jax_params,
+)
+from intelligent_video_analysis_retrieval_system_tpu_torch.serve import (
+    QueryBatcher,
+    RequestHandler,
+    format_results,
+)
+from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+    CLIPEmbedder,
+)
+from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+    EnhancedRetrievalSystem,
+    SearchOptions,
+    create_system,
+)
+from intelligent_video_analysis_retrieval_system_tpu_torch.testing import (
+    ATOL_TOPK,
+    tie_aware_equal,
+)
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+N, DIM = 2500, 32
+QUERIES = ["a red car at night", "people walking on a beach", "xe máy trên phố",
+           "a dog catching a frisbee", "sunset over the mountains"]
+
+
+def _write_index(path: Path, dtype: str) -> None:
+    rng = np.random.default_rng(5)
+    rows = rng.standard_normal((N, DIM)).astype(np.float32)
+    with JaxContainer(path, "w", dim=DIM, dtype=dtype) as c:
+        c.append_embeddings(rows)
+        c.append_metadata([{"folder": f"vid{i // 250}", "image": f"{i % 250}.jpg",
+                            "frame_id": i % 250, "row_id": i} for i in range(N)])
+        c.flush_checkpoint()
+
+
+@pytest.fixture(scope="module")
+def pair_factory(tmp_path_factory):
+    """(jax_system, port_system) over one index, with shared params."""
+    made: dict = {}
+
+    def make(dtype: str, parity: bool):
+        if (dtype, parity) in made:
+            return made[dtype, parity]
+        root = tmp_path_factory.mktemp(f"sys_{dtype}_{parity}")
+        _write_index(root / "index.rvdb", dtype)
+        cfg_over = {"index": {"dtype": dtype}}
+        jemb = JaxEmbedder(config=JaxCLIPConfig.tiny_test(), parity_mode=parity)
+        jsys = JaxSystem(Config(config_file=None, base_dir=root, overrides=cfg_over),
+                         embedder=jemb)
+        jsys.load_system(root / "index.rvdb")
+        jemb.ensure_loaded()
+        temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=parity)
+        temb.load_params(from_jax_params(jax.tree_util.tree_map(np.asarray, jemb.params),
+                                         CLIPConfig.tiny_test()))
+        tsys = EnhancedRetrievalSystem(
+            Config(config_file=None, base_dir=root, overrides=cfg_over), embedder=temb)
+        tsys.load_system(root / "index.rvdb")
+        made[dtype, parity] = jsys, tsys
+        return jsys, tsys
+
+    yield make
+    for pair in made.values():
+        for system in pair:
+            system.cleanup()
+
+
+def _pairs(hits):
+    return [(h["folder"], h["image"]) for h in hits], np.array(
+        [h["similarity_score"] for h in hits])
+
+
+@pytest.mark.parametrize("dtype,parity", [("float32", True), ("bfloat16", False)])
+def test_facade_search_matches_jax(pair_factory, dtype, parity):
+    jsys, tsys = pair_factory(dtype, parity)
+    for query in QUERIES:
+        for limit in (1, 10, 37):
+            want = jsys.search(query, JaxOptions(limit=limit))
+            got = tsys.search(query, SearchOptions(limit=limit))
+            assert len(got) == len(want) == limit
+            (gk, gs), (wk, ws) = _pairs(got), _pairs(want)
+            if parity:
+                assert gk == wk
+                np.testing.assert_allclose(gs, ws, atol=1e-5)
+                continue
+            prompt = tsys._clip_prompt(query, SearchOptions())[0]
+            qj = jsys.embedder.encode_text([prompt])[0]
+            qt = tsys.embedder.encode_text([prompt])[0]
+            assert float(qj @ qt) >= 0.999          # the towers' bf16 gate
+            row = {k: i for i, k in enumerate(sorted(set(gk) | set(wk)))}
+            tie_aware_equal([row[k] for k in gk], gs, [row[k] for k in wk], ws,
+                            atol=ATOL_TOPK + float(np.linalg.norm(qj - qt)))
+            assert [g["rank"] for g in got] == list(range(1, limit + 1))
+
+
+def test_facade_options_match_jax(pair_factory):
+    jsys, tsys = pair_factory("float32", True)
+    for opts in (dict(folder_filter="vid3", limit=7),
+                 dict(include_temporal=True, temporal_window=2, limit=4),
+                 dict(include_explanations=True, min_similarity=0.2, limit=20),
+                 dict(mode="llm_enhanced", limit=6),
+                 dict(mode="hybrid", limit=6)):
+        for query in QUERIES[:2]:
+            want = jsys.search(query, JaxOptions(**opts))
+            got = tsys.search(query, SearchOptions(**opts))
+            assert _pairs(got)[0] == _pairs(want)[0]
+            for g, w in zip(got, want):
+                assert g.get("temporal_context") == w.get("temporal_context")
+                assert g.get("explanation") == w.get("explanation")
+    want = jsys.search_batch(QUERIES, JaxOptions(limit=9))
+    got = tsys.search_batch(QUERIES, SearchOptions(limit=9))
+    assert [_pairs(g)[0] for g in got] == [_pairs(w)[0] for w in want]
+
+
+@pytest.mark.parametrize("size", [(32, 32), (40, 56)])   # as is; resized + cropped
+def test_search_by_image_matches_jax(pair_factory, size):
+    jsys, tsys = pair_factory("float32", True)
+    img = np.random.default_rng(size[1]).integers(0, 256, (*size, 3)).astype(np.uint8)
+    want = jsys.search_by_image(img, JaxOptions(limit=12))
+    got = tsys.search_by_image(img, SearchOptions(limit=12))
+    assert len(got) == len(want) == 12
+    qj = jsys.embedder.encode_images(img[None])[0]
+    qt = tsys.embedder.encode_images(img[None])[0]
+    (gk, gs), (wk, ws) = _pairs(got), _pairs(want)
+    row = {k: i for i, k in enumerate(sorted(set(gk) | set(wk)))}
+    tie_aware_equal([row[k] for k in gk], gs, [row[k] for k in wk], ws,
+                    atol=1e-5 + float(np.linalg.norm(qj - qt)))
+    assert float(np.linalg.norm(qj - qt)) < 1e-4
+    with pytest.raises(NotImplementedError):
+        tsys.search_by_image("frame.jpg")
+
+
+def test_request_layer_and_batcher_around_the_port(pair_factory):
+    _, tsys = pair_factory("float32", True)
+    handler = RequestHandler()
+    ok, err = handler.validate_request("search", {"query": QUERIES[0], "limit": 5})
+    assert ok and err is None
+    assert not handler.validate_request("search", {"query": "", "limit": 5})[0]
+    hits = tsys.search(QUERIES[0], SearchOptions(limit=5))
+    minimal = format_results(hits, "minimal")
+    assert len(minimal) == 5 and set(minimal[0]) == {"folder", "image",
+                                                     "similarity_score", "rank"}
+    batcher = QueryBatcher(tsys, window_ms=50.0, max_batch=8)
+    batcher.start()
+    answers = {}
+    try:
+        threads = [threading.Thread(
+            target=lambda i=i: answers.__setitem__(i, batcher.search(QUERIES[i], top_k=6)))
+            for i in range(len(QUERIES))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        batcher.stop()
+    for i, query in enumerate(QUERIES):
+        want = tsys.search(query, SearchOptions(limit=6, use_cache=False))
+        assert _pairs(answers[i])[0] == _pairs(want)[0]
+    assert tsys.health.comprehensive_health_check()["components"]["index"]["status"] == "ok"
+    stats = tsys.get_system_stats()
+    assert stats["index"]["ntotal"] == N and stats["device"] == "cpu"
+
+
+_BLOCKED_SLICE = r"""
+import sys
+# JAX, and the packages the card's machine lacks apart from h5py (which
+# the container this script writes needs)
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "aiohttp", "msgpack",
+             "PIL", "transformers", "zstandard"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from intelligent_video_analysis_retrieval_system_tpu_torch.index.container import IndexContainer
+from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+from intelligent_video_analysis_retrieval_system_tpu_torch.serve import (
+    QueryBatcher, RequestHandler, format_results)
+from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+    SearchOptions, create_system)
+from intelligent_video_analysis_retrieval_system_tpu.utils.config import Config
+
+root = sys.argv[1]
+rows = np.random.default_rng(0).standard_normal((3000, 32)).astype(np.float32)
+with IndexContainer(root + "/i.rvdb", "w", dim=32, dtype="bfloat16") as c:
+    c.append_embeddings(rows)
+    c.append_metadata([{"folder": "v", "image": f"{i}.jpg", "frame_id": i}
+                       for i in range(3000)])
+    c.flush_checkpoint()
+system = create_system(torch_device="cpu", paths={"cache_dir": root + "/c",
+                                                  "temp_dir": root + "/t"})
+system.embedder._config_override = CLIPConfig.tiny_test()
+system.load_system(root + "/i.rvdb")
+assert RequestHandler().validate_request("search", {"query": "a car"})[0]
+hits = format_results(system.search("a car", SearchOptions(limit=4)), "standard")
+assert len(hits) == 4, hits
+assert [len(h) for h in system.search_batch(["a", "b"], SearchOptions(limit=3))] == [3, 3]
+b = QueryBatcher(system)
+b.start()
+assert len(b.search("a boat", top_k=2)) == 2
+b.stop()
+system.cleanup()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("SLICE_OK")
+"""
+
+
+def test_slice_runs_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SLICE, str(tmp_path)],
+                          capture_output=True, text=True, cwd=tmp_path, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SLICE_OK" in proc.stdout
+
+
+def test_port_never_imports_jax():
+    pkg = ROOT / "intelligent_video_analysis_retrieval_system_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "flax", "jaxlib"), (path, line)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(alone)], capture_output=True, text=True,
+                          cwd=tmp_path, timeout=300, env={"PATH": os.environ["PATH"]})
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_cli_search(tmp_path, monkeypatch, capsys):
+    from intelligent_video_analysis_retrieval_system_tpu_torch import cli
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import convert
+
+    _write_index(tmp_path / "cli.rvdb", "bfloat16")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(convert.CLIPConfig, "vit_l_14", classmethod(
+        lambda cls: CLIPConfig.tiny_test()))
+    assert cli.main(["search", str(tmp_path / "cli.rvdb"), "a red car", "--device",
+                     "cpu", "--limit", "3", "--json"]) == 0
+    hits = json.loads(capsys.readouterr().out)
+    assert len(hits) == 3 and hits[0]["rank"] == 1
+
+
+def test_unported_entry_points_raise(tmp_path):
+    system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
+    for call in (lambda: system.build_system(tmp_path), lambda: system.chat("hi"),
+                 lambda: system.start_server(), lambda: system.index_videos([]),
+                 lambda: system.export_portable_index(tmp_path),
+                 lambda: CLIPEmbedder(compute_dtype="int8"),
+                 lambda: EnhancedRetrievalSystem(mesh=object()),
+                 lambda: create_system(torch_device="cpu",
+                                       index={"index_type": "IndexIVFFlat"})._index_config()):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        create_system(torch_device="cuda")
+    with pytest.raises(RuntimeError):
+        CLIPEmbedder(device="cuda")
