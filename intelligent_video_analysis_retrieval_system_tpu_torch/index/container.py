@@ -231,7 +231,8 @@ class IndexContainer:
     def append_embeddings(self, rows: np.ndarray) -> tuple[int, int]:
         """Append (M, dim) f32 rows; returns (start_row, end_row).
 
-        ``int8`` containers are read but not yet written by this port.
+        For ``int8`` containers the rows are quantized here (per-row
+        symmetric scales stored alongside).
         """
         ds = self._f["embeddings"]
         rows = np.asarray(rows)
@@ -239,10 +240,22 @@ class IndexContainer:
             raise ValueError(f"expected (M, {self.dim}), got {rows.shape}")
         start = ds.shape[0]
         if self.dtype == "int8":
-            raise NotImplementedError(
-                "writing int8 containers needs the int8 capacity mode, "
-                "ported with kernel B2 in a later change"
-            )
+            from ..ops.quant import quantize_rows_int8
+
+            q, scales = quantize_rows_int8(rows.astype(np.float32))
+            ds.resize((start + len(rows), self.dim))
+            ds[start:] = q
+            sds = self._f["embedding_scales"]
+            sds.resize((start + len(rows),))
+            sds[start:] = scales
+            if "embeddings_fp" in self._f:
+                from intelligent_video_analysis_retrieval_system_tpu import native
+
+                fp = self._f["embeddings_fp"]
+                fp.resize((start + len(rows), self.dim))
+                fp[start:] = native.f32_to_bf16(
+                    np.ascontiguousarray(rows, np.float32)
+                )
         else:
             stored = self._to_storage(rows)
             ds.resize((start + len(rows), self.dim))

@@ -1,6 +1,6 @@
-"""UnifiedIndex: the searchable single-file index, dense rows on a device.
+"""UnifiedIndex: the searchable single-file index, rows on a device.
 
-Port of the dense device half of
+Port of the single-device half (dense and int8) of
 ``intelligent_video_analysis_retrieval_system_tpu/index/unified.py``:
 
 - the searchable state is a padded ``(capacity, dim)`` bf16/f32 tensor on
@@ -13,12 +13,18 @@ Port of the dense device half of
 - appends write into the padded capacity in place; an append past the
   capacity re-uploads;
 - tombstones are an int8 ``(capacity, 1)`` mask applied before chunk
-  selection.
+  selection;
+- int8 containers (the capacity mode) keep int8 rows and f32 per-row
+  scales on the device, with the row normalization folded into the scale;
+  search is :func:`ops.quant.topk_search_int8` (kernel B2 on a card). The
+  rows load from the ``.flat8`` sidecar when it is fresh, else from the
+  container, which then writes the sidecar for the next open. With
+  ``int8_rescore`` the widened int8 candidate set is rescored on the host
+  against the container's bf16 copy of the rows.
 
 Not ported yet (each raises ``NotImplementedError`` naming the later
-change): int8 containers (capacity mode, kernel B2), IVF ANN and the
-multi-device mesh. A container that carries a persisted ANN structure is
-served by the exact dense sweep, with a warning. Compaction and asset
+change): IVF ANN and the multi-device mesh. A container that carries a
+persisted ANN structure is served by the exact sweep, with a warning. Compaction and asset
 reads come with the builder and the REST server.
 """
 
@@ -34,14 +40,15 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from intelligent_video_analysis_retrieval_system_tpu import native
+
+from ..ops.quant import quantize_rows_int8, topk_search_int8
 from ..ops.topk import TILE_N, topk_search
 from ..retrieval.results import KeyframeMetadata, SearchResult
 from .container import IndexContainer
 
 __all__ = ["UnifiedIndex", "UnifiedIndexConfig"]
 
-_LATER_INT8 = ("int8 containers (the int8 capacity mode with kernel B2) are "
-               "ported in a later change")
 _LATER_ANN = "IVF ANN search is ported in a later change"
 _LATER_MESH = "multi-device search is ported in a later change"
 
@@ -51,6 +58,25 @@ _UPLOAD_ROWS = 262_144
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _fold_norm_into_scales(rows_i8: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Fold row L2-normalization into the int8 dequant scale:
+    ``score = (q . int) / ||int||``. The one definition shared by the upload
+    and the in-place append, so an appended row scores as it will after a
+    reload. Sums of squares of int8 rows are exact integers below 2^24, so
+    the result does not depend on the chunking (copy of the JAX function)."""
+    out = np.asarray(scales, np.float32).copy()
+    CH = 1_000_000
+    for s in range(0, len(rows_i8), CH):
+        q = rows_i8[s:s + CH].astype(np.int32)
+        n2 = np.einsum("nd,nd->n", q, q)              # exact integers
+        norms = np.sqrt(n2.astype(np.float32))        # exact f32 inputs
+        inv = (1.0 / np.maximum(norms, 1e-12)).astype(np.float32)
+        live = n2 > 0
+        view = out[s:s + CH]
+        view[live] = inv[live]
+    return out
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -64,11 +90,19 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 @dataclass(slots=True)
 class UnifiedIndexConfig:
-    """Runtime knobs of the dense index (the reference's fields that this
-    port reads; build and IVF fields come with those modes)."""
+    """Runtime knobs of the index (the reference's fields that this port
+    reads; build and IVF fields come with those modes)."""
 
     # L2-normalize rows at upload and append (cosine = inner product)
     normalize: bool = True
+    # int8 exact-rescore mode: an int8 container that carries the bf16 copy
+    # of its rows (``keep_fp``) rescores the int8 top (k * factor)
+    # candidates at full precision on the host
+    int8_rescore: bool = False
+    int8_rescore_factor: int = 4
+    # keep the bf16 rescore rows in host RAM instead of gathering them from
+    # the container per query (2 bytes x dim per row)
+    int8_rescore_cache: bool = False
     # IVF approximate search: refused until the ANN port lands
     ann: bool = False
     # False: ignore a persisted ANN structure without the warning
@@ -92,11 +126,15 @@ class UnifiedIndex:
         self.device = resolve_device(device)
         self._container: Any | None = None
         self._lock = threading.RLock()
-        self._dev_x: torch.Tensor | None = None       # (cap, dim) bf16/f32
+        self._dev_x: torch.Tensor | None = None       # (cap, dim) bf16/f32/int8
+        self._dev_scales: torch.Tensor | None = None  # (cap,) f32, int8 mode only
         self._n_valid = 0
         self._capacity = 0
         self._deleted: set[int] = set()
         self._dev_deleted: torch.Tensor | None = None  # (cap, 1) int8
+        # host-RAM bf16 bits of the rescore rows (config.int8_rescore_cache)
+        self._fp_cache: np.ndarray | None = None
+        self._fp_cache_n = 0
         # bumps on load/append/delete so result caches keyed on it never
         # serve hits from before a mutation
         self.generation = 0
@@ -131,6 +169,7 @@ class UnifiedIndex:
                 self._container.repair_to_consistent()
             self._load_metadata_cache()
             self._upload_embeddings()
+            self._maybe_build_fp_cache()
         self.load_time_s = time.perf_counter() - t0
         return self
 
@@ -144,6 +183,7 @@ class UnifiedIndex:
             self.path = container.path
             self._load_metadata_cache()
             self._upload_embeddings()
+            self._maybe_build_fp_cache()
         self.load_time_s = time.perf_counter() - t0
         return self
 
@@ -153,18 +193,19 @@ class UnifiedIndex:
                 self._container.close()
                 self._container = None
             self._dev_x = None
+            self._dev_scales = None
             self._dev_deleted = None
             self._n_valid = 0
             self._capacity = 0
             self._metadata = []
             self._row_by_key = {}
+            self._fp_cache = None
+            self._fp_cache_n = 0
 
     # -- device state -------------------------------------------------------
 
     def _upload_embeddings(self) -> None:
         assert self._container is not None
-        if self._container.dtype == "int8":
-            raise NotImplementedError(_LATER_INT8)
         if self.config.ann_restore and self._container.get_ann() is not None:
             logging.getLogger("ivars").warning(
                 "container carries a persisted ANN structure; IVF search is "
@@ -173,9 +214,22 @@ class UnifiedIndex:
         n = self._container.num_rows
         self._n_valid = n
         self.generation += 1
+        self._dev_scales = None
+        self._fp_cache = None
+        self._fp_cache_n = 0
         if n == 0:
             self._dev_x = None
             self._capacity = 0
+        elif self._container.dtype == "int8":
+            # int8 rows go up as they are; the row normalization is folded
+            # into the per-row scale (dividing a row by its norm is dividing
+            # its scale by the norm)
+            self._capacity = _ceil_to(n, TILE_N)
+            host = np.zeros((self._capacity, self._container.dim), np.int8)
+            host_s = np.zeros((self._capacity,), np.float32)
+            self._quantized_into(host[:n], host_s[:n])
+            self._dev_x = torch.from_numpy(host).to(self.device)
+            self._dev_scales = torch.from_numpy(host_s).to(self.device)
         else:
             self._capacity = _ceil_to(n, TILE_N)
             self._dev_x = self._rows_to_device(n, self._capacity)
@@ -193,8 +247,6 @@ class UnifiedIndex:
         p = (self.path.with_name(self.path.name + ".flat")
              if self.path is not None else None)
         if p is not None and p.is_file():
-            from intelligent_video_analysis_retrieval_system_tpu import native
-
             try:
                 f = native.FlatEmbeddingFile(p)
                 fn, fd, fname = f.header()
@@ -206,6 +258,63 @@ class UnifiedIndex:
             except OSError:  # stale or torn sidecar: the container wins
                 pass
         return self._container.read_embeddings(0, n)
+
+    # write the .flat8 sidecar only above this many rows (the JAX index's
+    # threshold): tiny corpora open instantly either way
+    _FLAT_MIN_ROWS = 10_000
+
+    def _fresh_flat8(self) -> "native.FlatInt8File | None":
+        """The ``.flat8`` sidecar when its header matches this container's
+        (rows, dim) and this config's ``normalize``, else None."""
+        if self.path is None or self._container is None:
+            return None
+        p = self.path.with_name(self.path.name + ".flat8")
+        if not p.is_file():
+            return None
+        try:
+            f = native.FlatInt8File(p)
+            n, d, norm = f.header()
+        except OSError:  # unreadable sidecar: the container wins
+            return None
+        if (n, d, norm) == (self._container.num_rows, self._container.dim,
+                            bool(self.config.normalize)):
+            return f
+        return None
+
+    def _quantized_into(self, rows_out: np.ndarray, scales_out: np.ndarray) -> None:
+        """Fill ``(n, d)`` int8 rows and ``(n,)`` f32 serving scales: from a
+        fresh ``.flat8`` sidecar (scales already folded) in one sequential
+        read, else from the container plus the fold, then write the sidecar
+        (at >= ``_FLAT_MIN_ROWS`` rows) so the next open reads it."""
+        assert self._container is not None
+        f8 = self._fresh_flat8()
+        if f8 is not None:
+            try:
+                f8.read_into(rows_out, scales_out)
+                return
+            except OSError:  # torn mid-read: the container wins
+                pass
+        rows, scales = self._container.read_quantized()
+        if self.config.normalize:
+            scales = _fold_norm_into_scales(rows, scales)
+        rows_out[:] = rows
+        scales_out[:] = scales
+        if self.path is not None and len(rows) >= self._FLAT_MIN_ROWS:
+            try:
+                native.FlatInt8File.write(self.path.with_name(self.path.name + ".flat8"),
+                                          rows, scales,
+                                          normalized=bool(self.config.normalize))
+            except OSError:  # a read-only directory is never a load failure
+                pass
+
+    def _quantize_like_upload(self, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Quantize new rows as the upload does on reload (normalization
+        folded into the scale), so appended rows score bit-identically to a
+        later reload."""
+        q, s = quantize_rows_int8(np.asarray(rows, np.float32))
+        if self.config.normalize:
+            s = _fold_norm_into_scales(q, s)
+        return q, s
 
     def _rows_to_device(self, n: int, cap: int) -> torch.Tensor:
         """Padded (cap, d) rows in the storage's compute dtype, normalized
@@ -249,11 +358,23 @@ class UnifiedIndex:
         if m == 0:
             return
         if self._dev_x is None or self._n_valid + m > self._capacity:
-            self._upload_embeddings()
+            self._reload_for_append()
             return
-        self._dev_x[self._n_valid:self._n_valid + m].copy_(
-            torch.from_numpy(np.ascontiguousarray(rows, np.float32)))
+        n = self._n_valid
+        if self._dev_scales is not None:  # int8
+            q, s = self._quantize_like_upload(rows)
+            self._dev_x[n:n + m].copy_(torch.from_numpy(q))
+            self._dev_scales[n:n + m].copy_(torch.from_numpy(s))
+        else:
+            self._dev_x[n:n + m].copy_(
+                torch.from_numpy(np.ascontiguousarray(rows, np.float32)))
         self._n_valid += m
+
+    def _reload_for_append(self) -> None:
+        """Re-upload past the capacity; the resident rescore cache is
+        rebuilt from the container, which already holds the new rows."""
+        self._upload_embeddings()
+        self._maybe_build_fp_cache()
 
     def _load_metadata_cache(self) -> None:
         assert self._container is not None
@@ -265,6 +386,73 @@ class UnifiedIndex:
             self._metadata.append(meta)
             self._row_by_key[meta.key] = i
 
+    # -- int8 exact rescore ---------------------------------------------------
+
+    def _maybe_build_fp_cache(self) -> None:
+        """Read the container's bf16 rescore rows into host RAM
+        (``config.int8_rescore_cache``). Caller holds the index lock."""
+        self._fp_cache = None
+        self._fp_cache_n = 0
+        if not (self.config.int8_rescore and self.config.int8_rescore_cache
+                and self._container is not None
+                and getattr(self._container, "has_fp_rows", False)):
+            return
+        n = self._n_valid
+        if n == 0:
+            return
+        chunk = 262_144
+        cache = np.empty((_ceil_to(n, chunk), self.dim), np.uint16)
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            cache[s:e] = self._container.read_fp_bits(s, e)
+        self._fp_cache = cache
+        self._fp_cache_n = n
+        logging.getLogger("ivars").info(
+            "int8_rescore_cache: %d bf16 rows resident in host RAM (%.2f GB)",
+            n, cache.nbytes / 1e9)
+
+    def _fp_cache_append(self, rows_f32: np.ndarray) -> None:
+        """Extend the resident rescore cache with appended rows (the bf16
+        bits the container's copy stores). Caller holds the index lock."""
+        if self._fp_cache is None or len(rows_f32) == 0:
+            return
+        if self._fp_cache_n >= self._n_valid:
+            # an append past the capacity reloaded the cache from the
+            # container, new rows included
+            return
+        bits = native.f32_to_bf16(np.ascontiguousarray(rows_f32, np.float32))
+        n0, m = self._fp_cache_n, len(bits)
+        if n0 + m > self._fp_cache.shape[0]:
+            grown = np.empty((max(_ceil_to(n0 + m, 262_144), int(n0 * 1.5)), self.dim),
+                             np.uint16)
+            grown[:n0] = self._fp_cache[:n0]
+            self._fp_cache = grown
+        self._fp_cache[n0:n0 + m] = bits
+        self._fp_cache_n = n0 + m
+
+    def _rescore_fp_host(self, q: np.ndarray, scores: np.ndarray, indices: np.ndarray,
+                         want: int) -> tuple[np.ndarray, np.ndarray]:
+        """Rescore the int8 search's widened candidates in f32 against their
+        bf16 rows (the resident cache, else a gather from the container) and
+        return the top ``want``, ties in candidate order. Caller holds the
+        index lock."""
+        b, k_dev = indices.shape
+        if k_dev == 0:
+            return scores, indices
+        finite = np.isfinite(scores)
+        safe = np.where(finite, indices, 0)
+        if self._fp_cache is not None:
+            bits = np.ascontiguousarray(self._fp_cache[safe.reshape(-1)])
+            rows = native.bf16_to_f32(bits).reshape(b, k_dev, -1)
+        else:
+            rows = self._container.read_fp_rows(safe.reshape(-1)).reshape(b, k_dev, -1)
+        new = np.einsum("bd,bkd->bk", q.astype(np.float32), rows,
+                        optimize=True).astype(np.float32)
+        new = np.where(finite, new, -np.inf)
+        order = np.argsort(-new, axis=1, kind="stable")[:, :want]
+        return (np.take_along_axis(new, order, axis=1),
+                np.take_along_axis(indices, order, axis=1))
+
     # -- search ---------------------------------------------------------------
 
     def search_vectors(
@@ -274,10 +462,13 @@ class UnifiedIndex:
         filter_fn: Callable[[KeyframeMetadata], bool] | None = None,
         over_fetch: int = 4,
     ) -> list[list[SearchResult]]:
-        """Top-k per query vector, as ranked SearchResults (exact search).
+        """Top-k per query vector, as ranked SearchResults (exact search;
+        an int8 container searches its quantized metric).
 
         ``filter_fn``: metadata predicate applied after the search, over
-        ``over_fetch`` x ``top_k`` candidates.
+        ``over_fetch`` x ``top_k`` candidates. With ``int8_rescore`` on an
+        int8 container that keeps its bf16 rows, ``int8_rescore_factor`` x
+        as many candidates are fetched and rescored at full precision.
         """
         with self._lock:
             if self._dev_x is None or self._n_valid == 0:
@@ -285,15 +476,33 @@ class UnifiedIndex:
             q = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
             q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
             fetch = min(self._n_valid, top_k * over_fetch if filter_fn else top_k)
-            result = topk_search(
-                self._dev_x,
-                torch.from_numpy(q).to(self.device, self._dev_x.dtype),
-                fetch,
-                n_valid=self._n_valid,
-                deleted=self._dev_deleted,
-            )
+            rescore_fp = (self.config.int8_rescore and self._dev_scales is not None
+                          and getattr(self._container, "has_fp_rows", False))
+            want = fetch
+            if rescore_fp:
+                fetch = min(self._n_valid,
+                            fetch * max(int(self.config.int8_rescore_factor), 1))
+            if self._dev_scales is not None:  # int8
+                result = topk_search_int8(
+                    self._dev_x,
+                    self._dev_scales,
+                    torch.from_numpy(q).to(self.device),
+                    fetch,
+                    n_valid=self._n_valid,
+                    deleted=self._dev_deleted,
+                )
+            else:
+                result = topk_search(
+                    self._dev_x,
+                    torch.from_numpy(q).to(self.device, self._dev_x.dtype),
+                    fetch,
+                    n_valid=self._n_valid,
+                    deleted=self._dev_deleted,
+                )
             scores = result.scores.float().cpu().numpy()
             indices = result.indices.cpu().numpy()
+            if rescore_fp:
+                scores, indices = self._rescore_fp_host(q, scores, indices, want)
             # snapshot the metadata INSIDE the lock: a concurrent reload
             # swaps self._metadata, and row ids must meet the metadata of
             # the rows they were computed on
@@ -425,6 +634,7 @@ class UnifiedIndex:
                 self._row_by_key[meta.key] = meta.row_id
             self.generation += 1
             self._append_device_rows(rows)
+            self._fp_cache_append(rows)
         return {"appended": len(rows), "ntotal": self._n_valid}
 
     # -- deletion (tombstones) ------------------------------------------------
@@ -460,6 +670,19 @@ class UnifiedIndex:
             self.generation += 1
             self._rebuild_deleted_mask()
         return {"deleted": len(fresh), "num_live": self.num_live}
+
+    def read_rows_f32(self, start: int = 0, end: int | None = None) -> np.ndarray:
+        """f32 rows whatever the storage dtype (int8 dequantizes), for
+        evaluation and export. An int8 container with the bf16 copy of its
+        rows answers from that copy, so evaluation oracles measure against
+        full precision rather than the dequantized int8 rows."""
+        if self._container is None:
+            raise RuntimeError("index not loaded")
+        if end is None:
+            end = self._n_valid
+        if getattr(self._container, "has_fp_rows", False):
+            return native.bf16_to_f32(self._container.read_fp_bits(start, end))
+        return self._container.read_embeddings_f32_any(start, end)
 
     # -- stats ----------------------------------------------------------------
 

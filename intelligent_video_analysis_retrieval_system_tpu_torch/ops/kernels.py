@@ -67,6 +67,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ivars_chunk_max.restype = i32
     lib.ivars_chunk_max.argtypes = [p, p, p, p, i64, i32, i32, i64, i32, p]
+    lib.ivars_int8_chunk_max.restype = i32
+    lib.ivars_int8_chunk_max.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64, p]
     lib.ivars_mha_fwd.restype = i32
     lib.ivars_mha_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
     lib.ivars_mha_smem_bytes.restype = i64

@@ -45,6 +45,7 @@ __all__ = [
     "cosine_topk",
     "chunk_max_sweep",
     "chunk_max_plain",
+    "topk_lowest_index_first",
 ]
 
 # rows reduced to one max per query; bounds the rescore at k*128 rows
@@ -97,6 +98,14 @@ def pad_queries(q: torch.Tensor) -> torch.Tensor:
     if b_pad == b:
         return q
     return torch.cat([q, q.new_zeros((b_pad - b, q.shape[1]))], dim=0)
+
+
+def topk_lowest_index_first(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``k`` along the last axis, equal scores in ascending index order
+    (the order ``lax.top_k`` returns; ``torch.topk`` leaves it unspecified):
+    a stable descending sort, cut at ``k``."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 # ---------------------------------------------------------------------------

@@ -152,8 +152,13 @@ class EnhancedRetrievalSystem:
         if index_type not in ("flat", "exact", "IndexFlatIP", "IndexFlatL2"):
             self.logger.warning(
                 f"Unknown index type: {index_type}, using exact flat search")
-        # "exact" (the native spelling) also ignores a persisted ANN group
-        return UnifiedIndexConfig(ann_restore=index_type != "exact")
+        return UnifiedIndexConfig(
+            int8_rescore=bool(sec.get("int8_rescore", False)),
+            int8_rescore_factor=int(sec.get("int8_rescore_factor", 4)),
+            int8_rescore_cache=bool(sec.get("int8_rescore_cache", False)),
+            # "exact" (the native spelling) also ignores a persisted ANN group
+            ann_restore=index_type != "exact",
+        )
 
     def _rebuild_metadata(self) -> None:
         if self.index is None or self.index.ntotal == 0:

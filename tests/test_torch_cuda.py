@@ -9,13 +9,15 @@ imports no JAX, so it runs on a machine without it; there the repo's
 
 Tolerances: B1 chunk maxima 1e-3 (the kernel sums in another order than
 the f32 matmul of the plain version); top-k tie-aware (5e-4); B3 f32 1e-5,
-bf16 2e-2.
+bf16 2e-2. B2 (int8) is exact: chunk maxima ``torch.equal`` to the plain
+version, top-k tie-aware with atol 0 against the full-matrix reference.
 """
 
 import pytest
 import torch
 
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention as tatt
+from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant as tq
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import topk as ttopk
 from intelligent_video_analysis_retrieval_system_tpu_torch.testing import tie_aware_equal
 
@@ -100,3 +102,66 @@ def test_mha_gradient_on_card(cuda_device):
     tatt._einsum_attention(*refs, 4).backward(g)
     for t, r in zip(ts, refs):
         torch.testing.assert_close(t.grad, r.grad, atol=1e-5, rtol=1e-5)
+
+
+def _int8_rows(gen, n, d, device):
+    """Quantized unit rows with exact duplicates (ties) across chunks."""
+    x = torch.nn.functional.normalize(torch.randn(n, d, generator=gen, device=device), dim=-1)
+    x[[3, 700, 5000]] = x[1234].clone()
+    x_i8, xs = tq.symmetric_int8(x, dim=-1)
+    return x_i8, xs[:, 0].contiguous()
+
+
+@pytest.mark.parametrize("b", [1, 8, 20, 33, 64, 128, 160])
+@pytest.mark.parametrize("d", [768, 64])
+def test_int8_chunk_max_kernel_matches_plain(cuda_device, b, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * d)
+    x_i8, xs = _int8_rows(gen, 8192, d, cuda_device)
+    q_i8, _ = tq.symmetric_int8(torch.randn(b, d, generator=gen, device=cuda_device), dim=-1)
+    dead = (torch.rand(8192, generator=gen, device=cuda_device) < 0.01).to(torch.int8)
+    before = tq.int8_chunk_max_sweep.launches
+    got = tq.int8_chunk_max_sweep(x_i8, xs, q_i8, 8000, dead)
+    torch.cuda.synchronize()
+    # one launch per 64 queries of the padded batch
+    assert tq.int8_chunk_max_sweep.launches == before + -(-ttopk.bucket_b(b) // 64)
+    assert got.shape == (8192 // ttopk.CHUNK, b)
+    want = tq.int8_chunk_max_plain(x_i8, xs, q_i8, 8000, dead)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_int8_topk_search_on_card_matches_reference(cuda_device, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    x_i8, xs = _int8_rows(gen, 20480, 64, cuda_device)
+    q = torch.randn(5, 64, generator=gen, device=cuda_device)
+    q[0] = x_i8[1234].float()
+    dead = (torch.rand(20480, generator=gen, device=cuda_device) < 0.01).to(torch.int8)
+    dead[[3, 700, 5000, 1234]] = 0
+    before = tq.int8_chunk_max_sweep.launches
+    res = tq.topk_search_int8(x_i8, xs, q, k, n_valid=19000, deleted=dead)
+    assert tq.int8_chunk_max_sweep.launches == before + 1   # phase 1 ran B2
+    ref = tq.int8_reference(x_i8[:19000], xs[:19000], q, k, deleted=dead)
+    for i in range(5):
+        tie_aware_equal(res.indices[i].cpu().numpy(), res.scores[i].cpu().numpy(),
+                        ref.indices[i].cpu().numpy(), ref.scores[i].cpu().numpy(), atol=0.0)
+    if k >= 4:
+        assert sorted(res.indices[0, :4].tolist()) == [3, 700, 1234, 5000]
+
+
+def test_int8_chunk_max_refuses_bad_input(cuda_device):
+    n = ttopk.TILE_N
+    xs = torch.ones(n, device=cuda_device)
+    q = torch.zeros(2, 32, dtype=torch.int8, device=cuda_device)
+    raw = torch.zeros(n * 32 + 1, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):   # 1-byte offset
+        tq.int8_chunk_max_sweep(raw[1:].view(n, 32), xs, q, 10)
+    with pytest.raises(ValueError):   # rows not padded to TILE_N
+        tq.int8_chunk_max_sweep(torch.zeros(n - 128, 32, dtype=torch.int8, device=cuda_device),
+                                xs[:n - 128], q, 10)
+    with pytest.raises(ValueError):   # a row of 24 bytes
+        tq.int8_chunk_max_sweep(torch.zeros(n, 24, dtype=torch.int8, device=cuda_device), xs,
+                                torch.zeros(2, 24, dtype=torch.int8, device=cuda_device), 10)
+    with pytest.raises(ValueError):   # no plain search on the card
+        tq.topk_search_int8(torch.zeros(n, 32, dtype=torch.int8, device=cuda_device), xs,
+                            torch.zeros(2, 32, device=cuda_device), 3, use_pallas=False)

@@ -6,6 +6,10 @@ append within the padded capacity, an append past it, and a metadata
 filter. The JAX index runs its plain reference search on CPU; the port runs
 its two-phase search with the plain chunk-max sweep. f32 rows: the same ids
 and scores within 1e-5; bf16 rows: tie-aware (atol 5e-4).
+
+int8 containers (the capacity mode) answer bit for bit like the JAX index,
+ties included, through the same mutations, with and without the exact
+rescore against the bf16 copy, and over the ``.flat8`` sidecar.
 """
 
 import shutil
@@ -193,15 +197,6 @@ def test_unported_modes_raise(tmp_path):
         UnifiedIndex(UnifiedIndexConfig(ann=True))
     with pytest.raises(NotImplementedError):
         UnifiedIndex(mesh=object())
-    with JaxContainer(tmp_path / "i8.rvdb", "w", dim=DIM, dtype="int8") as c:
-        c.append_embeddings(np.ones((4, DIM), np.float32))
-        c.append_metadata([_record(i) for i in range(4)])
-        c.flush_checkpoint()
-    with pytest.raises(NotImplementedError):
-        UnifiedIndex().load_unified_index(tmp_path / "i8.rvdb")
-    with pytest.raises(NotImplementedError):
-        with IndexContainer(tmp_path / "w8.rvdb", "w", dim=DIM, dtype="int8") as c:
-            c.append_embeddings(np.ones((4, DIM), np.float32))
 
 
 def test_cuda_device_without_cuda_raises():
@@ -231,3 +226,154 @@ def test_similarity_graph_matches_jax():
             assert [n for n, _ in got] == [n for n, _ in pairs]
             np.testing.assert_allclose([s for _, s in got], [s for _, s in pairs], atol=1e-5)
     assert t.stats() == j.stats()
+
+
+# ---------------------------------------------------------------------------
+# int8 capacity mode: bit for bit against the JAX index
+# ---------------------------------------------------------------------------
+
+
+def _write_int8(path, n: int = N, seed: int = 0, keep_fp: bool = True):
+    """A JAX-written int8 container (with the bf16 copy when ``keep_fp``);
+    rows 7, 100 and 2500 duplicate row 1000, so they tie exactly."""
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((n, DIM)).astype(np.float32)
+    rows[[7, 100, 2500]] = rows[1000]
+    with JaxContainer(path, "w", dim=DIM, dtype="int8", keep_fp=keep_fp) as c:
+        for s in range(0, n, 4096):
+            c.append_embeddings(rows[s:s + 4096])
+        c.append_metadata([_record(i) for i in range(n)])
+        c.flush_checkpoint()
+    return rows
+
+
+def _assert_equal_int8(j, t, q, top_k=10):
+    jr = j.search_vectors(q, top_k=top_k)
+    tr = t.search_vectors(q, top_k=top_k)
+    assert len(jr) == len(tr)
+    for jh, th in zip(jr, tr):
+        (ji, js), (ti, ts) = _ids(jh), _ids(th)
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(ts, js)
+
+
+@pytest.mark.parametrize("mode", ["int8", "rescore", "rescore_cache"])
+def test_int8_index_matches_jax_bit_for_bit(tmp_path, mode):
+    from intelligent_video_analysis_retrieval_system_tpu.index.unified import (
+        UnifiedIndexConfig as JaxConfig,
+    )
+
+    rows = _write_int8(tmp_path / "a.rvdb")
+    shutil.copy(tmp_path / "a.rvdb", tmp_path / "b.rvdb")
+    kw = dict(int8_rescore=mode != "int8", int8_rescore_cache=mode == "rescore_cache")
+    j = JaxIndex(JaxConfig(**kw)).load_unified_index(tmp_path / "a.rvdb", mode="a")
+    t = UnifiedIndex(UnifiedIndexConfig(**kw)).load_unified_index(tmp_path / "b.rvdb",
+                                                                   mode="a")
+    assert t._dev_x.dtype == torch.int8 and t.get_stats()["capacity"] == 4096
+    assert (t._fp_cache is not None) == (mode == "rescore_cache")
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((5, DIM)).astype(np.float32)
+    q[0] = rows[1000]                                    # the tie group
+    _assert_equal_int8(j, t, q)
+    top = [h.metadata.row_id for h in t.search_vectors(q[:1], top_k=4)[0]]
+    if mode == "int8":   # the quantized metric ties the duplicates exactly
+        assert top == [7, 100, 1000, 2500]
+    # deletes: a tie member, each query's best row, a scatter
+    dead = [100] + [h[0].metadata.row_id for h in t.search_vectors(q, top_k=1)] + \
+        list(range(0, N, 97))
+    assert t.delete_rows(dead) == j.delete_rows(dead)
+    _assert_equal_int8(j, t, q, top_k=20)
+    # append within the capacity: in place, the same buffer
+    new = rng.standard_normal((60, DIM)).astype(np.float32)
+    new[3] = rows[1000]
+    meta = [_record(N + i) for i in range(60)]
+    buf = t._dev_x
+    assert t.incremental_update(new, meta) == j.incremental_update(new, meta)
+    assert t._dev_x is buf and t.ntotal == N + 60
+    _assert_equal_int8(j, t, np.concatenate([q, new[:3]]), top_k=15)
+    # append past the capacity: re-upload from the container
+    big = rng.standard_normal((1200, DIM)).astype(np.float32)
+    meta = [_record(N + 60 + i) for i in range(1200)]
+    assert t.incremental_update(big, meta) == j.incremental_update(big, meta)
+    assert t.get_stats()["capacity"] == 6144 and t.ntotal == N + 1260
+    _assert_equal_int8(j, t, np.concatenate([q, big[-3:]]), top_k=12)
+    np.testing.assert_array_equal(t.read_rows_f32(N - 5, N + 70),
+                                  j.read_rows_f32(N - 5, N + 70))
+    j.close()
+    t.close()
+    # reopened, both packages still answer the same
+    j = JaxIndex(JaxConfig(**kw)).load_unified_index(tmp_path / "a.rvdb")
+    t = UnifiedIndex(UnifiedIndexConfig(**kw)).load_unified_index(tmp_path / "b.rvdb")
+    _assert_equal_int8(j, t, q, top_k=10)
+    j.close()
+    t.close()
+
+
+def test_int8_in_place_append_scores_as_a_reload(tmp_path):
+    _write_int8(tmp_path / "a.rvdb", keep_fp=False)
+    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb", mode="a")
+    new = np.random.default_rng(3).standard_normal((40, DIM)).astype(np.float32)
+    t.incremental_update(new, [_record(N + i) for i in range(40)])
+    x, s = t._dev_x[:N + 40].clone(), t._dev_scales[:N + 40].clone()
+    t.close()
+    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    assert torch.equal(t._dev_x[:N + 40], x) and torch.equal(t._dev_scales[:N + 40], s)
+    t.close()
+
+
+def test_flat8_sidecar_route(tmp_path):
+    n = 10_240   # at or above the sidecar threshold
+    _write_int8(tmp_path / "a.rvdb", n=n, keep_fp=False)
+    side = tmp_path / "a.rvdb.flat8"
+    j = JaxIndex().load_unified_index(tmp_path / "a.rvdb")   # writes the sidecar
+    assert side.is_file()
+    jax_bytes = side.read_bytes()
+    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    assert side.read_bytes() == jax_bytes
+    q = np.random.default_rng(2).standard_normal((4, DIM)).astype(np.float32)
+    _assert_equal_int8(j, t, q)
+    j.close()
+    t.close()
+    # the port writes the same sidecar when there is none
+    side.unlink()
+    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    assert side.read_bytes() == jax_bytes
+    t.close()
+    # a fresh sidecar is what the port serves: rows that differ from the
+    # container's show up on the device
+    other = np.random.default_rng(9).integers(-127, 128, (n, DIM), dtype=np.int8)
+    scales = np.random.default_rng(9).uniform(0.01, 0.1, n).astype(np.float32)
+    native.FlatInt8File.write(side, other, scales, normalized=True)
+    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    np.testing.assert_array_equal(t._dev_x[:n].numpy(), other)
+    np.testing.assert_array_equal(t._dev_scales[:n].numpy(), scales)
+    t.close()
+    # stale (another row count, or another normalize setting): the container wins
+    for rows_, norm in ((other[:10], True), (other, False)):
+        native.FlatInt8File.write(side, rows_, scales[:len(rows_)], normalized=norm)
+        t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+        j = JaxIndex().load_unified_index(tmp_path / "a.rvdb")
+        np.testing.assert_array_equal(t._dev_x[:n].numpy(), np.asarray(j._dev_x[:n]))
+        np.testing.assert_array_equal(t._dev_scales[:n].numpy(),
+                                      np.asarray(j._dev_scales[:n]))
+        t.close()
+        j.close()
+
+
+def test_port_container_writes_int8_as_jax_does(tmp_path):
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((70, DIM)).astype(np.float32)
+    for path, cls in ((tmp_path / "t.rvdb", IndexContainer), (tmp_path / "j.rvdb", JaxContainer)):
+        with cls(path, "w", dim=DIM, dtype="int8", keep_fp=True) as c:
+            c.append_embeddings(rows[:50])
+            c.append_embeddings(rows[50:])
+            c.append_metadata([_record(i) for i in range(70)])
+            c.flush_checkpoint()
+    with JaxContainer(tmp_path / "t.rvdb", "r") as a, JaxContainer(tmp_path / "j.rvdb", "r") as b:
+        for x, y in zip(a.read_quantized(), b.read_quantized()):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(a.read_fp_bits(), b.read_fp_bits())
+        assert a.has_fp_rows and b.has_fp_rows
+    with IndexContainer(tmp_path / "j.rvdb", "r") as c:
+        np.testing.assert_array_equal(c.read_fp_rows(np.array([5, 3, 5])),
+                                      native.bf16_to_f32(native.f32_to_bf16(rows[[5, 3, 5]])))

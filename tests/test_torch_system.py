@@ -12,6 +12,10 @@ the same ``.rvdb``, and answer the same text queries.
   scores are compared within that bound plus the 5e-4 of the repo's
   tie-aware rule.
 
+- int8 (the capacity mode): both facades fed the same query vectors answer
+  with the same keyframes and scores, exactly, with and without the exact
+  rescore; ``cli evaluate`` prints the same report as the JAX CLI.
+
 Also here: the request layer and the micro-batcher around the port, a run
 of the whole slice with JAX blocked from importing, the CLI, and
 ``chip_smoke.py`` refusing to run without a card.
@@ -251,6 +255,19 @@ b.start()
 assert len(b.search("a boat", top_k=2)) == 2
 b.stop()
 system.cleanup()
+with IndexContainer(root + "/i8.rvdb", "w", dim=32, dtype="int8", keep_fp=True) as c:
+    c.append_embeddings(rows)
+    c.append_metadata([{"folder": "v", "image": f"{i}.jpg", "frame_id": i}
+                       for i in range(3000)])
+    c.flush_checkpoint()
+system = create_system(torch_device="cpu", paths={"cache_dir": root + "/c8",
+                                                  "temp_dir": root + "/t8"},
+                       index={"int8_rescore": True})
+system.embedder._config_override = CLIPConfig.tiny_test()
+system.load_system(root + "/i8.rvdb")
+assert system.index._dev_x.dtype == torch.int8
+assert len(system.search("a car", SearchOptions(limit=5))) == 5
+system.cleanup()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -291,6 +308,20 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
+def test_chip_smoke_device_time_unions_intervals():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    ev = [{"ph": "X", "cat": "kernel", "ts": 0, "dur": 100, "name": "int8_chunk_max_kernel"},
+          {"ph": "X", "cat": "gpu_memcpy", "ts": 50, "dur": 100, "name": "Memcpy DtoH"},
+          {"ph": "X", "cat": "kernel", "ts": 60, "dur": 10, "name": "void chunk_max_bf16_kernel"},
+          {"ph": "X", "cat": "cuda_runtime", "ts": 0, "dur": 500, "name": "cudaLaunchKernel"},
+          {"ph": "X", "cat": "kernel", "ts": 400, "dur": 20, "name": "elementwise"}]
+    busy, ops, per_kernel = chip_smoke.device_time({"traceEvents": ev})
+    assert busy == pytest.approx(0.17) and ops == 4   # µs -> ms; runtime calls are host
+    assert per_kernel == pytest.approx({"b1": 0.01, "b2": 0.1, "b3": 0.0})
+
+
 def test_cli_search(tmp_path, monkeypatch, capsys):
     from intelligent_video_analysis_retrieval_system_tpu_torch import cli
     from intelligent_video_analysis_retrieval_system_tpu_torch.models import convert
@@ -303,6 +334,94 @@ def test_cli_search(tmp_path, monkeypatch, capsys):
                      "cpu", "--limit", "3", "--json"]) == 0
     hits = json.loads(capsys.readouterr().out)
     assert len(hits) == 3 and hits[0]["rank"] == 1
+
+
+def _write_int8_index(path: Path) -> None:
+    """A JAX-written int8 index with the bf16 copy (keep_fp); rows 3, 40
+    and 2000 duplicate row 11 (exact int8 ties)."""
+    rng = np.random.default_rng(6)
+    rows = rng.standard_normal((N, DIM)).astype(np.float32)
+    rows[[3, 40, 2000]] = rows[11]
+    with JaxContainer(path, "w", dim=DIM, dtype="int8", keep_fp=True) as c:
+        c.append_embeddings(rows)
+        c.append_metadata([{"folder": f"vid{i // 250}", "image": f"{i % 250}.jpg",
+                            "frame_id": i % 250, "row_id": i} for i in range(N)])
+        c.flush_checkpoint()
+
+
+@pytest.mark.parametrize("rescore", [False, True])
+def test_int8_facade_matches_jax_bit_for_bit(tmp_path, rescore):
+    """Both facades over one int8 index, fed the same query vectors (the
+    port's text tower encodes for both, so the query quantization sees the
+    same bits): the same keyframes and the same scores, exactly."""
+    _write_int8_index(tmp_path / "i8.rvdb")
+    over = {"index": {"dtype": "int8", "int8_rescore": rescore}}
+    jemb = JaxEmbedder(config=JaxCLIPConfig.tiny_test(), parity_mode=True)
+    jsys = JaxSystem(Config(config_file=None, base_dir=tmp_path, overrides=over),
+                     embedder=jemb)
+    jsys.load_system(tmp_path / "i8.rvdb")
+    jemb.ensure_loaded()
+    temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=True)
+    temb.load_params(from_jax_params(jax.tree_util.tree_map(np.asarray, jemb.params),
+                                     CLIPConfig.tiny_test()))
+    tsys = EnhancedRetrievalSystem(
+        Config(config_file=None, base_dir=tmp_path, overrides=over), embedder=temb)
+    tsys.load_system(tmp_path / "i8.rvdb")
+    assert tsys.index._dev_x.dtype == torch.int8
+    assert tsys.index.config.int8_rescore is rescore
+    jemb.encode_text = lambda texts: temb.encode_text(texts)
+    for query in QUERIES:
+        for limit in (1, 10, 37):
+            want = jsys.search(query, JaxOptions(limit=limit))
+            got = tsys.search(query, SearchOptions(limit=limit))
+            assert len(got) == len(want) == limit
+            (gk, gs), (wk, ws) = _pairs(got), _pairs(want)
+            assert gk == wk
+            np.testing.assert_array_equal(gs, ws)
+    want = jsys.search_batch(QUERIES, JaxOptions(limit=9))
+    got = tsys.search_batch(QUERIES, SearchOptions(limit=9))
+    for g, w in zip(got, want):
+        assert _pairs(g)[0] == _pairs(w)[0]
+        np.testing.assert_array_equal(_pairs(g)[1], _pairs(w)[1])
+    # the tie group comes back lowest row first, in both
+    qvec = tsys.index.read_rows_f32(11, 12)
+    hits = tsys.index.search_vectors(qvec, top_k=4)[0]
+    jhits = jsys.index.search_vectors(qvec, top_k=4)[0]
+    assert [h.metadata.row_id for h in hits] == [h.metadata.row_id for h in jhits]
+    if not rescore:
+        assert [h.metadata.row_id for h in hits] == [3, 11, 40, 2000]
+    for system in (jsys, tsys):
+        system.cleanup()
+
+
+@pytest.mark.parametrize("search", ["exact", "int8_rescore"])
+def test_cli_evaluate_matches_jax(tmp_path, monkeypatch, capsys, search):
+    from intelligent_video_analysis_retrieval_system_tpu import cli as jcli
+    from intelligent_video_analysis_retrieval_system_tpu_torch import cli
+
+    _write_int8_index(tmp_path / "ev.rvdb")
+    monkeypatch.chdir(tmp_path)
+    args = ["evaluate", str(tmp_path / "ev.rvdb"), "--search", search, "--queries", "16",
+            "--noise", "0.3"]
+    assert jcli.main(args) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got == want
+    assert got["dtype"] == "int8" and got["queries"] == 16
+
+
+def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
+    from intelligent_video_analysis_retrieval_system_tpu_torch import cli
+
+    _write_int8_index(tmp_path / "st.rvdb")
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["stats", str(tmp_path / "st.rvdb"), "--device", "cpu"]) == 0
+    stats = json.loads(capsys.readouterr().out)
+    assert stats["ntotal"] == N and stats["container"]["dtype"] == "int8"
+    with pytest.raises(NotImplementedError):
+        cli.main(["evaluate", str(tmp_path / "st.rvdb"), "--search", "ann",
+                  "--device", "cpu"])
 
 
 def test_unported_entry_points_raise(tmp_path):
