@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the text-query serving paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving and index-build paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -41,17 +41,41 @@ non-zero):
             over the same device rows and scales (atol 0); then the 8
             requests again with ``int8_rescore``, equal to a host f32 rescore
             of the top (k x factor) candidates of ``int8_reference``.
-6. numbers  p50/p95 text-query latency (encode + search, 24 warm queries)
-            of both slices, kernel vs plain times (CUDA events).
+6. build    the build path's kernels first: B5 (normalize) at (256, 224,
+            224, 3) uint8 -> bf16 and (8, 224, 224, 3) f32 -> f32,
+            ``torch.equal`` to its plain version; B4 (fused LN+MLP) at the
+            ViT-L/14 vision shape (B = 8 and 256, T = 257, D = 1024, H =
+            4096, bf16), the text shape (8, 77, 768; H = 3072) and one f32
+            case, against its plain version (bf16: max abs difference <=
+            0.01 x the output's max abs; f32: atol 5e-5). Then a system with
+            seeded random ViT-L/14 towers in bf16 and ``fused_mlp=True``
+            builds 8,192 keyframes of 224 x 224 x 3 in 8 video folders
+            through ``build_system`` -> ``RAGBuilder.build_index`` (chunks of
+            1,024, encode batches of 256): real JPEGs where PIL imports and a
+            real ``.rvdb`` where h5py imports, else a ``RAGBuilder`` subclass
+            that replaces only the missing piece (the route is printed).
+            Checked: the report (8,192 processed, 0 failed, 8 chunks), B5
+            once and B3 and B4 24 times per encode batch, the progress
+            events, 256 built rows against an embedder without ``fused_mlp``
+            (cosine >= 0.999), a second build that resumes and skips every
+            file, 8 image queries that return their own frame first (score
+            >= 0.99), 8 text requests equal to the exact reference; then
+            1,024 frames built with ``index.dtype="int8"`` and served equal
+            to ``int8_reference`` (atol 0).
+7. numbers  p50/p95 text-query latency (encode + search, 24 warm queries)
+            of both serving slices, images/s of the build, kernel vs plain
+            vs library-call times (CUDA events) beside each kernel's bound.
 
 Each slice sets every launch count to 0 just before it runs and reads the
 counts just after; the kernels' JSON line reports B1 and B3 from the bf16
-slice and B2 from the int8 slice.
+slice, B2 from the int8 slice and B4 and B5 from the build.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``--profile`` runs phases 1-2, then serves the same 1M rows in bf16 and in
+``--profile`` runs phases 1-2, then a build of 2,048 keyframes (one JSON
+line: where its wall time goes on the host and which kernels fill its
+device time), then serves the same 1M rows in bf16 and in
 int8 and prints one JSON line per query phase (search, encode, search_vectors
 at B=1 and 32, search_batch at B=32): wall p50/p95 of 20 warm calls, each
 ended by a synchronize, then a ``torch.profiler`` trace of 20 more calls
@@ -89,6 +113,25 @@ N_REQUESTS = 8
 N_LATENCY = 24
 ATOL_CHUNK = 1e-3  # chunk maxima: summation order differs
 TOL_MHA = 2e-2     # bf16 attention output
+TOL_LN_MLP = 1e-2  # bf16 LN+MLP: max abs difference over the output's max abs
+ATOL_LN_MLP_F32 = 5e-5  # f32 LN+MLP: sums in another order, rsqrtf
+N_FRAMES = 8192    # the build phase: keyframes, in N_FOLDERS video folders
+N_FOLDERS = 8
+N_FRAMES_INT8 = 1024
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its operations over the
+    peak rate for their type."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -170,7 +213,15 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
         log("numbers", f"B1 B={b}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of rows), "
             f"plain {plain:.4f} ms")
         if b == 8:
-            b1.update(ms=ms, plain_ms=plain)
+            # yardstick (timed only, the port never calls it): one matmul over the
+            # same rows and the max per 128-row chunk, without the masks
+            lib = timer(lambda: (x @ q.T).view(n_pad // topk.CHUNK, topk.CHUNK, b).amax(dim=1),
+                        iters=10)
+            b1.update(ms=ms, plain_ms=plain, library_ms=lib,
+                      **bound(n_pad * dim * 2 + b * dim * 2 + n_pad + n_pad // topk.CHUNK * b * 4,
+                              2.0 * n_pad * dim * b, "bf16"))
+            log("numbers", f"B1 B=8: bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}), "
+                f"library matmul + amax {lib:.4f} ms")
     del x, dead
 
     # B3 at ViT-L/14 attention shapes
@@ -190,7 +241,18 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
         if b == 8:
             mha["ms"] = timer(lambda: attention.fused_mha(q, k, v, h), iters=20)
             mha["plain_ms"] = timer(lambda: attention._einsum_attention(q, k, v, h), iters=20)
-            log("numbers", f"B3 B=8: kernel {mha['ms']:.4f} ms, plain {mha['plain_ms']:.4f} ms")
+            dh = d // h
+
+            def heads(y):
+                return y.view(b, t, h, dh).transpose(1, 2)
+
+            mha["library_ms"] = timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v)), iters=20)
+            mha.update(bound(4 * b * t * d * 2, 4.0 * b * h * t * t * dh, "bf16"))
+            log("numbers", f"B3 B=8: kernel {mha['ms']:.4f} ms, plain {mha['plain_ms']:.4f} ms, "
+                f"library scaled_dot_product_attention {mha['library_ms']:.4f} ms, bound "
+                f"{mha['bound_ms']:.4f} ms ({mha['bound_by']})")
     if require_kernels and (topk.chunk_max_sweep.launches == 0
                             or attention.fused_mha.launches == 0):
         raise AssertionError("a kernel comparison ran without launching its kernel")
@@ -270,7 +332,20 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
             f"{n_pad * dim / 3.35e12 * 1e3:.2f} ms at 3.35 TB/s), plain {plain:.4f} ms; "
             f"topk_search_int8 k=20 {search:.4f} ms")
         if b == 8:
-            b2.update(ms=ms, plain_ms=plain)
+            # yardstick (timed only): one int8 matmul over the same rows, the row
+            # scales and the max per chunk, without the masks
+            lib = None
+            if device.type == "cuda":
+                def int_mm():
+                    dots = torch._int_mm(x_i8, q_i8.T.contiguous()).float()
+                    return (dots * xs[:, None]).view(n_pad // topk.CHUNK, topk.CHUNK,
+                                                     b).amax(dim=1)
+                lib = timer(int_mm, iters=5)
+            b2.update(ms=ms, plain_ms=plain, library_ms=lib,
+                      **bound(n_pad * dim + n_pad * 4 + b * dim + n_pad
+                              + n_pad // topk.CHUNK * b * 4, 2.0 * n_pad * dim * b, "int8"))
+            log("numbers", f"B2 B=8: bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}), "
+                f"library _int_mm + scale + amax {lib} ms")
     if require_kernels and quant.int8_chunk_max_sweep.launches == 0:
         raise AssertionError("the B2 comparison ran without launching its kernel")
     return b2
@@ -837,12 +912,541 @@ def run_int8_slice(device, bits: np.ndarray, require_kernels: bool, config=None)
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the build path's kernels (B4, B5) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_build_kernels(device, timer: Timer, require_kernels: bool, config=None):
+    """B5 (normalize) and B4 (LN+MLP half-block) at the shapes the build
+    path gives them, each against its plain version; times, bounds and the
+    library yardsticks (which the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import block, preprocess
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    on_card = device.type == "cuda"
+    size = 224 if config is None else config.vision.image_size
+    big = 256 if config is None else 16
+
+    # B5: uint8 -> bf16 at the build's batch, f32 -> f32 at the resize path's
+    b5 = {"max_abs_err": 0.0}
+    for batch, in_dtype, out_dtype in ((big, torch.uint8, torch.bfloat16),
+                                       (8, torch.float32, torch.float32)):
+        img = torch.randint(0, 256, (batch, size, size, 3), generator=gen, device=device,
+                            dtype=torch.uint8)
+        if in_dtype == torch.float32:
+            img = img.float() + torch.rand(img.shape, generator=gen, device=device) - 0.5
+        got = preprocess.normalize_images(img, dtype=out_dtype)
+        ref = preprocess.normalize_images_reference(
+            img, preprocess.CLIP_IMAGE_MEAN, preprocess.CLIP_IMAGE_STD, out_dtype)
+        if on_card:
+            torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"B5 {tuple(img.shape)} {in_dtype}->{out_dtype}: differs from "
+                                 f"the plain version by {err} (must be torch.equal)")
+        ms = timer(lambda: preprocess.normalize_images(img, dtype=out_dtype), iters=20)
+        plain = timer(lambda: preprocess.normalize_images_reference(
+            img, preprocess.CLIP_IMAGE_MEAN, preprocess.CLIP_IMAGE_STD, out_dtype), iters=10)
+        bd = bound(img.numel() * (img.element_size() + got.element_size()),
+                   3.0 * img.numel(), "f32")
+        log("kernels", f"B5 normalize_images {tuple(img.shape)} {in_dtype} -> {out_dtype}: "
+            "torch.equal to the plain version")
+        log("numbers", f"B5 {tuple(img.shape)} {in_dtype}->{out_dtype}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); no single "
+            "library call computes it")
+        if in_dtype == torch.uint8:
+            b5.update(ms=ms, plain_ms=plain, library_ms=None, **bd)
+        del img, got, ref
+
+    # B4: both towers' shapes in bf16, one f32 case
+    if config is None:
+        cases = [("vision B=8", (8, 257), 1024, 4096, torch.bfloat16),
+                 ("vision B=256", (256, 257), 1024, 4096, torch.bfloat16),
+                 ("text B=8", (8, 77), 768, 3072, torch.bfloat16),
+                 ("text f32 B=8", (8, 77), 768, 3072, torch.float32)]
+    else:  # CPU rehearsal: small shapes that pass the gate
+        cases = [("vision B=8", (8, 17), 128, 512, torch.bfloat16),
+                 ("vision B=256", (16, 17), 128, 512, torch.bfloat16),
+                 ("text f32 B=8", (8, 16), 128, 256, torch.float32)]
+    b4 = {"max_abs_err": 0.0}
+    for name, tokens, d, h, dtype in cases:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=device)
+
+        x = randn(*tokens, d).to(dtype)
+        g, beta = 1.0 + 0.1 * randn(d), 0.1 * randn(d)
+        w1, b1 = (randn(h, d) / d ** 0.5).to(dtype), 0.1 * randn(h)
+        w2, b2 = (randn(d, h) / h ** 0.5).to(dtype), 0.1 * randn(d)
+        args = (x, g, beta, w1, b1, w2, b2)
+        got = block.fused_ln_mlp(*args)
+        ref = block.fused_ln_mlp_reference(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B4 {name}: non-finite output")
+        if dtype == torch.float32:
+            if err > ATOL_LN_MLP_F32:
+                raise AssertionError(f"B4 {name}: max abs err {err} > {ATOL_LN_MLP_F32}")
+            tol = f"atol={ATOL_LN_MLP_F32}"
+        else:
+            if err > TOL_LN_MLP * top:
+                raise AssertionError(f"B4 {name}: max abs err {err} > {TOL_LN_MLP} x max abs "
+                                     f"{top}")
+            tol = f"<= {TOL_LN_MLP} x max abs {top:.3f}"
+            b4["max_abs_err"] = max(b4["max_abs_err"], err)
+        log("kernels", f"B4 fused_ln_mlp {name} tokens={tokens} D={d} H={h} {dtype} "
+            f"quick_gelu: max_abs_err={err:.3e} vs plain ({tol})")
+
+        def library():
+            # the unfused chain, on PyTorch's and cuBLAS's kernels
+            ln = F.layer_norm(x.float(), (d,), g, beta, 1e-5).to(dtype)
+            hid = F.linear(ln, w1, b1.to(dtype))
+            hid = hid * torch.sigmoid(1.702 * hid)
+            return x + F.linear(hid, w2, b2.to(dtype))
+
+        n_tok = x.numel() // d
+        iters = 5 if n_tok > 10_000 else 20
+        ms = timer(lambda: block.fused_ln_mlp(*args), iters=iters)
+        plain = timer(lambda: block.fused_ln_mlp_reference(*args), iters=3)
+        lib = timer(library, iters=iters)
+        esize = x.element_size()
+        bd = bound(2 * x.numel() * esize + (w1.numel() + w2.numel()) * esize
+                   + (3 * d + h) * 4, 4.0 * n_tok * d * h,
+                   "bf16" if dtype == torch.bfloat16 else "f32")
+        log("numbers", f"B4 {name}: kernel {ms:.4f} ms ({4.0 * n_tok * d * h / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain:.4f} ms, library unfused chain {lib:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if name == "vision B=256":   # the build path's shape
+            b4.update(ms=ms, plain_ms=plain, library_ms=lib, **bd)
+        del args, x, w1, w2, got, ref
+    if require_kernels and (block.fused_ln_mlp.launches == 0
+                            or preprocess.normalize_images.launches == 0):
+        raise AssertionError("a kernel comparison ran without launching its kernel")
+    return b4, b5
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the build path end to end
+# ---------------------------------------------------------------------------
+
+
+def frame_pixels(folder: int, n: int, size: int) -> np.ndarray:
+    """Keyframe ``n`` of video ``folder``: an 8 x 8 board of seeded colours."""
+    cells = np.random.default_rng([folder, n]).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    return np.kron(cells, np.ones((size // 8, size // 8, 1), np.uint8))
+
+
+def write_keyframes(root: Path, n_folders: int, per_folder: int, size: int,
+                    have_pil: bool) -> None:
+    """``root/video_XX/NNNNNN.jpg`` and ``root/../map/video_XX.csv``: real
+    JPEGs where PIL imports, else files that hold the frame's seed (the
+    smoke's ``_decode_one`` makes the pixels from it)."""
+    import concurrent.futures as cf
+
+    def write(job) -> None:
+        folder, n = job
+        path = root / f"video_{folder:02d}" / f"{n:06d}.jpg"
+        if have_pil:
+            from PIL import Image
+
+            Image.fromarray(frame_pixels(folder, n, size)).save(path, format="JPEG", quality=90)
+        else:
+            path.write_bytes(f"{folder} {n}".encode())
+
+    map_dir = root.parent / "map"
+    map_dir.mkdir(parents=True, exist_ok=True)
+    for folder in range(n_folders):
+        (root / f"video_{folder:02d}").mkdir(parents=True, exist_ok=True)
+        lines = ["n,pts_time,fps,frame_idx"]
+        lines += [f"{n},{n / 2.0},25.0,{n * 12}" for n in range(per_folder)]
+        (map_dir / f"video_{folder:02d}.csv").write_text("\n".join(lines) + "\n")
+    jobs = [(f, n) for f in range(n_folders) for n in range(per_folder)]
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, jobs, chunksize=64))
+
+
+class WritableMemoryContainer(MemoryContainer):
+    """The write and read interface the builder and the index call, over
+    rows held in memory (for machines without h5py): bf16 bits, or int8 rows
+    with per-row scales as ``quantize_rows_int8`` makes them (and the bf16
+    copy when ``keep_fp``), as the real container stores them."""
+
+    mode = "a"
+
+    def __init__(self, path: Path, dim: int, dtype: str, keep_fp: bool = False) -> None:
+        if dtype not in ("bfloat16", "int8"):
+            raise ValueError(f"the in-memory stand-in stores bfloat16 or int8, not {dtype}")
+        self.path, self.dim, self.dtype = path, dim, dtype
+        self._bits = np.zeros((0, dim), np.uint16)     # bf16 rows, or the bf16 copy
+        self._q = np.zeros((0, dim), np.int8)
+        self._s = np.zeros((0,), np.float32)
+        self.has_fp_rows = dtype == "int8" and keep_fp
+        self._meta: list[dict] = []
+        self._thumbs: list[bytes] = []
+        self._journal: list[str] = []
+        self.maps: dict[str, str] = {}
+        self.system: dict = {}
+        self.checkpoints = 0
+
+    @property
+    def num_rows(self) -> int:
+        return len(self._q) if self.dtype == "int8" else len(self._bits)
+
+    @property
+    def num_metadata(self) -> int:
+        return len(self._meta)
+
+    @property
+    def num_thumbnails(self) -> int:
+        return len(self._thumbs)
+
+    def append_embeddings(self, rows: np.ndarray) -> tuple[int, int]:
+        from intelligent_video_analysis_retrieval_system_tpu_torch.ops.quant import (
+            quantize_rows_int8,
+        )
+
+        rows = np.ascontiguousarray(rows, np.float32)
+        start = self.num_rows
+        if self.dtype == "int8":
+            q, s = quantize_rows_int8(rows)
+            self._q, self._s = np.concatenate([self._q, q]), np.concatenate([self._s, s])
+        if self.dtype == "bfloat16" or self.has_fp_rows:
+            self._bits = np.concatenate([self._bits, native.f32_to_bf16(rows)])
+        return start, self.num_rows
+
+    def append_metadata(self, records: list[dict]) -> None:
+        self._meta.extend(dict(r) for r in records)
+
+    def append_thumbnails(self, jpegs: list[bytes]) -> None:
+        self._thumbs.extend(jpegs)
+
+    def append_journal(self, hashes: list[str]) -> None:
+        self._journal.extend(hashes)
+
+    def journal_hashes(self) -> set[str]:
+        return set(self._journal)
+
+    def put_map(self, folder: str, csv_text: str) -> None:
+        self.maps[folder] = csv_text
+
+    def put_system(self, key: str, value) -> None:
+        self.system[key] = value
+
+    def flush_checkpoint(self, extra: dict | None = None) -> None:
+        self.checkpoints += 1
+
+    def repair_to_consistent(self) -> int:
+        return 0
+
+    def read_embeddings(self, start: int = 0, end: int | None = None,
+                        as_float32: bool = False) -> np.ndarray:
+        if self.dtype == "int8":
+            q, s = self.read_quantized(start, end)
+            return q.astype(np.float32) * s[:, None] if as_float32 else q
+        return super().read_embeddings(start, end, as_float32)
+
+    def read_embeddings_f32_any(self, start: int = 0, end: int | None = None) -> np.ndarray:
+        return self.read_embeddings(start, end, as_float32=True)
+
+    def read_quantized(self, start: int = 0, end: int | None = None):
+        return self._q[start:end], self._s[start:end]
+
+    def read_fp_bits(self, start: int = 0, end: int | None = None) -> np.ndarray:
+        return self._bits[start:end]
+
+    def read_fp_rows(self, row_ids: np.ndarray) -> np.ndarray:
+        return native.bf16_to_f32(self._bits[np.asarray(row_ids, np.int64).reshape(-1)])
+
+    def iter_metadata(self):
+        return (dict(r) for r in self._meta)
+
+
+def smoke_builder_class(have_pil: bool, have_h5py: bool):
+    """``RAGBuilder`` as it is where PIL and h5py import; else a subclass
+    that replaces only the missing piece: ``_decode_one`` (the frame made
+    with numpy from the file's bytes) and/or ``_open_container`` (the
+    in-memory stand-in, kept per output path so that a resume finds it)."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.builder import RAGBuilder
+
+    class SmokeBuilder(RAGBuilder):
+        containers: dict[str, WritableMemoryContainer] = {}
+
+    if not have_pil:
+        def _decode_one(self, path: Path):
+            folder, n = (int(v) for v in Path(path).read_bytes().split())
+            return frame_pixels(folder, n, self.input_size), b""
+
+        SmokeBuilder._decode_one = _decode_one
+    if not have_h5py:
+        def _open_container(self, output_path: Path, resume: bool):
+            key = str(output_path)
+            if resume and key in self.containers:
+                container = self.containers[key]
+                container.repair_to_consistent()
+                return container, container.journal_hashes()
+            container = WritableMemoryContainer(
+                output_path, self.embed_dim, self.config.dtype,
+                keep_fp=getattr(self.config, "int8_rescore", False))
+            self.containers[key] = container
+            return container, set()
+
+        SmokeBuilder._open_container = _open_container
+    return SmokeBuilder
+
+
+def run_build_slice(device, require_kernels: bool, config=None, n_frames: int = N_FRAMES,
+                    n_folders: int = N_FOLDERS, n_int8: int = N_FRAMES_INT8,
+                    chunk_size: int = 1024, batch_size: int = 256,
+                    workdir: Path | None = None) -> dict:
+    """``build_system`` -> ``RAGBuilder.build_index`` over a keyframes tree at
+    the full width of CLIP ViT-L/14 with ``fused_mlp``, then the built index
+    served; every check is fatal."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import (
+        attention, block, preprocess, quant, topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve import (
+        RequestHandler,
+        format_results,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        CLIPEmbedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        EnhancedRetrievalSystem,
+        SearchOptions,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "build_phase"
+    shutil.rmtree(workdir, ignore_errors=True)
+    keyframes = workdir / "keyframes"
+    per_folder = n_frames // n_folders
+    on_card = device.type == "cuda"
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def embedder(fused_mlp: bool) -> CLIPEmbedder:
+        return CLIPEmbedder(config=config, device=device, fused_mlp=fused_mlp,
+                            image_batch_size=batch_size)
+
+    # the build path starts here: every launch count from zero
+    counters = {"b1": topk.chunk_max_sweep, "b2": quant.int8_chunk_max_sweep,
+                "b3": attention.fused_mha, "b4": block.fused_ln_mlp,
+                "b5": preprocess.normalize_images}
+    for fn in counters.values():
+        fn.launches = 0
+    system = EnhancedRetrievalSystem(
+        Config(config_file=None, base_dir=workdir,
+               overrides={"index": {"chunk_size": chunk_size},
+                          "model": {"image_batch_size": batch_size}}),
+        embedder=embedder(fused_mlp=True), device=device)
+    system.builder_class = smoke_builder_class(have_pil, have_h5py)
+    t0 = time.perf_counter()
+    system.embedder.ensure_loaded()
+    cfg = system.embedder.config
+    size = cfg.vision.image_size
+    n_layers = cfg.vision.num_layers
+    fused = sum(blk.fused_mlp for blk in system.embedder.model.vision_model.encoder.layers)
+    log("build", f"towers loaded in {time.perf_counter() - t0:.1f} s: vision "
+        f"{n_layers}x{cfg.vision.hidden_size}, text {cfg.text.num_layers}x"
+        f"{cfg.text.hidden_size}, {system.embedder.compute_dtype}, fused_mlp on {fused} of "
+        f"{n_layers} vision blocks; the self-test launched B5 "
+        f"{preprocess.normalize_images.launches}, B3 {attention.fused_mha.launches}, B4 "
+        f"{block.fused_ln_mlp.launches} times")
+    if require_kernels and fused != n_layers:
+        raise AssertionError("fused_mlp=True did not reach every vision block")
+    t0 = time.perf_counter()
+    write_keyframes(keyframes, n_folders, per_folder, size, have_pil)
+    log("build", f"{n_frames} keyframes of {size}x{size}x3 in {n_folders} folders written in "
+        f"{time.perf_counter() - t0:.1f} s ({'real JPEGs, decoded by PIL' if have_pil else 'seed files: PIL is not installed, frames made with numpy'}); container: "
+        f"{'a real .rvdb (h5py)' if have_h5py else 'in-memory stand-in (h5py is not installed)'}")
+
+    events: list[tuple] = []
+    system.on("build_progress", lambda stage, done, total: events.append((stage, done, total)))
+    out_path = workdir / "index" / "built.rvdb"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    before = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    out = system.build_system(keyframes, map_dir=workdir / "map", output_path=out_path,
+                              resume=True)
+    sync()
+    build_s = time.perf_counter() - t0
+    report = out["report"]
+    n_chunks = -(-n_frames // chunk_size)
+    batches = sum(-(-min(chunk_size, n_frames - s) // batch_size)
+                  for s in range(0, n_frames, chunk_size))
+    if (report["processed"], report["failed"], report["chunks"]) != (n_frames, 0, n_chunks):
+        raise AssertionError(f"build report {report}")
+    launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+    log("build", f"build_system: {report['processed']} keyframes in {report['chunks']} chunks, "
+        f"{report['failed']} failed, {build_s:.1f} s, {n_frames / build_s:.1f} images/s "
+        f"(report: {report['images_per_s']:.1f}); launches {launched}")
+    if require_kernels:
+        want = {"b5": batches, "b3": batches * n_layers, "b4": batches * n_layers}
+        got = {k: launched[k] for k in want}
+        if got != want:
+            raise AssertionError(f"launches on the build {got}, expected {want} "
+                                 f"({batches} encode batches x {n_layers} layers)")
+    stages = [e[0] for e in events]
+    if (stages[0], stages[-2:]) != ("validate", ["index", "done"]) or \
+            stages.count("build") != n_chunks:
+        raise AssertionError(f"build_progress events out of order: {stages}")
+    index = system.index
+    if index.ntotal != n_frames or index.device.type != device.type:
+        raise AssertionError(f"built index holds {index.ntotal} rows on {index.device}")
+    meta = index.get_metadata(per_folder + 3)
+    if (meta.folder, meta.image, meta.frame_id, meta.pts_time) != \
+            ("video_01", "000003.jpg", 36, 1.5):
+        raise AssertionError(f"metadata of row {per_folder + 3}: {meta}")
+
+    # the built rows against an embedder without fused_mlp, on the same pixels
+    # (these comparisons are not the build path: the counts are put back after)
+    on_path = {k: fn.launches for k, fn in counters.items()}
+    builder = system._make_builder()
+    files = [keyframes / f"video_{f:02d}" / f"{n:06d}.jpg"
+             for f in (0, n_folders - 1) for n in range(min(128, per_folder))]
+    pixels = np.stack([builder._decode_one(path)[0] for path in files])
+    rows = [index.row_for(path.parent.name, path.name) for path in files]
+    built = index.read_rows_f32()[rows]
+    built /= np.linalg.norm(built, axis=-1, keepdims=True)
+    plain_emb = embedder(fused_mlp=False)
+    plain_emb.ensure_loaded()
+    w_f = system.embedder.model.vision_model.encoder.layers[0].mlp.fc1.weight
+    w_p = plain_emb.model.vision_model.encoder.layers[0].mlp.fc1.weight
+    if not torch.equal(w_f, w_p):
+        raise AssertionError("the two embedders' seeded weights differ")
+    b4_before = block.fused_ln_mlp.launches
+    unfused = plain_emb.encode_images(pixels)
+    if block.fused_ln_mlp.launches != b4_before:
+        raise AssertionError("the embedder without fused_mlp launched B4")
+    cos = np.sum(built * unfused, axis=-1)
+    if cos.min() < 0.999:
+        raise AssertionError(f"built rows vs the unfused embedder: min cosine {cos.min()}")
+    log("build", f"{len(files)} built rows vs the same frames through an embedder with "
+        f"fused_mlp=False: min cosine {cos.min():.6f} (>= 0.999)")
+
+    # encode_images per batch, fused_mlp on and off
+    batch = pixels[:batch_size] if len(pixels) >= batch_size else np.resize(
+        pixels, (batch_size, *pixels.shape[1:]))
+    enc = {}
+    for name, emb in (("on", system.embedder), ("off", plain_emb)):
+        emb.encode_images(batch)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            emb.encode_images(batch)
+        sync()
+        enc[name] = (time.perf_counter() - t0) * 1e3 / 2
+    log("numbers", f"encode_images B={batch_size}: {enc['on']:.1f} ms per batch with fused_mlp "
+        f"({batch_size / enc['on'] * 1e3:.0f} images/s), {enc['off']:.1f} ms without "
+        f"({batch_size / enc['off'] * 1e3:.0f} images/s)")
+    del plain_emb
+    for k, fn in counters.items():
+        fn.launches = on_path[k]
+
+    # resume: every file is journaled
+    events.clear()
+    out2 = system.build_system(keyframes, map_dir=workdir / "map", output_path=out_path,
+                               resume=True)
+    rep2 = out2["report"]
+    if (rep2["skipped_resume"], rep2["processed"], rep2["resumed"]) != (n_frames, 0, True):
+        raise AssertionError(f"resumed build report {rep2}")
+    if system.index.ntotal != n_frames:
+        raise AssertionError("the resumed build changed the row count")
+    log("build", f"second build_system with resume=True: skipped_resume "
+        f"{rep2['skipped_resume']}, processed 0, {system.index.ntotal} rows served")
+    index = system.index
+
+    # the built index served: image queries find their own frame, text
+    # requests equal the exact reference
+    for i, path in enumerate(files[::len(files) // 8][:8]):
+        b5_before = preprocess.normalize_images.launches
+        hits = system.search_by_image(builder._decode_one(path)[0], SearchOptions(limit=5))
+        if require_kernels and preprocess.normalize_images.launches != b5_before + 1:
+            raise AssertionError("an image query did not launch B5 once")
+        top = hits[0]
+        if (top["folder"], top["image"]) != (path.parent.name, path.name) or \
+                top["similarity_score"] < 0.99:
+            raise AssertionError(f"search_by_image of {path.parent.name}/{path.name}: top hit "
+                                 f"{top['folder']}/{top['image']} at {top['similarity_score']}")
+        if i == 0:
+            log("build", f"search_by_image of a built frame: own row first at "
+                f"{top['similarity_score']:.6f}, runner-up {hits[1]['similarity_score']:.6f}")
+    handler = RequestHandler()
+    for i in range(N_REQUESTS):
+        payload = {"query": f"built scene {i}: a red car driving at night past neon signs",
+                   "limit": 10 + i, "detail_level": "standard"}
+        ok, err = handler.validate_request("search", payload, client_id="smoke")
+        if not ok:
+            raise AssertionError(f"request rejected: {err}")
+        opts = SearchOptions(limit=payload["limit"], use_cache=False)
+        b1_before = topk.chunk_max_sweep.launches
+        hits = system.search(payload["query"], opts)
+        if require_kernels and topk.chunk_max_sweep.launches <= b1_before:
+            raise AssertionError("a request over the built index launched no B1 kernel")
+        prompt, _ = system._clip_prompt(payload["query"], opts)
+        check_hits(system, hits, system.embedder.encode_text([prompt])[0], opts.limit)
+        if len(format_results(hits, payload["detail_level"])) != opts.limit:
+            raise AssertionError("format_results dropped hits")
+    log("build", f"the built index served: 8 image queries return their own frame first "
+        f"(score >= 0.99), {N_REQUESTS} text requests through RequestHandler tie-aware equal "
+        "to the exact reference")
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    # the same path with index.dtype = int8: one folder's frames
+    n_int8 = min(n_int8, per_folder)
+    small = workdir / "keyframes_int8"
+    (small / "video_00").mkdir(parents=True)
+    for n in range(n_int8):
+        shutil.copy(keyframes / "video_00" / f"{n:06d}.jpg", small / "video_00" / f"{n:06d}.jpg")
+    system.config.set("index.dtype", "int8")
+    b2_before = quant.int8_chunk_max_sweep.launches
+    out8 = system.build_system(small, map_dir=workdir / "map",
+                               output_path=workdir / "index" / "built_int8.rvdb", resume=False)
+    index = system.index
+    if out8["report"]["processed"] != n_int8 or index._container.dtype != "int8" or \
+            index._dev_x.dtype != torch.int8 or index._dev_scales is None:
+        raise AssertionError(f"int8 build: report {out8['report']}, container "
+                             f"{index._container.dtype}, rows {index._dev_x.dtype}")
+    qvecs = system.embedder.encode_text(
+        [f"int8 built {i}: people walking on a beach at sunset" for i in range(8)])
+    check_int8_answer(index, qvecs, 10, index.search_vectors(qvecs, top_k=10))
+    hits = system.search("a dog catching a frisbee", SearchOptions(limit=10, use_cache=False))
+    if len(hits) != 10:
+        raise AssertionError("the int8 built index answered short")
+    b2 = quant.int8_chunk_max_sweep.launches - b2_before
+    if require_kernels and b2 < 2:
+        raise AssertionError("serving the int8 built index launched no B2 kernel")
+    log("build", f"{n_int8} frames built again with index.dtype=int8: an int8 container, "
+        f"answers equal to int8_reference (atol 0), B2 launched {b2} times")
+    launches["b2"] = b2
+    system.cleanup()
+    return {"launches": launches, "images_per_s": n_frames / build_s, "build_s": build_s,
+            "encode_ms": enc, "ntotal": n_frames}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time of a query goes
 # ---------------------------------------------------------------------------
 
 # kernel name (as the trace shows it) of each hand-written kernel
 TRACE_KERNELS = {"b1": "chunk_max_bf16_kernel", "b2": "int8_chunk_max_kernel",
-                 "b3": "mha_fwd_bf16_kernel"}
+                 "b3": "mha_fwd_bf16_kernel", "b4": "ln_mlp_bf16_kernel",
+                 "b5": "normalize_kernel"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -902,6 +1506,103 @@ def profile_phase(name: str, fn, device, workdir: Path, iters: int = 20) -> dict
             "device_busy_ms": busy / iters, "idle_share": 1.0 - busy / sum(wall),
             "device_ops": ops / iters,
             **{f"{key}_ms": ms / iters for key, ms in per_kernel.items()}}
+
+
+def profile_build(device, config=None, n_frames: int = 2048, n_folders: int = 2,
+                  chunk_size: int = 1024, batch_size: int = 256) -> dict:
+    """Where a build's time goes: host wall of hashing, decode, the embed
+    calls and the container writes, and the device time of the embed calls
+    by kernel (a ``torch.profiler`` trace of the whole build)."""
+    import importlib.util
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index import builder as bmod
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        CLIPEmbedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        EnhancedRetrievalSystem,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    on_card = device.type == "cuda"
+    workdir = ROOT / "build" / "chip_smoke" / "profile_build"
+    shutil.rmtree(workdir, ignore_errors=True)
+    system = EnhancedRetrievalSystem(
+        Config(config_file=None, base_dir=workdir,
+               overrides={"index": {"chunk_size": chunk_size},
+                          "model": {"image_batch_size": batch_size}}),
+        embedder=CLIPEmbedder(config=config, device=device, fused_mlp=True,
+                              image_batch_size=batch_size), device=device)
+    system.embedder.ensure_loaded()
+    write_keyframes(workdir / "keyframes", n_folders, n_frames // n_folders,
+                    system.embedder.input_size, have_pil)
+    (workdir / "index").mkdir(parents=True, exist_ok=True)
+    spent = {"hash": 0.0, "embed": 0.0, "chunk": 0.0, "append": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    base = smoke_builder_class(have_pil, have_h5py)
+
+    class TimedBuilder(base):
+        def __init__(self, embed_fn, *args, **kwargs):
+            def embed(batch):
+                out = embed_fn(batch)
+                if on_card:
+                    torch.cuda.synchronize()
+                return out
+            super().__init__(timed("embed", embed), *args, **kwargs)
+
+        _process_chunk = timed("chunk", base._process_chunk)
+
+        def _open_container(self, output_path, resume):
+            container, done = super()._open_container(output_path, resume)
+            for name in ("append_embeddings", "append_metadata", "append_thumbnails",
+                         "append_journal", "flush_checkpoint"):
+                setattr(container, name, timed("append", getattr(container, name)))
+            return container, done
+
+    system.builder_class = TimedBuilder
+    hash_all = bmod._hash_all
+    bmod._hash_all = timed("hash", hash_all)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA if on_card
+                                 else ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            out = system.build_system(workdir / "keyframes", map_dir=workdir / "map",
+                                      output_path=workdir / "index" / "p.rvdb", resume=False)
+            wall = time.perf_counter() - t0
+    finally:
+        bmod._hash_all = hash_all
+    path = workdir / "trace_build.json"
+    prof.export_chrome_trace(str(path))
+    busy, ops, per_kernel = device_time(json.loads(path.read_text()))
+    path.unlink()
+    system.cleanup()
+    decode = spent["chunk"] - spent["embed"] - spent["append"]
+    row = {"phase": "build", "frames": out["report"]["processed"], "wall_s": wall,
+           "images_per_s": out["report"]["processed"] / wall,
+           "host_hash_s": spent["hash"], "host_decode_s": decode,
+           "embed_calls_s": spent["embed"], "container_writes_s": spent["append"],
+           "other_host_s": wall - spent["hash"] - spent["chunk"],
+           "device_busy_s": busy / 1e3, "device_ops": ops,
+           "idle_share": 1.0 - busy / 1e3 / wall,
+           **{f"{key}_s": ms / 1e3 for key, ms in per_kernel.items()},
+           "other_device_s": (busy - sum(per_kernel.values())) / 1e3}
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def run_profile(device, bits: np.ndarray, config=None, iters: int = 20) -> list[dict]:
@@ -993,6 +1694,8 @@ def main(argv: list[str] | None = None) -> int:
     log("build", f"nvcc {' '.join(kernels.NVCC_FLAGS)} -> {kernels.build_dir()} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {kernels.last_build_seconds()} s)")
     if args.profile:
+        profile_build(device)
+        torch.cuda.empty_cache()
         run_profile(device, make_rows(N_ROWS))
         print(smi, flush=True)
         return 0
@@ -1006,6 +1709,11 @@ def main(argv: list[str] | None = None) -> int:
     result = run_slice(device, N_ROWS, require_kernels=True, bits=bits)
     torch.cuda.empty_cache()
     result8 = run_int8_slice(device, bits, require_kernels=True)
+    del bits
+    torch.cuda.empty_cache()
+    b4, b5 = check_build_kernels(device, timer, require_kernels=True)
+    torch.cuda.empty_cache()
+    built = run_build_slice(device, require_kernels=True)
 
     record = {"kernels": [
         {"name": "chunk_max_sweep (B1)", "route": "cuda",
@@ -1020,7 +1728,16 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/mha.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
          "launches": result["launches"]["b3"], **b3},
+        {"name": "fused_ln_mlp (B4)", "route": "cuda",
+         "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
+         "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/block.py:78",
+         "launches": built["launches"]["b4"], **b4},
+        {"name": "normalize_images (B5)", "route": "cuda",
+         "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/normalize.cu",
+         "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py:127",
+         "launches": built["launches"]["b5"], **b5},
     ]}
+    log("build", f"launches on the build path: {built['launches']}")
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

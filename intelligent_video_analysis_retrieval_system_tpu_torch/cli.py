@@ -1,5 +1,11 @@
 """Command-line interface of the PyTorch port.
 
+``build`` — a ``keyframes/<video>/<n>.jpg`` tree into one ``.rvdb`` index
+(chunked and resumable; every keyframe through the vision tower):
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch build \\
+        keyframes/ --output index/index.rvdb [--map-dir map/] [--dtype int8]
+
 ``search`` — one text query against an ``.rvdb`` index:
 
     python -m intelligent_video_analysis_retrieval_system_tpu_torch search \\
@@ -14,8 +20,8 @@ gate of the int8 capacity mode:
     python -m intelligent_video_analysis_retrieval_system_tpu_torch evaluate \
         index.rvdb [--search auto|exact|int8_rescore] [--queries 64] [--top-k 10]
 
-The other commands of the JAX package's CLI (extract, filter, build,
-serve, ...) are ported with their subsystems in later changes.
+The other commands of the JAX package's CLI (extract, filter, serve, ...)
+are ported with their subsystems in later changes.
 """
 
 from __future__ import annotations
@@ -34,6 +40,25 @@ def _build_parser() -> argparse.ArgumentParser:
         description="Intelligent video analysis & retrieval on PyTorch + CUDA",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    b = sub.add_parser("build", help="build the index from keyframes")
+    b.add_argument("keyframes_dir")
+    b.add_argument("--output", default="index/index.rvdb")
+    b.add_argument("--map-dir", default=None)
+    b.add_argument("--model-path", default=None,
+                   help="local HF CLIP checkpoint directory")
+    b.add_argument("--no-resume", action="store_true")
+    b.add_argument("--chunk-size", type=int, default=1024)
+    b.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float16", "float32", "int8"),
+                   help="stored index row dtype; int8 = capacity mode")
+    b.add_argument("--compute-dtype", default=None,
+                   choices=("bfloat16", "float32", "int8", "int8_static"),
+                   help="tower compute dtype (the W8A8 modes int8 and "
+                        "int8_static are not ported yet and raise)")
+    b.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "versions of the kernels)")
+
     se = sub.add_parser("search", help="query an index")
     se.add_argument("index_path")
     se.add_argument("query")
@@ -76,10 +101,40 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def cmd_search(args) -> int:
-    from intelligent_video_analysis_retrieval_system_tpu.utils.config import Config
+def cmd_build(args) -> int:
+    from .system.facade import EnhancedRetrievalSystem
+    from .utils.config import Config
 
+    overrides: dict = {
+        "index": {"dtype": args.dtype, "chunk_size": args.chunk_size}}
+    if args.model_path:
+        overrides["model"] = {"path": args.model_path}
+    if args.compute_dtype:
+        overrides["device"] = {"compute_dtype": args.compute_dtype}
+    system = EnhancedRetrievalSystem(
+        Config(config_file="config.json", overrides=overrides),
+        device=args.device,
+    )
+    try:
+        out = system.build_system(
+            args.keyframes_dir, map_dir=args.map_dir, output_path=args.output,
+            resume=not args.no_resume,
+        )
+    finally:
+        system.cleanup()
+    report = out["report"]
+    print(
+        f"indexed {report['processed']} images "
+        f"({report['images_per_s']:.0f} img/s, "
+        f"skipped {report['skipped_resume']} already-processed, "
+        f"{report['failed']} failures) -> {out['index_path']}"
+    )
+    return 0
+
+
+def cmd_search(args) -> int:
     from .system.facade import EnhancedRetrievalSystem, SearchOptions
+    from .utils.config import Config
 
     overrides: dict = {"device": {"compute_dtype": args.compute_dtype}}
     if args.model_path:
@@ -196,7 +251,7 @@ def cmd_evaluate(args) -> int:
         index.close()
 
 
-_COMMANDS = {"search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate}
+_COMMANDS = {"build": cmd_build, "search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate}
 
 
 def main(argv: list[str] | None = None) -> int:

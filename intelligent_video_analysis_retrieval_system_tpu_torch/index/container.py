@@ -249,7 +249,7 @@ class IndexContainer:
             sds.resize((start + len(rows),))
             sds[start:] = scales
             if "embeddings_fp" in self._f:
-                from intelligent_video_analysis_retrieval_system_tpu import native
+                from .. import native
 
                 fp = self._f["embeddings_fp"]
                 fp.resize((start + len(rows), self.dim))
@@ -298,7 +298,7 @@ class IndexContainer:
         sds.resize((start + len(rows_i8),))
         sds[start:] = scales
         if "embeddings_fp" in self._f:
-            from intelligent_video_analysis_retrieval_system_tpu import native
+            from .. import native
 
             fp = self._f["embeddings_fp"]
             fp.resize((start + len(rows_i8), self.dim))
@@ -340,7 +340,7 @@ class IndexContainer:
         # h5py fancy indexing requires strictly increasing ids: dedupe
         uniq, inverse = np.unique(sorted_ids, return_inverse=True)
         bits = self._f["embeddings_fp"][uniq.tolist()]
-        from intelligent_video_analysis_retrieval_system_tpu import native
+        from .. import native
 
         rows_sorted = native.bf16_to_f32(bits)[inverse]
         out = np.empty_like(rows_sorted)
@@ -382,7 +382,7 @@ class IndexContainer:
         if self.dtype == "bfloat16":
             # bf16 = top 16 bits of f32, round-to-nearest-even (native C++
             # codec when available; numpy fallback inside)
-            from intelligent_video_analysis_retrieval_system_tpu import native
+            from .. import native
 
             return native.f32_to_bf16(
                 np.ascontiguousarray(rows, dtype=np.float32)
@@ -391,7 +391,7 @@ class IndexContainer:
 
     def _to_float32(self, stored: np.ndarray) -> np.ndarray:
         if self.dtype == "bfloat16":
-            from intelligent_video_analysis_retrieval_system_tpu import native
+            from .. import native
 
             return native.bf16_to_f32(stored)
         return stored.astype(np.float32)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..retrieval.results import KeyframeMetadata
+from .unified import resolve_device
 
 __all__ = ["MetadataManager"]
 
@@ -26,9 +27,9 @@ class MetadataManager:
         self,
         similarity_threshold: float = 0.7,   # core.py:3507
         similarity_top_k: int = 10,           # core.py:3493-3531
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> None:
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.similarity_threshold = similarity_threshold
         self.similarity_top_k = similarity_top_k
         self.by_folder: dict[str, dict[str, KeyframeMetadata]] = {}

@@ -24,8 +24,10 @@ Port of the single-device half (dense and int8) of
 
 Not ported yet (each raises ``NotImplementedError`` naming the later
 change): IVF ANN and the multi-device mesh. A container that carries a
-persisted ANN structure is served by the exact sweep, with a warning. Compaction and asset
-reads come with the builder and the REST server.
+persisted ANN structure is served by the exact sweep, with a warning.
+``index.builder.RAGBuilder`` writes containers and hands the fresh one to
+:meth:`UnifiedIndex.attach_container`. Compaction and asset reads come with
+the REST server.
 """
 
 from __future__ import annotations
@@ -40,8 +42,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from intelligent_video_analysis_retrieval_system_tpu import native
-
+from .. import native
 from ..ops.quant import quantize_rows_int8, topk_search_int8
 from ..ops.topk import TILE_N, topk_search
 from ..retrieval.results import KeyframeMetadata, SearchResult
@@ -90,9 +91,18 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 @dataclass(slots=True)
 class UnifiedIndexConfig:
-    """Runtime knobs of the index (the reference's fields that this port
-    reads; build and IVF fields come with those modes)."""
+    """Build and runtime knobs of the index (the reference's fields that
+    this port reads; the IVF fields come with that mode)."""
 
+    # build (index.builder.RAGBuilder): files per device batch and container
+    # transaction, chunks between checkpoint flushes, stored assets, and the
+    # container's row dtype ("bfloat16", "float32", "float16" or "int8")
+    chunk_size: int = 1024
+    checkpoint_every_chunks: int = 5
+    store_thumbnails: bool = True
+    thumbnail_size: int = 224
+    store_full_images: bool = False
+    dtype: str = "bfloat16"
     # L2-normalize rows at upload and append (cosine = inner product)
     normalize: bool = True
     # int8 exact-rescore mode: an int8 container that carries the bf16 copy
@@ -115,7 +125,7 @@ class UnifiedIndex:
     def __init__(
         self,
         config: UnifiedIndexConfig | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         mesh: Any | None = None,
     ) -> None:
         if mesh is not None:

@@ -12,7 +12,12 @@ Flax modules:
 - unmasked attention (the vision tower) in throughput mode runs the fused
   kernel B3 (:func:`ops.attention.fused_mha`) when the activations live on
   a CUDA device, as the reference takes its Pallas kernel on a TPU; on the
-  CPU it runs the same einsum the reference runs off-TPU.
+  CPU it runs the same einsum the reference runs off-TPU;
+- ``fused_mlp=True`` (off by default, as in the reference) runs the second
+  half of every block, ``x + fc2(act(fc1(LN(x))))``, through the fused
+  kernel B4 (:func:`ops.block.fused_ln_mlp`) in throughput mode, where the
+  shapes pass :func:`ops.block.supports_fused_ln_mlp`. The parameters are
+  the same modules either way, so one state dict serves both.
 
 Module and parameter names follow HF ``transformers.CLIPModel``'s state
 dict, so ``models.convert`` maps between this port, HF checkpoints and the
@@ -21,8 +26,8 @@ state; :class:`CLIPModel` applies the projections (``text_projection``,
 ``visual_projection``), as HF does.
 
 Left out for now (a later change ports them): W8A8 dense layers, int8
-attention, the fused LN+MLP kernel (B4) and rematerialization. Asking for
-one raises ``NotImplementedError``.
+attention and rematerialization. Asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_mha
+from ..ops.block import activation, fused_ln_mlp, supports_fused_ln_mlp
 
 __all__ = [
     "CLIPVisionConfig",
@@ -51,7 +57,6 @@ __all__ = [
 _LATER = {
     "w8a8": "W8A8 dense layers are ported with the int8 tower modes in a later change",
     "int8_attn": "int8 attention is ported with the W8A8 modes in a later change",
-    "fused_mlp": "the fused LN+MLP kernel (B4) is ported in a later change",
     "remat": "rematerialization is ported with training in a later change",
 }
 
@@ -241,33 +246,62 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(b, t, d))
 
 
+def _activation(name: str):
+    """The unfused chain's activation by name (the reference's
+    ``_activation``): CLIP's sigmoid form of QuickGELU, else the fused
+    half-block's own (``gelu``: exact, HF ViT/DINO's default; ``gelu_tanh``)."""
+    return quick_gelu if name == "quick_gelu" else activation(name)
+
+
 class _MLP(nn.Module):
-    def __init__(self, dim: int, hidden: int) -> None:
+    def __init__(self, dim: int, hidden: int, act: str = "quick_gelu") -> None:
         super().__init__()
+        self.act = _activation(act)
         self.fc1 = Dense(dim, hidden)
         self.fc2 = Dense(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN residual block: attention, then the unfused MLP chain
-    (LN -> fc1 -> QuickGELU -> fc2), HF ``CLIPEncoderLayer`` names."""
+    """Pre-LN residual block, HF ``CLIPEncoderLayer`` names: attention, then
+    the MLP half (LN -> fc1 -> act -> fc2 -> residual), either as the
+    unfused chain or, with ``fused_mlp``, through kernel B4."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 precision: str = "default", ln_eps: float = 1e-5,
-                 fused_attn: bool = True, fused_mlp: bool = False,
-                 w8a8: bool = False, int8_attn: bool = False) -> None:
+                 precision: str = "default", act: str = "quick_gelu",
+                 ln_eps: float = 1e-5, fused_attn: bool = True,
+                 fused_mlp: bool = False, w8a8: bool = False,
+                 int8_attn: bool = False) -> None:
         super().__init__()
-        _refuse(fused_mlp=fused_mlp, w8a8=w8a8, int8_attn=int8_attn)
+        _refuse(w8a8=w8a8, int8_attn=int8_attn)
+        self.act = act
         self.layer_norm1 = LayerNorm(dim, eps=ln_eps)
         self.self_attn = MultiHeadAttention(dim, num_heads, precision, fused_attn)
         self.layer_norm2 = LayerNorm(dim, eps=ln_eps)
-        self.mlp = _MLP(dim, dim * mlp_ratio)
+        self.mlp = _MLP(dim, dim * mlp_ratio, act)
+        # the reference's gate: opt-in, throughput mode, shapes the kernel takes
+        self.fused_mlp = (fused_mlp and precision != "highest"
+                          and supports_fused_ln_mlp(dim, dim * mlp_ratio, act))
+
+    def _fused_mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+        # the weights in the compute dtype come from the Dense layers' own
+        # caches, in nn.Linear's layout, which is the one the kernel reads
+        ln, fc1, fc2 = self.layer_norm2, self.mlp.fc1, self.mlp.fc2
+        return fused_ln_mlp(
+            x, ln.weight, ln.bias,
+            fc1._cast.get("weight", fc1.weight, x.dtype), fc1.bias,
+            fc2._cast.get("weight", fc2.weight, x.dtype), fc2.bias,
+            act=self.act, eps=ln.eps,
+        )
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
+        # the kernel is forward only (the TPU kernel has no backward either):
+        # whenever autograd is recording, the unfused modules run
+        if self.fused_mlp and not torch.is_grad_enabled():
+            return self._fused_mlp_half(x)
         return x + self.mlp(self.layer_norm2(x))
 
 
@@ -276,12 +310,14 @@ class Transformer(nn.Module):
 
     def __init__(self, num_layers: int, dim: int, num_heads: int, mlp_ratio: int,
                  precision: str = "default", fused_attn: bool = True,
-                 remat: bool = False) -> None:
+                 remat: bool = False, act: str = "quick_gelu",
+                 ln_eps: float = 1e-5, fused_mlp: bool = False) -> None:
         super().__init__()
         _refuse(remat=remat)
         self.layers = nn.ModuleList(
-            TransformerBlock(dim, num_heads, mlp_ratio, precision,
-                             fused_attn=fused_attn)
+            TransformerBlock(dim, num_heads, mlp_ratio, precision, act=act,
+                             ln_eps=ln_eps, fused_attn=fused_attn,
+                             fused_mlp=fused_mlp)
             for _ in range(num_layers)
         )
 
@@ -330,13 +366,14 @@ class CLIPVisionTower(nn.Module):
     (post-LN, before ``visual_projection``)."""
 
     def __init__(self, cfg: CLIPVisionConfig, precision: str = "default",
-                 fused_attn: bool = True) -> None:
+                 fused_attn: bool = True, fused_mlp: bool = False) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = _VisionEmbeddings(cfg)
         self.pre_layrnorm = LayerNorm(cfg.hidden_size, eps=1e-5)  # HF's spelling
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                                   cfg.mlp_ratio, precision, fused_attn)
+                                   cfg.mlp_ratio, precision, fused_attn,
+                                   fused_mlp=fused_mlp)
         self.post_layernorm = LayerNorm(cfg.hidden_size, eps=1e-5)
 
     def forward(self, pixels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -361,12 +398,13 @@ class CLIPTextTower(nn.Module):
     transformer, final LN, before ``text_projection``)."""
 
     def __init__(self, cfg: CLIPTextConfig, precision: str = "default",
-                 fused_attn: bool = True) -> None:
+                 fused_attn: bool = True, fused_mlp: bool = False) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = _TextEmbeddings(cfg)
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                                   cfg.mlp_ratio, precision, fused_attn)
+                                   cfg.mlp_ratio, precision, fused_attn,
+                                   fused_mlp=fused_mlp)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5)
 
     def forward(self, token_ids: torch.Tensor, dtype: torch.dtype,
@@ -392,7 +430,7 @@ class CLIPModel(nn.Module):
     def __init__(self, config: CLIPConfig, dtype: torch.dtype = torch.float32,
                  precision: str = "default", fused_attn: bool = True,
                  remat: bool = False, w8a8: bool = False, w8a8_static: bool = False,
-                 int8_attn: bool = False) -> None:
+                 int8_attn: bool = False, fused_mlp: bool = False) -> None:
         super().__init__()
         _refuse(remat=remat, w8a8=w8a8 or w8a8_static, int8_attn=int8_attn)
         if precision not in ("default", "highest"):
@@ -400,8 +438,11 @@ class CLIPModel(nn.Module):
         self.config = config
         self.dtype = dtype
         self.precision = precision
-        self.vision_model = CLIPVisionTower(config.vision, precision, fused_attn)
-        self.text_model = CLIPTextTower(config.text, precision, fused_attn)
+        self.fused_mlp = fused_mlp
+        self.vision_model = CLIPVisionTower(config.vision, precision, fused_attn,
+                                            fused_mlp)
+        self.text_model = CLIPTextTower(config.text, precision, fused_attn,
+                                        fused_mlp)
         self.visual_projection = Dense(config.vision.hidden_size,
                                        config.vision.projection_dim, bias=False)
         self.text_projection = Dense(config.text.hidden_size,

@@ -2,11 +2,13 @@
 
 The kernels compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, loaded through ``ctypes``: no PyTorch
-headers are compiled, so a build takes seconds. The library is built at
-first use, from the sources in this package only, into
-``build/torch_kernels/<hash of the sources>/`` beside the package (a
-directory ``.gitignore`` lists); a later process with the same sources
-reuses it.
+headers are compiled, so a build takes seconds. Every source is compiled
+by its own ``nvcc`` process, all started together, and the objects are
+linked into the library. It is built at first use, from the sources in
+this package only, into ``build/torch_kernels/<hash of the sources>/``
+beside the package (a directory ``.gitignore`` lists); a later process
+with the same sources reuses it. ``build.log`` there keeps what ``ptxas -v``
+said of each kernel's registers, shared memory and spills.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc`` or a card.
@@ -32,7 +34,7 @@ _BUILD_SECONDS: float | None = None
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -73,6 +75,48 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ivars_mha_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
     lib.ivars_mha_smem_bytes.restype = i64
     lib.ivars_mha_smem_bytes.argtypes = [i32, i32, i32]
+    f32 = ctypes.c_float
+    lib.ivars_ln_mlp.restype = i32
+    lib.ivars_ln_mlp.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, i32, p]
+    lib.ivars_normalize.restype = i32
+    lib.ivars_normalize.argtypes = [p, p, i64, i32, i32, f32, f32, f32, f32, f32, f32, p]
+
+
+def _build(out_dir: Path, so_path: Path) -> None:
+    """One ``nvcc -c`` per source, all at once, then the link."""
+    nvcc = _nvcc()
+    tag = os.getpid()
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for src, obj, proc in jobs:
+        _, err = proc.communicate()
+        log.append(f"== {src.name} (rc={proc.returncode})\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (rc={proc.returncode}):\n{err[-4000:]}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out_dir / f"libivars_kernels.{tag}.tmp.so"
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+             str(tmp), *[str(o) for o in objs]], capture_output=True, text=True)
+        if link.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed (rc={link.returncode}):\n{link.stderr[-4000:]}")
+        tmp.replace(so_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def load() -> ctypes.CDLL:
@@ -87,16 +131,7 @@ def load() -> ctypes.CDLL:
         if not so_path.is_file():
             t0 = time.perf_counter()
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libivars_kernels.{os.getpid()}.tmp.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in _sources() if s.suffix == ".cu"]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed (rc={proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            tmp.replace(so_path)
+            _build(out_dir, so_path)
             _BUILD_SECONDS = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so_path))
         _bind(lib)

@@ -3,15 +3,28 @@
 PyTorch port of ``intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py``.
 Resizing is two matmuls against separable interpolation matrices (built
 on the host by the same construction as the reference's
-``_interp_matrix``); normalization is one elementwise expression. The embedder calls these as
-plain torch, as the reference calls them with ``use_pallas=False``; the
-fused normalize kernel (B5) is ported in a later change.
+``_interp_matrix``). Normalization is kernel B5 (``csrc/normalize.cu``):
+:func:`normalize_images` dispatches only on where the tensor lives, a CUDA
+tensor launches the kernel or raises, a CPU tensor takes the plain version
+:func:`normalize_images_reference`. Both compute what the TPU kernel
+computes, in its order of operations (multiply by the f32 reciprocals of
+255 and of std), and agree bit for bit.
+
+The JAX callers pass ``use_pallas=False`` because XLA fuses the elementwise
+chain inside their one jitted program anyway. Eager PyTorch runs the chain
+as five launches with four round trips through device memory, so the port
+has one normalize on the card, the kernel, and no ``use_pallas`` /
+``interpret`` arguments.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from . import kernels
 
 __all__ = [
     "CLIP_IMAGE_MEAN",
@@ -19,6 +32,7 @@ __all__ = [
     "resize_bilinear",
     "center_crop",
     "normalize_images",
+    "normalize_images_reference",
     "preprocess_images",
 ]
 
@@ -86,17 +100,82 @@ def center_crop(images: torch.Tensor, size: int) -> torch.Tensor:
     return images[:, top:top + size, left:left + size, :]
 
 
+def _normalize_constants(mean: tuple, std: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """f32 mean and f32 reciprocal of std (the reciprocal taken in double
+    and rounded once, as the TPU kernel's inlined immediates are)."""
+    if len(mean) != 3 or len(std) != 3:
+        raise ValueError("normalize_images: mean and std must have 3 channels")
+    m = np.asarray(mean, np.float64).astype(np.float32)
+    inv_s = (1.0 / np.asarray(std, np.float64)).astype(np.float32)
+    return m, inv_s
+
+
+def normalize_images_reference(
+    images: torch.Tensor,
+    mean: tuple = CLIP_IMAGE_MEAN,
+    std: tuple = CLIP_IMAGE_STD,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain version of kernel B5, with its arithmetic: ``(x * (1/255) -
+    mean_c) * (1/std_c)`` in f32, three roundings, then one to ``dtype``."""
+    m, inv_s = _normalize_constants(mean, std)
+    dev = images.device
+    inv255 = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=dev)
+    x = images.float() * inv255
+    x = x - torch.from_numpy(m).to(dev)
+    return (x * torch.from_numpy(inv_s).to(dev)).to(dtype)
+
+
+_IN_CODES = {torch.uint8: 0, torch.float32: 1}
+_OUT_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _normalize_kernel(images: torch.Tensor, mean: tuple, std: tuple,
+                      dtype: torch.dtype) -> torch.Tensor:
+    if images.dtype not in _IN_CODES:
+        raise TypeError(f"normalize_images: input dtype {images.dtype} "
+                        "(the kernel takes uint8 and float32)")
+    if dtype not in _OUT_CODES:
+        raise TypeError(f"normalize_images: output dtype {dtype} "
+                        "(the kernel writes bfloat16 and float32)")
+    if images.ndim < 1 or images.shape[-1] != 3 or images.numel() == 0:
+        raise ValueError(f"normalize_images: shape {tuple(images.shape)} "
+                         "(channels last, 3 of them, not empty)")
+    m, inv_s = _normalize_constants(mean, std)
+    images = images.contiguous()
+    out = torch.empty(images.shape, dtype=dtype, device=images.device)
+    lib = kernels.load()
+    with torch.cuda.device(images.device):
+        rc = lib.ivars_normalize(
+            ctypes.c_void_p(images.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            images.numel(), _IN_CODES[images.dtype], _OUT_CODES[dtype],
+            float(m[0]), float(m[1]), float(m[2]),
+            float(inv_s[0]), float(inv_s[1]), float(inv_s[2]),
+            kernels.stream_of(images),
+        )
+    kernels.check_launch(rc, "normalize")
+    normalize_images.launches += 1
+    return out
+
+
 def normalize_images(
     images: torch.Tensor,
     mean: tuple = CLIP_IMAGE_MEAN,
     std: tuple = CLIP_IMAGE_STD,
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """(B, H, W, 3) pixel values in [0, 255] -> normalized ``dtype`` NHWC."""
-    x = images.float() / 255.0
-    m = torch.tensor(mean, dtype=torch.float32, device=images.device)
-    s = torch.tensor(std, dtype=torch.float32, device=images.device)
-    return ((x - m) / s).to(dtype)
+    """(B, H, W, 3) pixel values in [0, 255] -> normalized ``dtype`` NHWC.
+
+    Kernel B5 on a card (uint8 or float32 in, bfloat16 or float32 out;
+    count in ``normalize_images.launches``), the plain version on the CPU."""
+    if images.device.type == "cpu":
+        return normalize_images_reference(images, mean, std, dtype)
+    if images.device.type != "cuda":
+        raise ValueError(f"normalize_images: unsupported device {images.device}")
+    return _normalize_kernel(images, mean, std, dtype)
+
+
+normalize_images.launches = 0
 
 
 def preprocess_images(

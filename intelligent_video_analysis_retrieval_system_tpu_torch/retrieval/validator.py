@@ -18,8 +18,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Sequence
 
+from ..utils.files import IMAGE_EXTENSIONS
 from .results import KeyframeMetadata
-from intelligent_video_analysis_retrieval_system_tpu.utils.files import IMAGE_EXTENSIONS
 
 __all__ = ["DataConsistencyValidator", "ValidationReport"]
 

@@ -2,8 +2,10 @@
 
 Port of ``intelligent_video_analysis_retrieval_system_tpu/system/embedder.py``:
 batched text encode with 77-token truncation and L2 normalization, batched
-image encode, and a load-time self-test that runs both towers once (so, on
-a card, the vision tower's fused attention kernel B3).
+image encode (arrays or files), the ``as_embed_fn`` adapter the index
+builder takes, and a load-time self-test that runs both towers once (so, on
+a card, the normalize kernel B5 and the vision tower's fused attention
+kernel B3).
 
 - The model lives on an explicit ``torch.device``; asking for ``cuda``
   where CUDA is missing raises.
@@ -11,6 +13,11 @@ a card, the vision tower's fused attention kernel B3).
   ``parity_mode`` forces f32 with the "highest" attention mode.
 - Batches pad to the reference's buckets (8, 32, 128, 256), so the device
   sees the same shapes as the reference's compiled programs.
+- ``fused_mlp=True`` runs the MLP half of every transformer block through
+  the fused LN+MLP kernel B4 (``models.clip``). The JAX embedder has no
+  such keyword (there only ``Transformer(fused_mlp=True)`` reaches the
+  kernel); without one no entry point of the port would. It is off by
+  default and is no ``Config`` key.
 
 Not ported yet: the W8A8 modes ``int8`` / ``int8_static`` and their
 activation-scale calibration (a later change).
@@ -21,14 +28,13 @@ from __future__ import annotations
 import threading
 import time
 from pathlib import Path
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from intelligent_video_analysis_retrieval_system_tpu.utils.logging import Logger
-
 from ..index.unified import resolve_device
+from ..utils.logging import Logger
 
 __all__ = ["CLIPEmbedder"]
 
@@ -59,7 +65,8 @@ class CLIPEmbedder:
         image_batch_size: int = 256,
         logger: Logger | None = None,
         vocab_dir: str | Path | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
+        fused_mlp: bool = False,
     ) -> None:
         if compute_dtype in ("int8", "int8_static"):
             raise NotImplementedError(
@@ -75,6 +82,7 @@ class CLIPEmbedder:
         self.logger = logger
         self.vocab_dir = vocab_dir
         self.device = resolve_device(device)
+        self.fused_mlp = fused_mlp
         self._lock = threading.RLock()
         self._loaded = False
         self.model = None
@@ -92,6 +100,7 @@ class CLIPEmbedder:
             config, "meta",
             dtype=_COMPUTE_DTYPES[self.compute_dtype],
             precision="highest" if self.parity_mode else "default",
+            fused_mlp=self.fused_mlp,
         )
         sd = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
               for k, v in state_dict.items()}
@@ -238,6 +247,47 @@ class CLIPEmbedder:
                 "clip_image_encoding", time.perf_counter() - t0, batch=n)
         return result
 
+    def encode_image_files(
+        self, paths: Sequence[str | Path]
+    ) -> tuple[np.ndarray, list[int]]:
+        """Decode + encode image files; tolerates failures.
+
+        Returns (embeddings, ok_indices). The host-side resize is HF
+        CLIPImageProcessor's (shortest side to the input size, bicubic,
+        center crop), the same as the index builder's.
+        """
+        from PIL import Image
+
+        self.ensure_loaded()
+        s = self.config.vision.image_size
+        pixels, ok = [], []
+        for i, p in enumerate(paths):
+            try:
+                with Image.open(p) as img:
+                    img = img.convert("RGB")
+                    w, h = img.size
+                    if w <= h:
+                        nw, nh = s, max(s, round(h * s / w))
+                    else:
+                        nw, nh = max(s, round(w * s / h)), s
+                    img = img.resize((nw, nh), Image.BICUBIC)
+                    left, top = (nw - s) // 2, (nh - s) // 2
+                    img = img.crop((left, top, left + s, top + s))
+                    pixels.append(np.asarray(img, np.uint8))
+                    ok.append(i)
+            except Exception:
+                continue
+        if not pixels:
+            return np.zeros((0, self.config.vision.projection_dim), np.float32), []
+        return self.encode_images(np.stack(pixels)), ok
+
+    # -- adapters ------------------------------------------------------------
+
+    def as_embed_fn(self) -> Callable[[np.ndarray], np.ndarray]:
+        """Adapter for RAGBuilder (uint8 batch -> embeddings)."""
+        self.ensure_loaded()
+        return lambda batch: self.encode_images(batch)
+
     def get_stats(self) -> dict[str, Any]:
         return {
             "loaded": self._loaded,
@@ -246,6 +296,7 @@ class CLIPEmbedder:
             "compute_dtype": self.compute_dtype,
             "parity_mode": self.parity_mode,
             "device": str(self.device),
+            "fused_mlp": self.fused_mlp,
             "embed_dim": self.config.vision.projection_dim if self._loaded else None,
             # "clip_bpe" or "hash_fallback": degraded text semantics must
             # show in health checks

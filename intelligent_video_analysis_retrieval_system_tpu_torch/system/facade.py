@@ -1,16 +1,20 @@
-"""EnhancedRetrievalSystem: the user-facing facade, serving path.
+"""EnhancedRetrievalSystem: the user-facing facade, build and serving paths.
 
-Port of ``intelligent_video_analysis_retrieval_system_tpu/system/facade.py``
-for text queries: ``load_system`` -> ``search`` / ``search_batch`` (cache ->
-translate -> CLIP text encode -> exact top-k over the device rows -> post
-processing -> cache), ``search_by_image`` over pixel arrays,
-``get_system_stats`` and ``cleanup``.
+Port of ``intelligent_video_analysis_retrieval_system_tpu/system/facade.py``:
+``build_system`` (validate -> embed every keyframe through the vision tower
+-> write the ``.rvdb`` container and its sidecar -> metadata -> consistency
+check, with ``build_progress`` events), ``load_system`` -> ``search`` /
+``search_batch`` (cache -> translate -> CLIP text encode -> exact top-k over
+the device rows -> post processing -> cache), ``search_by_image`` over pixel
+arrays, ``get_system_stats`` and ``cleanup``.
 
-Everything runs on the facade's explicit ``torch.device``; the embedder and
-the index share it. Not ported yet, each raising ``NotImplementedError``
-that names the later change: building and ingest, chat, portable export
-and the REST server (``start_server``); P2P fan-in over remote indexes
-comes with the REST server.
+Everything runs on the facade's explicit ``torch.device`` (default
+``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
+kernels' plain versions); the embedder and the index share it. Not ported
+yet, each raising ``NotImplementedError`` that names the later change:
+``index_videos`` (video ingest), chat, portable export and the REST server
+(``start_server``); P2P fan-in over remote indexes comes with the REST
+server.
 """
 
 from __future__ import annotations
@@ -23,25 +27,26 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from intelligent_video_analysis_retrieval_system_tpu.utils.cache import CacheManager
-from intelligent_video_analysis_retrieval_system_tpu.utils.config import Config
-from intelligent_video_analysis_retrieval_system_tpu.utils.dataproc import DataProcessor
-from intelligent_video_analysis_retrieval_system_tpu.utils.logging import Logger, get_logger
-from intelligent_video_analysis_retrieval_system_tpu.utils.perf import PerformanceMonitor
-
+from ..index.builder import RAGBuilder
 from ..index.metadata import MetadataManager
 from ..index.unified import UnifiedIndex, UnifiedIndexConfig, resolve_device
 from ..retrieval.translator import UniversalQueryTranslator
 from ..retrieval.validator import DataConsistencyValidator
+from ..utils.cache import CacheManager
+from ..utils.config import Config
+from ..utils.dataproc import DataProcessor
+from ..utils.files import FileManager
+from ..utils.logging import Logger, get_logger
+from ..utils.perf import PerformanceMonitor
 from .embedder import CLIPEmbedder
 from .health import SystemHealthMonitor
 
-__all__ = ["SearchOptions", "EnhancedRetrievalSystem", "create_system"]
+__all__ = ["SearchOptions", "EnhancedRetrievalSystem", "create_system", "quick_search"]
 
 VALID_MODES = ("clip_only", "llm_enhanced", "hybrid")
 
-_LATER_BUILD = ("building an index (RAGBuilder, ingest) is ported in a later "
-                "change; build with the JAX package and load the .rvdb here")
+_LATER_INGEST = ("video ingest (FrameFilter, the DINO tower) is ported in a later "
+                 "change; extract keyframes with the JAX package, then build_system")
 
 
 @dataclass(slots=True)
@@ -68,14 +73,18 @@ class SearchOptions:
 
 
 class EnhancedRetrievalSystem:
-    """Load / search / stats over one index on one device."""
+    """Build / load / search / stats over one index on one device."""
+
+    # the builder ``build_system`` runs (a subclass may replace the decode
+    # or the container, as the chip smoke does where h5py is missing)
+    builder_class = RAGBuilder
 
     def __init__(
         self,
         config: Config | None = None,
         embedder: CLIPEmbedder | None = None,
         logger: Logger | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         mesh: Any | None = None,
     ) -> None:
         if mesh is not None:
@@ -99,6 +108,7 @@ class EnhancedRetrievalSystem:
             memory_budget_mb=perf_cfg.get("cache_memory_mb", 512),
             default_ttl_s=perf_cfg.get("cache_ttl_s", 3600),
         )
+        self.fm = FileManager(temp_dir=self.config.path("temp_dir"))
         self.dp = DataProcessor()
         self.validator = DataConsistencyValidator()
         self.translator = UniversalQueryTranslator(cache=self.cache)
@@ -114,10 +124,87 @@ class EnhancedRetrievalSystem:
         self.index: UnifiedIndex | None = None
         self.metadata = MetadataManager(device=self.device)
         self.health = SystemHealthMonitor(self)
+        self._callbacks: dict[str, list[Callable[..., None]]] = {}
         self._lock = threading.RLock()
         self.is_built = False
 
-    # -- load -----------------------------------------------------------------
+    # -- events ---------------------------------------------------------------
+
+    def on(self, event: str, callback: Callable[..., None]) -> None:
+        self._callbacks.setdefault(event, []).append(callback)
+
+    def _emit(self, event: str, **payload: Any) -> None:
+        for cb in self._callbacks.get(event, []):
+            try:
+                cb(**payload)
+            except Exception:
+                self.logger.warning(f"event callback failed: {event}")
+
+    # -- build / load ---------------------------------------------------------
+
+    def build_system(
+        self,
+        keyframe_folder: str | Path,
+        map_dir: str | Path | None = None,
+        output_path: str | Path | None = None,
+        resume: bool = True,
+    ) -> dict[str, Any]:
+        """Validated end-to-end build, the reference's six steps: every
+        keyframe of ``keyframes/<video>/<n>.jpg`` through the vision tower
+        into one ``.rvdb`` container (chunked, resumable), which is then
+        attached and served."""
+        with self.perf.timer("build_system"):
+            keyframe_folder = Path(keyframe_folder)
+            # step 1: pre-build validation
+            folder_report = self.validator.validate_keyframes_folder(keyframe_folder)
+            if not folder_report.ok:
+                raise ValueError(f"invalid keyframes folder: {folder_report.errors}")
+            self._emit("build_progress", stage="validate", done=1, total=6)
+            # step 2-3: embed + write index (chunked, resumable)
+            if output_path is None:
+                output_path = self.config.path("index_dir") / "index.rvdb"
+            if map_dir is None:
+                candidate = self.config.path("map_dir")
+                map_dir = candidate if candidate.is_dir() else None
+            builder = self._make_builder()
+            index, report = builder.build_index(
+                keyframe_folder, output_path, map_dir=map_dir, resume=resume
+            )
+            with self._lock:
+                if self.index is not None:
+                    self.index.close()
+                self.index = index
+            self._emit("build_progress", stage="index", done=4, total=6)
+            # step 4: metadata graphs
+            self._rebuild_metadata()
+            # step 5: consistency validation
+            consistency = self.validator.validate_index_metadata_consistency(
+                index.ntotal, index._metadata
+            )
+            if not consistency.ok:
+                raise RuntimeError(f"post-build inconsistency: {consistency.errors}")
+            # step 6: finalize
+            self.is_built = True
+            self._emit("build_progress", stage="done", done=6, total=6)
+            self.logger.info("build complete", **report.as_dict())
+            return {"report": report.as_dict(), "index_path": str(output_path)}
+
+    def _make_builder(self) -> RAGBuilder:
+        """The builder ``build_system`` runs: this system's embedder, index
+        config and device, its progress forwarded as ``build_progress``."""
+        index_cfg = self._index_config()
+        self.embedder.ensure_loaded()
+        return self.builder_class(
+            self.embedder.as_embed_fn(),
+            self.embedder.embed_dim,
+            input_size=self.embedder.input_size,
+            config=index_cfg,
+            file_manager=self.fm,
+            progress_fn=lambda stage, done, total: self._emit(
+                "build_progress", stage=stage, done=done, total=total
+            ),
+            device=self.device,
+        )
 
     def load_system(self, index_path: str | Path, writable: bool = False) -> None:
         """Open an ``.rvdb`` index on the device and rebuild metadata."""
@@ -153,6 +240,12 @@ class EnhancedRetrievalSystem:
             self.logger.warning(
                 f"Unknown index type: {index_type}, using exact flat search")
         return UnifiedIndexConfig(
+            chunk_size=sec.get("chunk_size", 1024),
+            checkpoint_every_chunks=sec.get("checkpoint_every_chunks", 5),
+            store_thumbnails=sec.get("store_thumbnails", True),
+            thumbnail_size=sec.get("thumbnail_size", 224),
+            store_full_images=sec.get("store_full_images", False),
+            dtype=sec.get("dtype", "bfloat16"),
             int8_rescore=bool(sec.get("int8_rescore", False)),
             int8_rescore_factor=int(sec.get("int8_rescore_factor", 4)),
             int8_rescore_cache=bool(sec.get("int8_rescore_cache", False)),
@@ -352,7 +445,7 @@ class EnhancedRetrievalSystem:
     def search_by_image(self, image: np.ndarray,
                         options: SearchOptions | None = None) -> list[dict[str, Any]]:
         """Image-to-image search over a (H, W, 3) or (1, H, W, 3) pixel
-        array (the vision tower, so kernel B3 on a card). Image files are
+        array (normalize and the vision tower, so kernels B5 and B3 on a card). Image files are
         decoded with the ingest port in a later change. Never raises on a
         search failure (returns [])."""
         if isinstance(image, (str, Path)):
@@ -373,22 +466,19 @@ class EnhancedRetrievalSystem:
 
     # -- not ported yet -------------------------------------------------------
 
-    def build_system(self, *args: Any, **kwargs: Any) -> dict[str, Any]:
-        raise NotImplementedError(_LATER_BUILD)
-
     def index_videos(self, *args: Any, **kwargs: Any) -> dict[str, Any]:
-        raise NotImplementedError(_LATER_BUILD)
+        raise NotImplementedError(_LATER_INGEST)
 
     def chat(self, *args: Any, **kwargs: Any) -> dict:
         raise NotImplementedError("chat is ported with the agents in a later change")
 
     def export_portable_index(self, *args: Any, **kwargs: Any) -> Path:
         raise NotImplementedError(
-            "portable export is ported with the index builder in a later change")
+            "portable export is ported with the REST server in a later change")
 
     def load_portable_index(self, *args: Any, **kwargs: Any) -> None:
         raise NotImplementedError(
-            "portable import is ported with the index builder in a later change")
+            "portable import is ported with the REST server in a later change")
 
     def start_server(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(
@@ -419,11 +509,24 @@ class EnhancedRetrievalSystem:
 
 
 def create_system(config_file: str | Path | None = None,
-                  torch_device: torch.device | str = "cpu", **overrides: Any):
-    """Convenience factory: a system on ``torch_device`` (``"cuda"`` raises
-    where CUDA is missing). ``overrides`` are config sections, as in the
-    JAX package (e.g. ``device={"compute_dtype": "float32"}``)."""
+                  torch_device: torch.device | str = "cuda", **overrides: Any):
+    """Convenience factory: a system on ``torch_device`` (the default
+    ``"cuda"`` raises where CUDA is missing; ``"cpu"`` runs the kernels'
+    plain versions). ``overrides`` are config sections, as in the JAX
+    package (e.g. ``device={"compute_dtype": "float32"}``)."""
     return EnhancedRetrievalSystem(
         Config(config_file=config_file, overrides=overrides or None),
         device=torch_device,
     )
+
+
+def quick_search(index_path: str | Path, query: str, limit: int = 10,
+                 torch_device: torch.device | str = "cuda"):
+    """One-shot search helper: load ``index_path`` on ``torch_device``,
+    answer one text query, clean up."""
+    system = create_system(torch_device=torch_device)
+    system.load_system(index_path)
+    try:
+        return system.search(query, SearchOptions(limit=limit))
+    finally:
+        system.cleanup()

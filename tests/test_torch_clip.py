@@ -6,6 +6,14 @@ agree within 1e-4; in bf16 their embeddings keep cosine >= 0.999 (the gate
 of the JAX package's ``models/convert.py``). The weight mapping is checked
 by a round trip through the JAX ``convert_hf_clip_params``. Seeded init, HF
 checkpoints, the tokenizer and preprocessing are in test_torch_convert.py.
+
+``fused_mlp=True`` (the fused LN+MLP half-block, kernel B4; on the CPU its
+plain version): a fused block equals the same block unfused and the JAX
+``TransformerBlock(fused_mlp=True)`` (interpret mode) at f32 ``atol=2e-5``
+(the JAX test's own bound), for each of the three activations; a model of
+widths that pass the kernel's gate equals the Flax model at f32 1e-4 / bf16
+cosine >= 0.999; a Flax tree initialised through the fused block carries
+across unchanged.
 """
 
 import jax
@@ -132,5 +140,105 @@ def test_unported_options_raise():
     for flag in ("w8a8", "int8_attn", "remat"):
         with pytest.raises(NotImplementedError):
             tclip.CLIPModel(CFG_T, **{flag: True})
-    with pytest.raises(NotImplementedError):
-        tclip.TransformerBlock(64, 4, 4, fused_mlp=True)
+    # fused_mlp is ported: taken where the gate passes, the unfused chain else
+    assert tclip.TransformerBlock(256, 4, 2, fused_mlp=True).fused_mlp
+    assert not tclip.TransformerBlock(64, 4, 4, fused_mlp=True).fused_mlp
+    assert not tclip.TransformerBlock(256, 4, 2, precision="highest", fused_mlp=True).fused_mlp
+    assert not tclip.TransformerBlock(256, 4, 2).fused_mlp
+
+
+# ---------------------------------------------------------------------------
+# fused_mlp: widths that pass the kernel's gate (D % 128 == 0, H % 256 == 0)
+# ---------------------------------------------------------------------------
+
+WIDE_J = jclip.CLIPConfig(
+    vision=jclip.CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=128, num_layers=2,
+                                  num_heads=4, projection_dim=32),
+    text=jclip.CLIPTextConfig(vocab_size=512, max_length=16, hidden_size=128, num_layers=2,
+                              num_heads=4, projection_dim=32))
+WIDE_T = tclip.CLIPConfig(
+    vision=tclip.CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=128, num_layers=2,
+                                  num_heads=4, projection_dim=32),
+    text=tclip.CLIPTextConfig(vocab_size=512, max_length=16, hidden_size=128, num_layers=2,
+                              num_heads=4, projection_dim=32))
+
+
+def _jax_block(fused, act="quick_gelu"):
+    return jclip.TransformerBlock(num_heads=4, mlp_ratio=2, act=act, fused_mlp=fused)
+
+
+def _port_block(tree, fused, act="quick_gelu"):
+    blk = tclip.TransformerBlock(256, 4, 2, act=act, fused_mlp=fused)
+    blk.load_state_dict({k[2:]: v for k, v in tconv._block(tree, "b").items()})
+    return blk.eval()
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu", "gelu_tanh"])
+def test_fused_block_matches_unfused_and_jax(act):
+    x = np.random.default_rng(3).standard_normal((2, 8, 256)).astype(np.float32)
+    tree = _jax_block(False, act).init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    tree = jax.tree_util.tree_map(np.asarray, tree)
+    want = np.asarray(_jax_block(True, act).apply({"params": tree}, jnp.asarray(x)))
+    fused, unfused = _port_block(tree, True, act), _port_block(tree, False, act)
+    assert fused.fused_mlp and not unfused.fused_mlp
+    with torch.no_grad():
+        got_f = fused(torch.from_numpy(x)).numpy()
+        got_u = unfused(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got_f, got_u, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got_f, want, atol=2e-5, rtol=0)
+    # with autograd recording the block takes its unfused modules: gradients flow
+    y = fused(torch.from_numpy(x))
+    y.sum().backward()
+    assert fused.mlp.fc1.weight.grad is not None
+    np.testing.assert_allclose(y.detach().numpy(), got_u, atol=1e-6, rtol=0)
+
+
+def test_flax_tree_of_the_fused_block_carries_across_unchanged():
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((1, 8, 256)).astype(np.float32))
+    tree_f = _jax_block(True).init(jax.random.PRNGKey(0), x)["params"]
+    tree_u = _jax_block(False).init(jax.random.PRNGKey(0), x)["params"]
+    sd_f, sd_u = tconv._block(tree_f, "b"), tconv._block(tree_u, "b")
+    assert set(sd_f) == set(sd_u) == {
+        f"b.{k}" for k in tclip.TransformerBlock(256, 4, 2, fused_mlp=True).state_dict()}
+    for key in sd_f:
+        assert torch.equal(sd_f[key], sd_u[key]), key
+    np.testing.assert_array_equal(sd_f["b.mlp.fc1.weight"].numpy(),
+                                  np.asarray(tree_f["mlp_fc"]["kernel"]).T)
+    np.testing.assert_array_equal(sd_f["b.layer_norm2.weight"].numpy(),
+                                  np.asarray(tree_f["ln_2"]["scale"]))
+
+
+@pytest.fixture(scope="module")
+def wide_params():
+    rng = np.random.default_rng(0)
+    px = rng.standard_normal((1, 32, 32, 3)).astype(np.float32)
+    toks = rng.integers(1, 500, (1, 16)).astype(np.int32)
+    params = jclip.CLIPModel(WIDE_J).init(jax.random.PRNGKey(0), px, toks)["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mlp_model_matches_flax(wide_params, inputs, dtype):
+    px, toks, eot = inputs
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    jm = jclip.CLIPModel(WIDE_J, dtype=jdt, precision=lax.Precision.DEFAULT)
+    m = tconv.empty_model(WIDE_T, "cpu", dtype=tdt, precision="default", fused_mlp=True)
+    m.load_state_dict(tconv.from_jax_params(wide_params, WIDE_T))
+    m.eval()
+    layers = list(m.vision_model.encoder.layers) + list(m.text_model.encoder.layers)
+    assert all(blk.fused_mlp for blk in layers)
+    want_i = jm.apply({"params": wide_params}, jnp.asarray(px),
+                      method=jclip.CLIPModel.encode_image)
+    want_t = jm.apply({"params": wide_params}, jnp.asarray(toks), jnp.asarray(eot),
+                      method=jclip.CLIPModel.encode_text)
+    with torch.no_grad():
+        got_i = m.encode_image(torch.from_numpy(px))
+        got_t = m.encode_text(torch.from_numpy(toks), torch.from_numpy(eot))
+    for got, want in ((got_i, want_i), (got_t, want_t)):
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+        else:
+            assert got.dtype == torch.bfloat16
+            cos = _cos(got.float().numpy(), np.asarray(want, np.float32))
+            assert cos.min() >= 0.999, cos

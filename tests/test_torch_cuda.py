@@ -11,12 +11,19 @@ Tolerances: B1 chunk maxima 1e-3 (the kernel sums in another order than
 the f32 matmul of the plain version); top-k tie-aware (5e-4); B3 f32 1e-5,
 bf16 2e-2. B2 (int8) is exact: chunk maxima ``torch.equal`` to the plain
 version, top-k tie-aware with atol 0 against the full-matrix reference.
+B5 (normalize) has no sum and is ``torch.equal`` to its plain version. B4
+(LN+MLP): f32 5e-5 (sums in another order, ``rsqrtf``), bf16 max abs
+difference at most 0.01 of the output's max abs (the same rounding points;
+a sum or an ``exp`` that lands on the other side of a bf16 boundary moves
+an element by one step).
 """
 
 import pytest
 import torch
 
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention as tatt
+from intelligent_video_analysis_retrieval_system_tpu_torch.ops import block as tblock
+from intelligent_video_analysis_retrieval_system_tpu_torch.ops import preprocess as tpre
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant as tq
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import topk as ttopk
 from intelligent_video_analysis_retrieval_system_tpu_torch.testing import tie_aware_equal
@@ -165,3 +172,103 @@ def test_int8_chunk_max_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError):   # no plain search on the card
         tq.topk_search_int8(torch.zeros(n, 32, dtype=torch.int8, device=cuda_device), xs,
                             torch.zeros(2, 32, device=cuda_device), 3, use_pallas=False)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 3, 5, 3), (2, 32, 32, 3), (8, 224, 224, 3),
+                                   (256, 224, 224, 3)])
+def test_normalize_kernel_equals_plain(cuda_device, shape, in_dtype, out_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0])
+    img = torch.randint(0, 256, shape, generator=gen, device=cuda_device, dtype=torch.uint8)
+    if in_dtype == torch.float32:
+        img = img.float() + torch.rand(shape, generator=gen, device=cuda_device) - 0.5
+    before = tpre.normalize_images.launches
+    got = tpre.normalize_images(img, dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tpre.normalize_images.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == img.shape
+    want = tpre.normalize_images_reference(img, tpre.CLIP_IMAGE_MEAN, tpre.CLIP_IMAGE_STD,
+                                           out_dtype)
+    assert torch.equal(got, want)
+    # and the same bits as the plain version computed on the host
+    host = tpre.normalize_images(img.cpu(), dtype=out_dtype)
+    assert torch.equal(got.cpu(), host)
+
+
+def test_normalize_kernel_misaligned_view_and_other_constants(cuda_device):
+    base = torch.randint(0, 256, (2 * 7 * 5 * 3 + 3,), device=cuda_device, dtype=torch.uint8)
+    img = base[3:].view(2, 7, 5, 3)           # data pointer 3 bytes past an allocation
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    got = tpre.normalize_images(img, mean, std, torch.float32)
+    assert torch.equal(got, tpre.normalize_images_reference(img, mean, std, torch.float32))
+    crop = torch.rand(2, 9, 9, 3, device=cuda_device)[:, 1:8, 1:8]   # not contiguous
+    got = tpre.normalize_images(crop, dtype=torch.bfloat16)
+    assert torch.equal(got, tpre.normalize_images_reference(
+        crop, tpre.CLIP_IMAGE_MEAN, tpre.CLIP_IMAGE_STD, torch.bfloat16))
+
+
+def test_normalize_kernel_refuses_bad_input(cuda_device):
+    with pytest.raises(TypeError):
+        tpre.normalize_images(torch.zeros(1, 2, 2, 3, device=cuda_device, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        tpre.normalize_images(torch.zeros(1, 2, 2, 3, device=cuda_device),
+                              dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tpre.normalize_images(torch.zeros(1, 2, 2, 4, device=cuda_device))
+
+
+def _ln_mlp_args(device, tokens_shape, d, h, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    x = randn(*tokens_shape, d).to(dtype)
+    return (x, 1.0 + 0.1 * randn(d), 0.1 * randn(d),
+            (randn(h, d) / d ** 0.5).to(dtype), 0.1 * randn(h),
+            (randn(d, h) / h ** 0.5).to(dtype), 0.1 * randn(d))
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu", "gelu_tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [((2, 9), 256, 512), ((37,), 128, 256), ((3, 50), 768, 3072),
+                                   ((8, 77), 512, 2048), ((2, 257), 1024, 4096),
+                                   ((1, 33), 384, 768)])
+def test_ln_mlp_kernel_matches_plain(cuda_device, shape, dtype, act):
+    tokens_shape, d, h = shape
+    args = _ln_mlp_args(cuda_device, tokens_shape, d, h, dtype, seed=d + h)
+    before = tblock.fused_ln_mlp.launches
+    got = tblock.fused_ln_mlp(*args, act=act)
+    torch.cuda.synchronize()
+    assert tblock.fused_ln_mlp.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    want = tblock.fused_ln_mlp_reference(*args, act=act)
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+    else:
+        diff = (got.float() - want.float()).abs().max().item()
+        assert diff <= 0.01 * want.float().abs().max().item(), diff
+
+
+def test_ln_mlp_kernel_full_batch_shape(cuda_device):
+    # the build path's shape: 256 images x 257 tokens of ViT-L/14
+    args = _ln_mlp_args(cuda_device, (256, 257), 1024, 4096, torch.bfloat16, seed=1)
+    got = tblock.fused_ln_mlp(*args)
+    want = tblock.fused_ln_mlp_reference(*args)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= 0.01 * want.float().abs().max().item(), diff
+
+
+def test_ln_mlp_kernel_refuses_bad_input(cuda_device):
+    args = _ln_mlp_args(cuda_device, (2, 3), 256, 512, torch.float32, seed=2)
+    with pytest.raises(ValueError):
+        tblock.fused_ln_mlp(*args, act="relu")
+    with pytest.raises(TypeError):
+        tblock.fused_ln_mlp(args[0].to(torch.float16), *args[1:])
+    with pytest.raises(ValueError):      # d past the kernel's register tile
+        tblock.fused_ln_mlp(*_ln_mlp_args(cuda_device, (2,), 1280, 5120,
+                                          torch.bfloat16, seed=3))
+    with pytest.raises(ValueError):      # weights on another device
+        tblock.fused_ln_mlp(args[0], *(a.cpu() for a in args[1:]))

@@ -133,7 +133,7 @@ def test_reopen_keeps_tombstones_and_rows(tmp_path):
     t.incremental_update(np.ones((2, DIM), np.float32), [_record(N), _record(N + 1)])
     t.close()
     j.close()
-    t2 = UnifiedIndex().load_unified_index(tmp_path / "b.rvdb")
+    t2 = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "b.rvdb")
     j2 = JaxIndex().load_unified_index(tmp_path / "b.rvdb")
     assert t2.deleted_rows == j2.deleted_rows == frozenset({5, 6, 7})
     q = np.random.default_rng(2).standard_normal((3, DIM)).astype(np.float32)
@@ -148,14 +148,14 @@ def test_flat_sidecar_is_read(tmp_path):
     # serve the sidecar's rows when its header matches
     other = np.random.default_rng(9).standard_normal(rows.shape).astype(np.float32)
     native.FlatEmbeddingFile.write_raw(tmp_path / "s.rvdb.flat", other, "float32")
-    t = UnifiedIndex().load_unified_index(tmp_path / "s.rvdb")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "s.rvdb")
     dev = t._dev_x[:N].numpy()
     want = other / np.linalg.norm(other, axis=-1, keepdims=True)
     np.testing.assert_allclose(dev, want, atol=1e-6)
     t.close()
     # a stale sidecar (wrong row count) is ignored
     native.FlatEmbeddingFile.write_raw(tmp_path / "s.rvdb.flat", other[:10], "float32")
-    t = UnifiedIndex().load_unified_index(tmp_path / "s.rvdb")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "s.rvdb")
     np.testing.assert_allclose(t._dev_x[:N].numpy(),
                                rows / np.linalg.norm(rows, axis=-1, keepdims=True),
                                atol=1e-6)
@@ -194,9 +194,9 @@ def test_port_container_reads_and_writes_rvdb(tmp_path):
 
 def test_unported_modes_raise(tmp_path):
     with pytest.raises(NotImplementedError):
-        UnifiedIndex(UnifiedIndexConfig(ann=True))
+        UnifiedIndex(UnifiedIndexConfig(ann=True), device="cpu")
     with pytest.raises(NotImplementedError):
-        UnifiedIndex(mesh=object())
+        UnifiedIndex(device="cpu", mesh=object())
 
 
 def test_cuda_device_without_cuda_raises():
@@ -213,7 +213,7 @@ def test_similarity_graph_matches_jax():
     feats[31] = feats[30] + 0.08
     metas = [KeyframeMetadata(folder=f"v{i // 30}", image=f"{i}.jpg", frame_id=i, row_id=i)
              for i in range(60)]
-    t, j = MetadataManager(similarity_threshold=0.0), JaxMetadataManager(similarity_threshold=0.0)
+    t, j = MetadataManager(similarity_threshold=0.0, device="cpu"), JaxMetadataManager(similarity_threshold=0.0)
     t.build_metadata(metas, feats)
     from intelligent_video_analysis_retrieval_system_tpu.retrieval.results import (
         KeyframeMetadata as JaxMeta,
@@ -267,7 +267,7 @@ def test_int8_index_matches_jax_bit_for_bit(tmp_path, mode):
     shutil.copy(tmp_path / "a.rvdb", tmp_path / "b.rvdb")
     kw = dict(int8_rescore=mode != "int8", int8_rescore_cache=mode == "rescore_cache")
     j = JaxIndex(JaxConfig(**kw)).load_unified_index(tmp_path / "a.rvdb", mode="a")
-    t = UnifiedIndex(UnifiedIndexConfig(**kw)).load_unified_index(tmp_path / "b.rvdb",
+    t = UnifiedIndex(UnifiedIndexConfig(**kw), device="cpu").load_unified_index(tmp_path / "b.rvdb",
                                                                    mode="a")
     assert t._dev_x.dtype == torch.int8 and t.get_stats()["capacity"] == 4096
     assert (t._fp_cache is not None) == (mode == "rescore_cache")
@@ -303,7 +303,7 @@ def test_int8_index_matches_jax_bit_for_bit(tmp_path, mode):
     t.close()
     # reopened, both packages still answer the same
     j = JaxIndex(JaxConfig(**kw)).load_unified_index(tmp_path / "a.rvdb")
-    t = UnifiedIndex(UnifiedIndexConfig(**kw)).load_unified_index(tmp_path / "b.rvdb")
+    t = UnifiedIndex(UnifiedIndexConfig(**kw), device="cpu").load_unified_index(tmp_path / "b.rvdb")
     _assert_equal_int8(j, t, q, top_k=10)
     j.close()
     t.close()
@@ -311,12 +311,12 @@ def test_int8_index_matches_jax_bit_for_bit(tmp_path, mode):
 
 def test_int8_in_place_append_scores_as_a_reload(tmp_path):
     _write_int8(tmp_path / "a.rvdb", keep_fp=False)
-    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb", mode="a")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "a.rvdb", mode="a")
     new = np.random.default_rng(3).standard_normal((40, DIM)).astype(np.float32)
     t.incremental_update(new, [_record(N + i) for i in range(40)])
     x, s = t._dev_x[:N + 40].clone(), t._dev_scales[:N + 40].clone()
     t.close()
-    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "a.rvdb")
     assert torch.equal(t._dev_x[:N + 40], x) and torch.equal(t._dev_scales[:N + 40], s)
     t.close()
 
@@ -328,7 +328,7 @@ def test_flat8_sidecar_route(tmp_path):
     j = JaxIndex().load_unified_index(tmp_path / "a.rvdb")   # writes the sidecar
     assert side.is_file()
     jax_bytes = side.read_bytes()
-    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "a.rvdb")
     assert side.read_bytes() == jax_bytes
     q = np.random.default_rng(2).standard_normal((4, DIM)).astype(np.float32)
     _assert_equal_int8(j, t, q)
@@ -336,7 +336,7 @@ def test_flat8_sidecar_route(tmp_path):
     t.close()
     # the port writes the same sidecar when there is none
     side.unlink()
-    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "a.rvdb")
     assert side.read_bytes() == jax_bytes
     t.close()
     # a fresh sidecar is what the port serves: rows that differ from the
@@ -344,14 +344,14 @@ def test_flat8_sidecar_route(tmp_path):
     other = np.random.default_rng(9).integers(-127, 128, (n, DIM), dtype=np.int8)
     scales = np.random.default_rng(9).uniform(0.01, 0.1, n).astype(np.float32)
     native.FlatInt8File.write(side, other, scales, normalized=True)
-    t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+    t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "a.rvdb")
     np.testing.assert_array_equal(t._dev_x[:n].numpy(), other)
     np.testing.assert_array_equal(t._dev_scales[:n].numpy(), scales)
     t.close()
     # stale (another row count, or another normalize setting): the container wins
     for rows_, norm in ((other[:10], True), (other, False)):
         native.FlatInt8File.write(side, rows_, scales[:len(rows_)], normalized=norm)
-        t = UnifiedIndex().load_unified_index(tmp_path / "a.rvdb")
+        t = UnifiedIndex(device="cpu").load_unified_index(tmp_path / "a.rvdb")
         j = JaxIndex().load_unified_index(tmp_path / "a.rvdb")
         np.testing.assert_array_equal(t._dev_x[:n].numpy(), np.asarray(j._dev_x[:n]))
         np.testing.assert_array_equal(t._dev_scales[:n].numpy(),

@@ -16,9 +16,15 @@ the same ``.rvdb``, and answer the same text queries.
   with the same keyframes and scores, exactly, with and without the exact
   rescore; ``cli evaluate`` prints the same report as the JAX CLI.
 
+- build: ``build_system`` of both facades over one tree of JPEGs, with the
+  same tower params: the same rows within the towers' difference, the same
+  frames for text and image queries (tie-aware, 5e-4 plus the embeddings'
+  own difference), the ``build_progress`` events in order, an int8 container
+  from ``index.dtype="int8"``, and the CLI's ``build`` then ``search``.
+
 Also here: the request layer and the micro-batcher around the port, a run
-of the whole slice with JAX blocked from importing, the CLI, and
-``chip_smoke.py`` refusing to run without a card.
+of the whole slice with JAX and the JAX package blocked from importing, the
+CLI, and ``chip_smoke.py`` refusing to run without a card.
 """
 
 import json
@@ -105,11 +111,12 @@ def pair_factory(tmp_path_factory):
                          embedder=jemb)
         jsys.load_system(root / "index.rvdb")
         jemb.ensure_loaded()
-        temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=parity)
+        temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=parity, device="cpu")
         temb.load_params(from_jax_params(jax.tree_util.tree_map(np.asarray, jemb.params),
                                          CLIPConfig.tiny_test()))
         tsys = EnhancedRetrievalSystem(
-            Config(config_file=None, base_dir=root, overrides=cfg_over), embedder=temb)
+            Config(config_file=None, base_dir=root, overrides=cfg_over), embedder=temb,
+            device="cpu")
         tsys.load_system(root / "index.rvdb")
         made[dtype, parity] = jsys, tsys
         return jsys, tsys
@@ -222,7 +229,8 @@ import sys
 # JAX, and the packages the card's machine lacks apart from h5py (which
 # the container this script writes needs)
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "aiohttp", "msgpack",
-             "PIL", "transformers", "zstandard"):
+             "PIL", "transformers", "zstandard",
+             "intelligent_video_analysis_retrieval_system_tpu"):
     sys.modules[name] = None
 import numpy as np
 import torch
@@ -233,9 +241,10 @@ from intelligent_video_analysis_retrieval_system_tpu_torch.serve import (
     QueryBatcher, RequestHandler, format_results)
 from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
     SearchOptions, create_system)
-from intelligent_video_analysis_retrieval_system_tpu.utils.config import Config
+from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
 
 root = sys.argv[1]
+assert Config(config_file=None).get("index.chunk_size") == 1024
 rows = np.random.default_rng(0).standard_normal((3000, 32)).astype(np.float32)
 with IndexContainer(root + "/i.rvdb", "w", dim=32, dtype="bfloat16") as c:
     c.append_embeddings(rows)
@@ -268,7 +277,8 @@ system.load_system(root + "/i8.rvdb")
 assert system.index._dev_x.dtype == torch.int8
 assert len(system.search("a car", SearchOptions(limit=5))) == 5
 system.cleanup()
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+bad = [m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "intelligent_video_analysis_retrieval_system_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad
 print("SLICE_OK")
@@ -319,7 +329,8 @@ def test_chip_smoke_device_time_unions_intervals():
           {"ph": "X", "cat": "kernel", "ts": 400, "dur": 20, "name": "elementwise"}]
     busy, ops, per_kernel = chip_smoke.device_time({"traceEvents": ev})
     assert busy == pytest.approx(0.17) and ops == 4   # µs -> ms; runtime calls are host
-    assert per_kernel == pytest.approx({"b1": 0.01, "b2": 0.1, "b3": 0.0})
+    assert per_kernel == pytest.approx({"b1": 0.01, "b2": 0.1, "b3": 0.0, "b4": 0.0,
+                                        "b5": 0.0})
 
 
 def test_cli_search(tmp_path, monkeypatch, capsys):
@@ -361,11 +372,12 @@ def test_int8_facade_matches_jax_bit_for_bit(tmp_path, rescore):
                      embedder=jemb)
     jsys.load_system(tmp_path / "i8.rvdb")
     jemb.ensure_loaded()
-    temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=True)
+    temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=True, device="cpu")
     temb.load_params(from_jax_params(jax.tree_util.tree_map(np.asarray, jemb.params),
                                      CLIPConfig.tiny_test()))
     tsys = EnhancedRetrievalSystem(
-        Config(config_file=None, base_dir=tmp_path, overrides=over), embedder=temb)
+        Config(config_file=None, base_dir=tmp_path, overrides=over), embedder=temb,
+        device="cpu")
     tsys.load_system(tmp_path / "i8.rvdb")
     assert tsys.index._dev_x.dtype == torch.int8
     assert tsys.index.config.int8_rescore is rescore
@@ -426,11 +438,11 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
 
 def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
-    for call in (lambda: system.build_system(tmp_path), lambda: system.chat("hi"),
+    for call in (lambda: system.chat("hi"),
                  lambda: system.start_server(), lambda: system.index_videos([]),
                  lambda: system.export_portable_index(tmp_path),
-                 lambda: CLIPEmbedder(compute_dtype="int8"),
-                 lambda: EnhancedRetrievalSystem(mesh=object()),
+                 lambda: CLIPEmbedder(compute_dtype="int8", device="cpu"),
+                 lambda: EnhancedRetrievalSystem(device="cpu", mesh=object()),
                  lambda: create_system(torch_device="cpu",
                                        index={"index_type": "IndexIVFFlat"})._index_config()):
         with pytest.raises(NotImplementedError):
@@ -444,3 +456,173 @@ def test_cuda_request_without_cuda_raises():
         create_system(torch_device="cuda")
     with pytest.raises(RuntimeError):
         CLIPEmbedder(device="cuda")
+    # and "cuda" is every entry point's default: the caller asks for the CPU
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.metadata import (
+        MetadataManager,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        quick_search,
+    )
+
+    for entry in (create_system, EnhancedRetrievalSystem, CLIPEmbedder, UnifiedIndex,
+                  MetadataManager, lambda: quick_search("none.rvdb", "a car")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+
+
+# ---------------------------------------------------------------------------
+# build_system
+# ---------------------------------------------------------------------------
+
+
+def _write_keyframes(root: Path, folders=(("video_1", 7), ("video_2", 6))) -> tuple[Path, Path]:
+    from PIL import Image
+
+    rng = np.random.default_rng(8)
+    (root / "map").mkdir(parents=True)
+    for folder, count in folders:
+        (root / "keyframes" / folder).mkdir(parents=True)
+        lines = ["n,pts_time,fps,frame_idx"]
+        for n in range(1, count + 1):
+            cells = rng.integers(0, 256, (5, 6, 3), dtype=np.uint8)
+            Image.fromarray(np.kron(cells, np.ones((8, 8, 1), np.uint8))).save(
+                root / "keyframes" / folder / f"{n}.jpg", quality=92)
+            lines.append(f"{n},{n * 0.4},25.0,{n * 10}")
+        (root / "map" / f"{folder}.csv").write_text("\n".join(lines) + "\n")
+    return root / "keyframes", root / "map"
+
+
+def _build_pair(root: Path, parity: bool, index_over: dict | None = None):
+    """(jax system, port system, jax events, port events), each built from
+    the tree under ``root`` with the same tower params."""
+    keyframes, map_dir = _write_keyframes(root / "data")
+    over = {"index": {"chunk_size": 4, **(index_over or {})}}
+    jemb = JaxEmbedder(config=JaxCLIPConfig.tiny_test(), parity_mode=parity)
+    jsys = JaxSystem(Config(config_file=None, base_dir=root / "j", overrides=over),
+                     embedder=jemb)
+    jemb.ensure_loaded()
+    temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), parity_mode=parity, device="cpu")
+    temb.load_params(from_jax_params(jax.tree_util.tree_map(np.asarray, jemb.params),
+                                     CLIPConfig.tiny_test()))
+    tsys = EnhancedRetrievalSystem(
+        Config(config_file=None, base_dir=root / "t", overrides=over), embedder=temb,
+        device="cpu")
+    events = {"j": [], "t": []}
+    jsys.on("build_progress", lambda **kw: events["j"].append(kw))
+    tsys.on("build_progress", lambda **kw: events["t"].append(kw))
+    jout = jsys.build_system(keyframes, map_dir=map_dir, output_path=root / "j" / "i.rvdb")
+    tout = tsys.build_system(keyframes, map_dir=map_dir, output_path=root / "t" / "i.rvdb")
+    return jsys, tsys, events, jout, tout, keyframes
+
+
+@pytest.mark.parametrize("parity", [True, False])
+def test_build_system_matches_jax(tmp_path, parity):
+    jsys, tsys, events, jout, tout, keyframes = _build_pair(tmp_path, parity)
+    try:
+        for key in ("total_files", "processed", "skipped_resume", "failed", "chunks", "resumed"):
+            assert tout["report"][key] == jout["report"][key], key
+        assert tout["report"]["processed"] == 13 and tout["report"]["chunks"] == 4
+        assert tout["index_path"] == str(tmp_path / "t" / "i.rvdb") and tsys.is_built
+        # the events of the six-step build, in order, as the JAX facade emits them
+        assert events["t"] == events["j"]
+        assert [e["stage"] for e in events["t"]] == \
+            ["validate", "build", "build", "build", "build", "index", "done"]
+        assert events["t"][4] == {"stage": "build", "done": 13, "total": 13}
+        assert [m.key for m in tsys.index._metadata] == [m.key for m in jsys.index._metadata]
+        assert tsys.index.get_metadata(8).frame_id == 20
+        # the rows: within the towers' own difference (f32 1e-4; bf16 cosine gate)
+        rj, rt = jsys.index.read_rows_f32(), tsys.index.read_rows_f32()
+        rj = rj / np.linalg.norm(rj, axis=-1, keepdims=True)
+        rt = rt / np.linalg.norm(rt, axis=-1, keepdims=True)
+        d_rows = float(np.linalg.norm(rj - rt, axis=-1).max())
+        if parity:
+            assert d_rows < 1e-4
+        else:
+            assert np.sum(rj * rt, axis=-1).min() >= 0.999
+        # served: the same frames for text and image queries
+        from PIL import Image
+
+        img = np.asarray(Image.open(keyframes / "video_2" / "3.jpg").convert("RGB"))
+        cases = [(lambda s, o: s.search(QUERIES[0], o),
+                  lambda s: s.embedder.encode_text([tsys._clip_prompt(
+                      QUERIES[0], SearchOptions())[0]])[0]),
+                 (lambda s, o: s.search_by_image(img, o),
+                  lambda s: s.embedder.encode_images(img[None])[0])]
+        for ask, encode in cases:
+            want, got = ask(jsys, JaxOptions(limit=6)), ask(tsys, SearchOptions(limit=6))
+            assert len(got) == len(want) == 6
+            d_q = float(np.linalg.norm(encode(jsys) - encode(tsys)))
+            (gk, gs), (wk, ws) = _pairs(got), _pairs(want)
+            row = {k: i for i, k in enumerate(sorted(set(gk) | set(wk)))}
+            tie_aware_equal([row[k] for k in gk], gs, [row[k] for k in wk], ws,
+                            atol=ATOL_TOPK + d_q + d_rows)
+        top = tsys.search_by_image(img, SearchOptions(limit=1))[0]
+        assert (top["folder"], top["image"]) == ("video_2", "3.jpg")
+        # a second build resumes and skips everything
+        again = tsys.build_system(keyframes, map_dir=tmp_path / "data" / "map",
+                                  output_path=tmp_path / "t" / "i.rvdb")
+        assert again["report"]["skipped_resume"] == 13 and tsys.index.ntotal == 13
+    finally:
+        jsys.cleanup()
+        tsys.cleanup()
+
+
+def test_build_system_int8_dtype_builds_an_int8_container(tmp_path):
+    keyframes, map_dir = _write_keyframes(tmp_path / "data")
+    temb = CLIPEmbedder(config=CLIPConfig.tiny_test(), device="cpu")
+    tsys = EnhancedRetrievalSystem(
+        Config(config_file=None, base_dir=tmp_path, overrides={
+            "index": {"dtype": "int8", "int8_rescore": True, "chunk_size": 8}}),
+        embedder=temb, device="cpu")
+    cfg = tsys._index_config()
+    assert (cfg.dtype, cfg.chunk_size, cfg.int8_rescore, cfg.store_thumbnails) == \
+        ("int8", 8, True, True)
+    out = tsys.build_system(keyframes, map_dir=map_dir)      # default output path
+    try:
+        assert out["index_path"] == str(tsys.config.path("index_dir") / "index.rvdb")
+        assert tsys.index._dev_x.dtype == torch.int8 and tsys.index._dev_scales is not None
+        assert tsys.index._container.dtype == "int8" and tsys.index._container.has_fp_rows
+        assert Path(out["index_path"] + ".flat8").is_file()
+        assert len(tsys.search("a red car", SearchOptions(limit=5))) == 5
+        # a JAX system loads what the port built
+        jsys = JaxSystem(Config(config_file=None, base_dir=tmp_path / "j"),
+                         embedder=JaxEmbedder(config=JaxCLIPConfig.tiny_test()))
+        tsys.cleanup()
+        jsys.load_system(out["index_path"])
+        assert jsys.index.ntotal == 13
+        jsys.cleanup()
+    finally:
+        tsys.cleanup()
+    with pytest.raises(ValueError):
+        tsys.build_system(tmp_path / "nowhere")
+
+
+def test_cli_build_then_search(tmp_path, monkeypatch, capsys):
+    from intelligent_video_analysis_retrieval_system_tpu_torch import cli
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import convert
+
+    keyframes, map_dir = _write_keyframes(tmp_path / "data")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(convert.CLIPConfig, "vit_l_14", classmethod(
+        lambda cls: CLIPConfig.tiny_test()))
+    out = tmp_path / "out" / "cli.rvdb"
+    assert cli.main(["build", str(keyframes), "--output", str(out), "--map-dir", str(map_dir),
+                     "--chunk-size", "5", "--dtype", "int8", "--device", "cpu"]) == 0
+    said = capsys.readouterr().out
+    assert "indexed 13 images" in said and "0 failures" in said and str(out) in said
+    with JaxContainer(out, "r") as c:
+        assert c.num_rows == 13 and c.dtype == "int8"
+    assert cli.main(["build", str(keyframes), "--output", str(out), "--map-dir", str(map_dir),
+                     "--dtype", "int8", "--device", "cpu"]) == 0
+    assert "skipped 13 already-processed" in capsys.readouterr().out
+    assert cli.main(["search", str(out), "a red car", "--device", "cpu", "--limit", "3",
+                     "--json"]) == 0
+    hits = json.loads(capsys.readouterr().out)
+    assert len(hits) == 3 and hits[0]["rank"] == 1 and hits[0]["folder"].startswith("video_")
+    with pytest.raises(NotImplementedError):
+        cli.main(["build", str(keyframes), "--output", str(tmp_path / "w.rvdb"),
+                  "--compute-dtype", "int8", "--device", "cpu"])
+    assert cli._build_parser().parse_args(["build", "k"]).device == "cuda"
