@@ -14,7 +14,8 @@ non-zero):
             {1, 8, 32}, n_valid = N - 1000, 0.1% tombstones, against its
             plain torch version (atol 1e-3) and the full top-k against the
             exact reference (tie-aware, atol 5e-4); B3 (fused attention) at
-            ViT-L/14 shapes, B in {1, 8}, against its plain version
+            ViT-L/14 shapes, B in {1, 8}, and at the bench's ViT-B/32 shape
+            (B = 256, T = 50, D = 768, 12 heads), against its plain version
             (atol = rtol = 2e-2); B2 (int8 chunk-max sweep) over 10,000,000 x
             768 int8 rows made on the card in blocks from a seeded
             ``torch.Generator`` and quantized by ``symmetric_int8`` (7.68 GB),
@@ -49,12 +50,12 @@ non-zero):
             case, against its plain version (bf16: max abs difference <=
             0.01 x the output's max abs; f32: atol 5e-5). Then a system with
             seeded random ViT-L/14 towers in bf16 and ``fused_mlp=True``
-            builds 8,192 keyframes of 224 x 224 x 3 in 8 video folders
+            builds 4,096 keyframes of 224 x 224 x 3 in 8 video folders
             through ``build_system`` -> ``RAGBuilder.build_index`` (chunks of
             1,024, encode batches of 256): real JPEGs where PIL imports and a
             real ``.rvdb`` where h5py imports, else a ``RAGBuilder`` subclass
             that replaces only the missing piece (the route is printed).
-            Checked: the report (8,192 processed, 0 failed, 8 chunks), B5
+            Checked: the report (4,096 processed, 0 failed, 4 chunks), B5
             once and B3 and B4 24 times per encode batch, the progress
             events, 256 built rows against an embedder without ``fused_mlp``
             (cosine >= 0.999), a second build that resumes and skips every
@@ -62,13 +63,40 @@ non-zero):
             >= 0.99), 8 text requests equal to the exact reference; then
             1,024 frames built with ``index.dtype="int8"`` and served equal
             to ``int8_reference`` (atol 0).
-7. numbers  p50/p95 text-query latency (encode + search, 24 warm queries)
+7. bench    the port's bench (``bench.main(["--probes"])``) in this process
+            at full size, with its three hooks: the headline text query over
+            1,000,000 bf16 rows (every answer tie-aware equal to the exact
+            f32 reference over the same rows), the ViT-B/32 image tower at
+            B=256 (the timed batch again with every attention layer on its
+            plain route: cosine >= 0.999), the int8 capacity mode over
+            10,000,000 rows (every single-query answer and the first batch of
+            128 and of 32 equal to ``int8_reference``, atol 0); its JSON line
+            is printed as it is.
+8. probes   inside the same bench run, what its probes (``bench/probes.py``)
+            returned, held against their plain versions on the same inputs:
+            P1 (int8 tensor-core sweep) and P2 (rows widened to bf16) over
+            2,097,152 x 768 int8 rows with 2,000,000 live, at 128, 256 and
+            512 rows per block (P1 ``torch.equal`` to its plain version and
+            to B2 under an all-zero tombstone mask; P2 within 1e-5 x max
+            |score|); P3 (memory stream) over 1.5 GiB as bf16, int8 and int32
+            at 1, 2 and 4 blocks per multiprocessor (``torch.equal``). The
+            probes' times are the bench's own; the hook adds the plain
+            versions' and the library calls', and the stream rate is set
+            beside the published 3.35 TB/s. The hook's launches are taken off
+            the counts.
+9. open     the int8 facade over the 1,000,000 rows opened twice from a
+            stand-in container that has a path: record by record (which
+            writes the ``.meta.npz`` and ``.flat8`` sidecars), then through
+            the sidecars (columnar metadata); seconds of each, the same hits
+            from both.
+10. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
             of both serving slices, images/s of the build, kernel vs plain
             vs library-call times (CUDA events) beside each kernel's bound.
 
 Each slice sets every launch count to 0 just before it runs and reads the
 counts just after; the kernels' JSON line reports B1 and B3 from the bf16
-slice, B2 from the int8 slice and B4 and B5 from the build.
+slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
+bench (whose own B1, B2, B3 and B5 launches are printed beside them).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,6 +127,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from intelligent_video_analysis_retrieval_system_tpu_torch.bench.data import (  # noqa: E402
+    MemoryContainer,
+    synthetic_record,
+)
 from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (  # noqa: E402
     native,
 )
@@ -115,7 +147,7 @@ ATOL_CHUNK = 1e-3  # chunk maxima: summation order differs
 TOL_MHA = 2e-2     # bf16 attention output
 TOL_LN_MLP = 1e-2  # bf16 LN+MLP: max abs difference over the output's max abs
 ATOL_LN_MLP_F32 = 5e-5  # f32 LN+MLP: sums in another order, rsqrtf
-N_FRAMES = 8192    # the build phase: keyframes, in N_FOLDERS video folders
+N_FRAMES = 4096    # the build phase: keyframes, in N_FOLDERS video folders
 N_FOLDERS = 8
 N_FRAMES_INT8 = 1024
 
@@ -134,8 +166,11 @@ def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+_LOG_TO = None   # the real stdout, while the bench phase captures the bench's own
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg}", file=_LOG_TO or sys.stdout, flush=True)
 
 
 class Timer:
@@ -253,6 +288,27 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
             log("numbers", f"B3 B=8: kernel {mha['ms']:.4f} ms, plain {mha['plain_ms']:.4f} ms, "
                 f"library scaled_dot_product_attention {mha['library_ms']:.4f} ms, bound "
                 f"{mha['bound_ms']:.4f} ms ({mha['bound_by']})")
+    # B3 at the ViT-B/32 shape of the bench's image tower
+    b, t, d, h = 256, 50, 768, 12
+    q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    got = attention.fused_mha(q, k, v, h)
+    ref = attention._einsum_attention(q, k, v, h)
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
+        raise AssertionError(f"B3 B={b} T={t}: max abs err {err} beyond atol=rtol={TOL_MHA}")
+    mha["max_abs_err"] = max(mha["max_abs_err"], err)
+    t50 = {"ms": timer(lambda: attention.fused_mha(q, k, v, h), iters=20),
+           "plain_ms": timer(lambda: attention._einsum_attention(q, k, v, h), iters=20),
+           "library_ms": timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+               *(y.view(b, t, h, d // h).transpose(1, 2) for y in (q, k, v))), iters=20),
+           **bound(4 * b * t * d * 2, 4.0 * b * t * t * d, "bf16")}
+    mha["vit_b_32"] = {"shape": [b, t, d, h], "max_abs_err": err, **t50}
+    log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16: max_abs_err={err:.3e} "
+        f"vs plain (atol=rtol={TOL_MHA})")
+    log("numbers", f"B3 B={b} T={t}: kernel {t50['ms']:.4f} ms, plain {t50['plain_ms']:.4f} ms, "
+        f"library scaled_dot_product_attention {t50['library_ms']:.4f} ms, bound "
+        f"{t50['bound_ms']:.4f} ms ({t50['bound_by']})")
     if require_kernels and (topk.chunk_max_sweep.launches == 0
                             or attention.fused_mha.launches == 0):
         raise AssertionError("a kernel comparison ran without launching its kernel")
@@ -366,60 +422,6 @@ def synthetic_rows_bf16_bits(n: int, dim: int, seed: int = 0) -> np.ndarray:
         bits = rng.standard_normal((e - s, dim), dtype=np.float32).view(np.uint32)
         out[s:e] = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
     return out
-
-
-def synthetic_record(i: int) -> dict:
-    """Keyframe metadata of row i: 1000 keyframes per video, one per second."""
-    return {"folder": f"video_{i // 1000:04d}", "image": f"{i % 1000:06d}.jpg",
-            "frame_id": (i % 1000) * 25, "row_id": i, "pts_time": float(i % 1000),
-            "fps": 25.0}
-
-
-class MemoryContainer:
-    """The read interface of the port's ``index.container.IndexContainer``
-    over rows held in memory (for machines without h5py)."""
-
-    mode = "r"
-    path = None
-    dtype = "bfloat16"
-    num_thumbnails = 0
-    num_images = 0
-
-    def __init__(self, bits: np.ndarray) -> None:
-        self._bits = bits
-        self.dim = bits.shape[1]
-
-    @property
-    def num_rows(self) -> int:
-        return len(self._bits)
-
-    num_metadata = num_rows
-
-    def read_embeddings(self, start: int = 0, end: int | None = None,
-                        as_float32: bool = False) -> np.ndarray:
-        block = self._bits[start:end]
-        return native.bf16_to_f32(block) if as_float32 else block
-
-    def iter_metadata(self):
-        return (synthetic_record(i) for i in range(self.num_rows))
-
-    def deleted_rows(self) -> set:
-        return set()
-
-    def get_ann(self):
-        return None
-
-    def stats(self):
-        from intelligent_video_analysis_retrieval_system_tpu_torch.index.container import (
-            ContainerStats,
-        )
-
-        return ContainerStats(path="<memory>", num_rows=self.num_rows, dim=self.dim,
-                              dtype=self.dtype, num_thumbnails=0, num_images=0,
-                              num_metadata=self.num_rows, file_bytes=0, journal_files=0)
-
-    def close(self) -> None:
-        pass
 
 
 def open_index(system, bits: np.ndarray, workdir: Path) -> str:
@@ -645,12 +647,12 @@ class Int8MemoryContainer(MemoryContainer):
     dtype = "int8"
     has_fp_rows = True
 
-    def __init__(self, bits: np.ndarray) -> None:
+    def __init__(self, bits: np.ndarray, path: Path | None = None) -> None:
         from intelligent_video_analysis_retrieval_system_tpu_torch.ops.quant import (
             quantize_rows_int8,
         )
 
-        super().__init__(bits)
+        super().__init__(bits, path)
         self._q = np.empty(bits.shape, np.int8)
         self._s = np.empty((len(bits),), np.float32)
         for s in range(0, len(bits), 131_072):
@@ -1440,6 +1442,354 @@ def run_build_slice(device, require_kernels: bool, config=None, n_frames: int = 
 
 
 # ---------------------------------------------------------------------------
+# phases 7 and 8: the bench in this process, every answer and probe checked
+# ---------------------------------------------------------------------------
+
+TOL_P2 = 1e-5   # x max |score|: bf16 products summed in f32 in another order
+COS_TOWER = 0.999   # image tower through B3 against the plain attention route
+
+
+class ProbeChecks:
+    """The bench's ``check_probes`` hook: holds what the timed probes returned
+    against their plain versions on the same inputs (P1 also against B2), and
+    times what the bench does not report: the plain versions and the library
+    yardsticks (timed only: the port never calls them), beside each bound.
+    Launches made here are taken off the counts again."""
+
+    def __init__(self, device, timer: Timer) -> None:
+        self.device, self.timer = device, timer
+        self.p1, self.p2, self.p3 = ({"max_abs_err": 0.0} for _ in range(3))
+        self.calls: list[str] = []
+
+    def __call__(self, kind: str, **given) -> None:
+        before = {k: fn.launches for k, fn in bench_counters().items()}
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        {"sweeps": self.sweeps, "stream": self.stream}[kind](**given)
+        for k, fn in bench_counters().items():   # comparisons are not the bench's path
+            fn.launches = before[k]
+
+    def sweeps(self, x_i8, xs, q_i8, q_bf16, n_valid, outs) -> None:
+        import torch
+
+        from intelligent_video_analysis_retrieval_system_tpu_torch.bench import probes
+        from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
+
+        timer, p1, p2 = self.timer, self.p1, self.p2
+        n_pad, dim = x_i8.shape
+        dead = torch.zeros(n_pad, dtype=torch.int8, device=x_i8.device)
+        plain1 = probes.probe_int8_mma_sweep_plain(x_i8, xs, q_i8, n_valid)
+        plain2 = probes.probe_int8_convert_sweep_plain(x_i8, xs, q_bf16, n_valid)
+        b2 = quant.int8_chunk_max_sweep(x_i8, xs, q_i8, n_valid, dead)
+        live, fin = torch.isfinite(plain1), torch.isfinite(plain2)
+        top = float(plain2[fin].abs().max())
+        if sorted(outs) != sorted(probes.ROWS_PER_BLOCK):
+            raise AssertionError(f"the bench ran the sweeps at {sorted(outs)} rows per block")
+        for rpb, (got1, got2) in outs.items():
+            if not (torch.equal(got1, plain1) and torch.equal(got1, b2)):
+                raise AssertionError(f"P1 rows_per_block={rpb}: chunk maxima differ from the "
+                                     "plain version or from B2 with an all-zero tombstone mask")
+            p1["max_abs_err"] = max(p1["max_abs_err"],
+                                    float((got1[live] - plain1[live]).abs().max()))
+            if not torch.equal(torch.isfinite(got2), fin):
+                raise AssertionError(f"P2 rows_per_block={rpb}: masked chunks differ")
+            err = float((got2[fin] - plain2[fin]).abs().max())
+            if err > TOL_P2 * top:
+                raise AssertionError(f"P2 rows_per_block={rpb}: max abs err {err} > {TOL_P2} x "
+                                     f"max |score| {top}")
+            p2["max_abs_err"] = max(p2["max_abs_err"], err)
+            log("kernels", f"P1 probe_int8_mma_sweep N={n_pad} D={dim} n_valid={n_valid} "
+                f"rows_per_block={rpb}: torch.equal to plain and to B2 (zero tombstones); P2 "
+                f"probe_int8_convert_sweep: max_abs_err={err:.3e} vs plain (<= {TOL_P2} x max "
+                f"|score| {top:.3f})")
+        b2_ms = timer(lambda: quant.int8_chunk_max_sweep(x_i8, xs, q_i8, n_valid, dead), iters=20)
+        b2_open = timer(lambda: quant.int8_chunk_max_sweep(x_i8, xs, q_i8, n_valid), iters=20)
+        p1["plain_ms"] = timer(
+            lambda: probes.probe_int8_mma_sweep_plain(x_i8, xs, q_i8, n_valid), iters=3)
+        p2["plain_ms"] = timer(
+            lambda: probes.probe_int8_convert_sweep_plain(x_i8, xs, q_bf16, n_valid), iters=3)
+        lib1 = None
+        if self.device.type == "cuda":
+            def int_mm():
+                dots = torch._int_mm(x_i8, q_i8.T.contiguous()).float()
+                return (dots * xs[:, None]).view(n_pad // topk.CHUNK, topk.CHUNK, 8).amax(dim=1)
+            lib1 = timer(int_mm, iters=5)
+        chain2 = timer(lambda: ((x_i8.to(torch.bfloat16) @ q_bf16.T).float() * xs[:, None]).view(
+            n_pad // topk.CHUNK, topk.CHUNK, 8).amax(dim=1), iters=5)
+        out_bytes = n_pad // topk.CHUNK * 8 * 4
+        p1.update(library_ms=lib1, **bound(n_pad * dim + n_pad * 4 + 8 * dim + out_bytes,
+                                           2.0 * n_pad * dim * 8, "int8"))
+        # no one call computes P2: a bf16 matmul rounds the product to bf16
+        p2.update(library_ms=None, **bound(n_pad * dim + n_pad * 4 + 8 * dim * 2 + out_bytes,
+                                           2.0 * n_pad * dim * 8, "bf16"))
+        log("numbers", f"P1 bound {p1['bound_ms']:.4f} ms ({p1['bound_by']}), plain "
+            f"{p1['plain_ms']:.4f} ms, library _int_mm + scale + amax {lib1} ms; B2 on the same "
+            f"rows {b2_ms:.4f} ms with a tombstone mask, {b2_open:.4f} ms without")
+        log("numbers", f"P2 bound {p2['bound_ms']:.4f} ms ({p2['bound_by']}), plain "
+            f"{p2['plain_ms']:.4f} ms; a bf16 cast + matmul + scale + amax (rounds the product "
+            f"to bf16, so not the same function) {chain2:.4f} ms")
+        self.calls.append("sweeps")
+
+    def stream(self, name, x, tile, outs) -> None:
+        import torch
+
+        from intelligent_video_analysis_retrieval_system_tpu_torch.bench import probes
+
+        timer, p3 = self.timer, self.p3
+        want = probes.probe_stream_plain(x, tile)
+        if sorted(outs) != sorted(probes.BLOCKS_PER_SM):
+            raise AssertionError(f"the bench ran the stream at {sorted(outs)} blocks per "
+                                 "multiprocessor")
+        for bpsm, got in outs.items():
+            if not torch.equal(got, want):
+                raise AssertionError(f"P3 {name} tile={tile} blocks_per_sm={bpsm}: differs "
+                                     "from the head of the last tile")
+        # another tile height moves the last tile: compared here, not timed
+        for other in (8192,):
+            if other <= x.shape[0]:
+                for bpsm in probes.BLOCKS_PER_SM:
+                    if not torch.equal(probes.probe_stream(x, other, bpsm),
+                                       probes.probe_stream_plain(x, other)):
+                        raise AssertionError(f"P3 {name} tile={other} blocks_per_sm={bpsm}: "
+                                             "differs from the head of the last tile")
+        log("kernels", f"P3 probe_stream {name} {tuple(x.shape)}: torch.equal to the head of "
+            f"the last tile at tiles of {tile} and (where the rows hold one) 8192 rows, at 1, 2 "
+            "and 4 blocks per multiprocessor")
+        if name == "i8":   # the probes' int8 rows: the kernels line reports this case
+            n_bytes = x.shape[0] // tile * tile * x.shape[1] * x.element_size()
+            # yardsticks: a copy streams the bytes in and out again (its time is for
+            # twice the bytes); PyTorch's integer sum reads them once but is no stream
+            clone = timer(lambda: x.clone(), iters=10)
+            isum = timer(lambda: x.view(torch.int32).sum(), iters=10)
+            p3.update(plain_ms=timer(lambda: probes.probe_stream_plain(x, tile), iters=10),
+                      library_ms=clone, library="clone (reads and writes the bytes)",
+                      **bound(n_bytes + 8 * 128 * 4, 0.0, "f32"))
+            log("numbers", f"P3 i8: library clone {clone:.4f} ms ({2 * n_bytes / clone / 1e6:.0f} "
+                f"GB/s read + written; {n_bytes / clone / 1e6:.0f} GB/s counting the bytes "
+                f"once), int32 sum of the same bytes {isum:.4f} ms "
+                f"({n_bytes / isum / 1e6:.0f} GB/s), bound {p3['bound_ms']:.4f} ms "
+                f"({p3['bound_by']})")
+        self.calls.append(name)
+
+    def finish(self, report: dict) -> tuple[dict, dict, dict]:
+        """The three kernels' records, their times taken from the bench's own
+        report (the wrappers' defaults: 128 rows per block, 2 blocks per
+        multiprocessor over the int8 rows)."""
+        if self.calls != ["sweeps", "bf16", "i8", "i32"]:
+            raise AssertionError(f"the bench's probes were checked as {self.calls}")
+        v = report["variants"]
+        self.p1["ms"] = v["P1_int8_mma_rows128"]["ms"]
+        self.p2["ms"] = v["P2_int8_convert_rows128"]["ms"]
+        self.p3["ms"] = v["P3_stream_i8_blocks2"]["ms"]
+        self.p3["stream_gbps"] = report["stream_gbps"]
+        for name, row in v.items():
+            log("numbers", f"bench probe {name}: {row['ms']:.4f} ms, {row['gbps']:.0f} GB/s")
+        log("numbers", f"P3 measured stream rate: {report['stream_gbps']:.0f} GB/s, "
+            f"{report['stream_gbps'] / (HBM_BYTES_PER_S / 1e9):.1%} of the published "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s that the bounds use")
+        return self.p1, self.p2, self.p3
+
+
+def bench_counters() -> dict:
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench import probes
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import (
+        attention, preprocess, quant, topk,
+    )
+
+    return {"b1": topk.chunk_max_sweep, "b2": quant.int8_chunk_max_sweep,
+            "b3": attention.fused_mha, "b5": preprocess.normalize_images,
+            "p1": probes.probe_int8_mma_sweep, "p2": probes.probe_int8_convert_sweep,
+            "p3": probes.probe_stream}
+
+
+def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer) -> dict:
+    """``bench.main(argv)`` with every answer held against its reference, one
+    batch of the image tower against the plain attention route, and with
+    ``--probes`` every probe against its plain version; prints the bench's
+    JSON line and returns it with the launch counts and the probes' records."""
+    import contextlib
+    import io
+
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch import bench
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import (
+        MultiHeadAttention,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.quant import int8_reference
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import (
+        topk_exact_reference,
+    )
+
+    checked = {"headline_1M": 0, "int8_10M": 0, "image_tower": 0}
+
+    def verify_tower(model, pixels, got) -> None:
+        """The timed batch again, from the bench's own normalized pixels, with
+        every attention layer of the vision tower on its plain route (same
+        weights): no kernel is launched."""
+        counters = {k: fn.launches for k, fn in bench_counters().items()}
+        layers = [m for m in model.vision_model.modules()
+                  if isinstance(m, MultiHeadAttention)]
+        for m in layers:
+            m.fused_attn = False
+        try:
+            ref = model.encode_image(pixels)
+        finally:
+            for m in layers:
+                m.fused_attn = True
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"image tower: embeddings {tuple(got.shape)} or not finite")
+        cos = torch.nn.functional.cosine_similarity(got.float(), ref.float(), dim=-1)
+        low = float(cos.min())
+        if low < COS_TOWER:
+            raise AssertionError(f"image tower through B3: cosine {low} < {COS_TOWER} against "
+                                 "the plain attention route")
+        checked["image_tower"] += len(got)
+        log("bench", f"image tower: {len(got)} embeddings {tuple(got.shape)} through B3 in "
+            f"{len(layers)} attention layers, min cosine "
+            f"{low:.6f} against the plain attention route (>= {COS_TOWER})")
+        for k, fn in bench_counters().items():
+            if fn.launches != counters[k]:
+                raise AssertionError(f"the plain attention route launched kernel {k}")
+
+    def verify(section, x, scales, n_valid, queries, result) -> None:
+        counters = {k: fn.launches for k, fn in bench_counters().items()}
+        ids, scores = result.indices.cpu().numpy(), result.scores.cpu().numpy()
+        for s in range(0, len(queries), 32):   # bounds the reference's score matrix
+            q = queries[s:s + 32]
+            if scales is None:
+                ref, atol = topk_exact_reference(x[:n_valid], q, ids.shape[1]), 5e-4
+            else:
+                ref, atol = int8_reference(x[:n_valid], scales[:n_valid], q, ids.shape[1]), 0.0
+            ref_ids, ref_scores = ref.indices.cpu().numpy(), ref.scores.cpu().numpy()
+            for i in range(len(q)):
+                tie_aware_equal(ids[s + i], scores[s + i], ref_ids[i], ref_scores[i], atol=atol)
+        checked[section] += len(queries)
+        for k, fn in bench_counters().items():   # the references launch no kernel
+            if fn.launches != counters[k]:
+                raise AssertionError(f"checking the bench's answers launched kernel {k}")
+
+    # the bench's path starts here: every launch count from zero
+    for fn in bench_counters().values():
+        fn.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    probe_checks = ProbeChecks(device, timer)
+    global _LOG_TO
+    _LOG_TO = sys.stdout   # the hooks log as every phase does
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = bench.main(argv, verify=verify, verify_tower=verify_tower,
+                            check_probes=probe_checks)
+    finally:
+        _LOG_TO = None
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in bench_counters().items()}
+    lines = stdout.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench.main returned {rc} and printed {len(lines)} lines")
+    print(lines[0], flush=True)
+    result = json.loads(lines[0])
+    extra = result["extra"]
+    want = ["metric", "value", "p95", "queries", "vs_baseline"]
+    want_extra = ["gpu", "image_tower_fps", "facade_search_p50_ms", "search_batch_b32_ms",
+                  "not_ported"]
+    if "--skip-10m" not in argv:
+        want_extra += ["latency_10M_int8_1chip_p50_ms", "latency_10M_int8_1chip_p95_ms",
+                       "queries_10M", "qps_10M_int8_1chip_b128", "qps_10M_int8_1chip_b32",
+                       "latency_2M5_int8_1chip_p50_ms", "latency_5M_int8_1chip_p50_ms"]
+    if "--probes" in argv:
+        want_extra.append("probes")
+    missing = [k for k in want if result.get(k) is None] + \
+        [k for k in want_extra if k not in extra]
+    if missing or not result["metric"].startswith("e2e_text_query_latency_"):
+        raise AssertionError(f"the bench's JSON line lacks {missing}: {lines[0][:300]}")
+    log("bench", f"bench.main({argv}) in {seconds:.1f} s: {result['metric']} p50 "
+        f"{result['value']} ms, p95 {result['p95']} ms; {checked['headline_1M']} headline "
+        f"answers tie-aware equal to the exact f32 reference, {checked['int8_10M']} int8 "
+        f"answers equal to int8_reference (atol 0); launches {launches}")
+    if checked["headline_1M"] < result["queries"]:
+        raise AssertionError("the bench timed headline answers that were not checked")
+    if checked["image_tower"] != extra["image_tower_batch"]:
+        raise AssertionError("the bench's image tower batch was not checked")
+    if require_kernels:
+        idle = [k for k, n in launches.items() if n == 0
+                and not (k == "b2" and "--skip-10m" in argv)
+                and not (k.startswith("p") and "--probes" not in argv)]
+        if idle:
+            raise AssertionError(f"kernels of the bench's path never launched: {idle}")
+    out = {"result": result, "launches": launches, "seconds": seconds}
+    if "--probes" in argv:
+        out["probes"] = probe_checks.finish(extra["probes"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the int8 facade opened record by record, then through its sidecars
+# ---------------------------------------------------------------------------
+
+
+def run_open_phase(device, bits: np.ndarray, config=None, workdir: Path | None = None) -> dict:
+    import shutil
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.metacols import (
+        ColumnarMetadata,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import UnifiedIndex
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        CLIPEmbedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        EnhancedRetrievalSystem,
+        SearchOptions,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
+
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "open_phase"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    # the rows have no file, only a path for the index to keep its sidecars at
+    container = Int8MemoryContainer(bits, workdir / "open.rvdb")
+    log("open", f"{len(bits)} rows quantized into an int8 stand-in container in "
+        f"{time.perf_counter() - t0:.1f} s")
+    embedder = CLIPEmbedder(config=config, device=device)
+    embedder.ensure_loaded()
+    queries = [f"open {i}: a red car driving at night past neon signs" for i in range(8)]
+    opts = SearchOptions(limit=10, use_cache=False)
+    runs = {}
+    for route in ("records", "sidecars"):
+        system = EnhancedRetrievalSystem(Config(config_file=None, base_dir=workdir),
+                                         embedder=embedder, device=device)
+        index = UnifiedIndex(system._index_config(), device=device)
+        t0 = time.perf_counter()
+        index.attach_container(container)
+        t1 = time.perf_counter()
+        system.attach_index(index)
+        t2 = time.perf_counter()
+        columnar = isinstance(index._metadata, ColumnarMetadata)
+        if columnar != (route == "sidecars"):
+            raise AssertionError(f"open by {route}: metadata is {type(index._metadata)}")
+        hits = [[(h["folder"], h["image"], h["similarity_score"])
+                 for h in system.search(q, opts)] for q in queries]
+        if any(len(h) != 10 for h in hits):
+            raise AssertionError(f"open by {route}: a short answer")
+        sidecars = sorted(f.name for f in workdir.glob("open.rvdb.*"))
+        log("open", f"int8 facade over {index.ntotal} rows by {route}: index open "
+            f"{t1 - t0:.2f} s (metadata {type(index._metadata).__name__}), facade attach "
+            f"{t2 - t1:.2f} s; sidecars now {sidecars}")
+        runs[route] = {"open_s": t1 - t0, "attach_s": t2 - t1, "hits": hits}
+        system.cleanup()   # the stand-in's close does nothing: it serves the next open
+    if runs["records"]["hits"] != runs["sidecars"]["hits"]:
+        raise AssertionError("the two opens answered differently")
+    log("open", "the same 8 x 10 hits from both opens")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {k: {"open_s": v["open_s"], "attach_s": v["attach_s"]} for k, v in runs.items()}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time of a query goes
 # ---------------------------------------------------------------------------
 
@@ -1709,11 +2059,16 @@ def main(argv: list[str] | None = None) -> int:
     result = run_slice(device, N_ROWS, require_kernels=True, bits=bits)
     torch.cuda.empty_cache()
     result8 = run_int8_slice(device, bits, require_kernels=True)
+    torch.cuda.empty_cache()
+    opened = run_open_phase(device, bits)
     del bits
     torch.cuda.empty_cache()
     b4, b5 = check_build_kernels(device, timer, require_kernels=True)
     torch.cuda.empty_cache()
     built = run_build_slice(device, require_kernels=True)
+    torch.cuda.empty_cache()
+    benched = run_bench_phase(device, require_kernels=True, argv=["--probes"], timer=timer)
+    p1, p2, p3 = benched["probes"]
 
     record = {"kernels": [
         {"name": "chunk_max_sweep (B1)", "route": "cuda",
@@ -1736,8 +2091,21 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/normalize.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py:127",
          "launches": built["launches"]["b5"], **b5},
+        {"name": "probe_int8_mma_sweep (P1)", "route": "cuda",
+         "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
+         "replaces": "benchmarks/exp_int8.py:37",
+         "launches": benched["launches"]["p1"], **p1},
+        {"name": "probe_int8_convert_sweep (P2)", "route": "cuda",
+         "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
+         "replaces": "benchmarks/exp_int8.py:279",
+         "launches": benched["launches"]["p2"], **p2},
+        {"name": "probe_stream (P3)", "route": "cuda",
+         "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
+         "replaces": "benchmarks/exp_stream_bw.py:32",
+         "launches": benched["launches"]["p3"], **p3},
     ]}
     log("build", f"launches on the build path: {built['launches']}")
+    log("open", f"1M-row int8 facade open: {opened}")
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,273 @@
+"""The bench's sections: the headline text query over a 1M-row bf16 index,
+the image tower's throughput, and the int8 capacity mode at 10M rows.
+
+Counterpart of the JAX package's root ``bench.py``. Each section takes the
+device and returns its keys; a section that fails raises. The sections
+compose tower + search directly, as the JAX bench does: the query text is
+tokenized once and token 1 is replaced by the call's number, so every call
+encodes a different query without paying the tokenizer. The towers are
+random from a seed (no checkpoint ships with the repository), the rows are
+synthetic (``bench/data.py``).
+
+``verify``, when given, is called after a section's timing with the rows
+the section searched and every answer it got (``verify(section, x, scales,
+n_valid, queries, result)``: ``scales`` None for bf16 rows, ``queries`` as
+they went into the search, ``result`` a ``TopKResult`` of all of them): the
+chip smoke holds them against the exact references. ``verify_tower``, when
+given to :func:`image_tower`, gets the model, the normalized pixels of the
+timed batch and the embeddings the timed route gave for them.
+"""
+
+from __future__ import annotations
+
+import gc
+import sys
+import tempfile
+from typing import Callable
+
+import torch
+
+from ..index.unified import UnifiedIndex
+from ..models.clip import CLIPConfig
+from ..ops.preprocess import normalize_images
+from ..ops.quant import topk_search_int8
+from ..ops.topk import TILE_N, TopKResult, _ceil_to, topk_search
+from ..system.embedder import CLIPEmbedder
+from ..system.facade import EnhancedRetrievalSystem, SearchOptions
+from ..utils.config import Config
+from .data import MemoryContainer, gen_db_bf16, gen_db_int8
+from .timing import MIN_CALLS as CALLS
+from .timing import percentile_wall
+
+__all__ = ["K", "BASELINE_MS", "NOT_PORTED", "TextQuery", "headline_1M", "image_tower",
+           "int8_10M"]
+
+K = 10
+# the reference system's own figure for one text query over its index (ms)
+BASELINE_MS = 39.0
+PROMPT = "a photo of a scene"
+# sections of the JAX bench whose modules the port does not have yet; a later
+# change removes a name when it ports the section
+NOT_PORTED = ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static", "ivf_10M",
+              "served_qps", "served_10M"]
+
+Verify = Callable[[str, torch.Tensor, "torch.Tensor | None", int, torch.Tensor, TopKResult],
+                  None]
+VerifyTower = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], None]
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _size_name(n: int) -> str:
+    return f"{n // 1_000_000}M" if n >= 1_000_000 else f"{n // 1000}k"
+
+
+class TextQuery:
+    """The bench prompt through the text tower, token 1 salted per query."""
+
+    def __init__(self, embedder: CLIPEmbedder) -> None:
+        embedder.ensure_loaded()
+        cfg = embedder.config.text
+        tokens = embedder.tokenizer([PROMPT], cfg.max_length)
+        self.model = embedder.model
+        self.device = embedder.device
+        self.tokens = torch.from_numpy(tokens).to(self.device)
+        self.eot = torch.from_numpy(embedder.tokenizer.eot_positions(tokens)).to(self.device)
+        # below the start and end tokens, the two largest ids
+        self.salt_mod = min(49_000, cfg.vocab_size - 2)
+        self.dim = cfg.projection_dim
+
+    def encode(self, salt: int, batch: int = 1) -> torch.Tensor:
+        """(batch, D) f32 L2-normalized embeddings on the device; query
+        ``j`` of the batch carries ``salt + j`` as its token 1."""
+        with torch.inference_mode():
+            toks = self.tokens.repeat(batch, 1)
+            toks[:, 1] = (salt + torch.arange(batch, device=self.device)) % self.salt_mod
+            emb = self.model.encode_text(toks, self.eot.repeat(batch)).float()
+            return emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True), min=1e-12)
+
+
+def _stack(results: list[TopKResult]) -> TopKResult:
+    return TopKResult(torch.cat([r.scores for r in results]),
+                      torch.cat([r.indices for r in results]))
+
+
+# ---------------------------------------------------------------------------
+# headline: one text query over the bf16 index
+# ---------------------------------------------------------------------------
+
+
+def headline_1M(device: torch.device, embedder: CLIPEmbedder, rows: int,
+                verify: Verify | None = None) -> dict:
+    """p50/p95 of text tower + L2 normalize + ``topk_search`` (kernel B1 on a
+    card) over ``rows`` x D bf16 rows, ``K = 10``; then the same query
+    through ``EnhancedRetrievalSystem.search`` over an index of the same
+    rows, and ``search_batch`` at 32 queries."""
+    tq = TextQuery(embedder)
+    n_pad = _ceil_to(rows, TILE_N)
+    log(f"generating {rows} x {tq.dim} bf16 rows on {device}...")
+    xd = gen_db_bf16(n_pad, tq.dim, 7, device)
+    asked: list[torch.Tensor] = []
+    answers: list[TopKResult] = []
+
+    def query(i: int) -> None:
+        q = tq.encode(i + 1).to(xd.dtype)
+        res = topk_search(xd, q, K, n_valid=rows)
+        if i >= 0:  # warm-up calls carry negative numbers
+            asked.append(q)
+            answers.append(res)
+
+    t = percentile_wall(query, CALLS, device)
+    log(f"{_size_name(rows)} bf16 e2e: p50={t['p50_ms']:.3f} ms p95={t['p95_ms']:.3f} ms over "
+        f"{CALLS} queries (device p50 {t['device_p50_ms']})")
+    if verify is not None:
+        verify("headline_1M", xd, None, rows, torch.cat(asked), _stack(answers))
+    out = {
+        "metric": f"e2e_text_query_latency_{_size_name(rows)}_index",
+        "value": round(t["p50_ms"], 3),
+        "vs_baseline": round(BASELINE_MS / t["p50_ms"], 2),
+        "p95": round(t["p95_ms"], 3),
+        "queries": CALLS,
+        "extra": {"tokenizer_kind": embedder.tokenizer.kind,
+                  "headline_device_p50_ms": t["device_p50_ms"]},
+    }
+
+    # the same rows behind the facade: what a served request pays
+    bits = xd[:rows].cpu().view(torch.int16).numpy().view("uint16")
+    del xd
+    with tempfile.TemporaryDirectory(prefix="ivars_bench_") as workdir:
+        system = EnhancedRetrievalSystem(Config(config_file=None, base_dir=workdir),
+                                         embedder=embedder, device=device)
+        index = UnifiedIndex(system._index_config(), device=device)
+        index.attach_container(MemoryContainer(bits))
+        system.attach_index(index)
+        try:
+            nosave = SearchOptions(limit=K, use_cache=False)
+
+            def served(i: int) -> None:
+                hits = system.search(f"{PROMPT} number {i}", nosave)
+                if len(hits) != min(K, rows):
+                    raise RuntimeError(f"the facade answered {len(hits)} hits, not {K}")
+
+            f = percentile_wall(served, CALLS, device)
+
+            def served_batch(i: int) -> None:
+                got = system.search_batch([f"{PROMPT} batch {i} query {j}" for j in range(32)],
+                                          nosave)
+                if len(got) != 32 or any(len(h) != min(K, rows) for h in got):
+                    raise RuntimeError("search_batch answered short")
+
+            b = percentile_wall(served_batch, CALLS, device)
+        finally:
+            system.cleanup()
+    log(f"facade search: p50={f['p50_ms']:.3f} ms p95={f['p95_ms']:.3f} ms; search_batch "
+        f"B=32: p50={b['p50_ms']:.3f} ms")
+    out["extra"].update(facade_search_p50_ms=round(f["p50_ms"], 3),
+                        facade_search_p95_ms=round(f["p95_ms"], 3),
+                        search_batch_b32_ms=round(b["p50_ms"], 3))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# image tower throughput
+# ---------------------------------------------------------------------------
+
+
+def image_tower(device: torch.device, full: bool,
+                verify_tower: VerifyTower | None = None) -> dict:
+    """Frames per second of uint8 pixels -> ``normalize_images`` (kernel B5)
+    -> vision tower (kernel B3) -> projection, in bf16: ViT-B/32 at B=256,
+    or with ``full`` ViT-L/14 at B=128 (8 on the CPU)."""
+    name, cfg = ("ViT-L/14", CLIPConfig.vit_l_14()) if full else \
+        ("ViT-B/32", CLIPConfig.vit_b_32())
+    batch = 8 if device.type == "cpu" else (128 if full else 256)
+    embedder = CLIPEmbedder(config=cfg, device=device)
+    embedder.ensure_loaded()
+    size = cfg.vision.image_size
+    gen = torch.Generator(device=device).manual_seed(0)
+    px = torch.randint(0, 256, (batch, size, size, 3), generator=gen, device=device,
+                       dtype=torch.uint8)
+
+    def embed(i: int) -> None:
+        with torch.inference_mode():
+            embedder.model.encode_image(normalize_images(px, dtype=embedder.model.dtype))
+
+    t = percentile_wall(embed, CALLS, device)
+    fps = batch / (t["p50_ms"] / 1e3)
+    log(f"image embed: {fps:.0f} frames/s ({name} bf16 B={batch}, {t['p50_ms']:.3f} ms per "
+        "batch)")
+    if verify_tower is not None:
+        with torch.inference_mode():
+            pixels = normalize_images(px, dtype=embedder.model.dtype)
+            verify_tower(embedder.model, pixels, embedder.model.encode_image(pixels))
+    return {"image_tower_fps": round(fps), "image_tower": name, "image_tower_batch": batch,
+            "image_tower_ms_per_batch": round(t["p50_ms"], 3)}
+
+
+# ---------------------------------------------------------------------------
+# the int8 capacity mode at 10M rows
+# ---------------------------------------------------------------------------
+
+
+def int8_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
+             verify: Verify | None = None) -> dict:
+    """One text query over ``rows`` x D int8 rows (10,000,000 in a full run:
+    7.7 GB on the card) through ``topk_search_int8`` (kernel B2), the query
+    padded to 8 as the served path pads it; then batches of 128 and 32
+    queries, and the first quarter and half of the same rows. The key names
+    are the JAX bench's and say 10M, 2M5 and 5M whatever ``rows`` is;
+    ``int8_rows`` says what was swept."""
+    tq = TextQuery(embedder)
+    n_pad = _ceil_to(rows, TILE_N)
+    log(f"generating {rows} x {tq.dim} int8 rows on {device} ({n_pad * tq.dim / 1e9:.2f} GB)...")
+    x10, s10 = gen_db_int8(n_pad, tq.dim, 0, device)
+    pad7 = torch.zeros((7, tq.dim), dtype=torch.float32, device=device)
+
+    def timed(n_valid: int, x: torch.Tensor, s: torch.Tensor, batch: int | None) -> dict:
+        """One query padded to 8 (``batch`` None), or ``batch`` queries."""
+        asked: list[torch.Tensor] = []
+        answers: list[TopKResult] = []
+
+        def query(i: int) -> None:
+            if batch is None:
+                q = torch.cat([tq.encode(i + 1), pad7])
+            else:
+                q = tq.encode(i * batch + 1, batch)
+            res = topk_search_int8(x, s, q, K, n_valid=n_valid)
+            # every single query is kept for verify, and the first batch
+            if i >= 0 and (batch is None or i == 0):
+                keep = 1 if batch is None else batch
+                asked.append(q[:keep])
+                answers.append(TopKResult(res.scores[:keep], res.indices[:keep]))
+
+        t = percentile_wall(query, CALLS, device)
+        if verify is not None:
+            verify("int8_10M", x, s, n_valid, torch.cat(asked), _stack(answers))
+        return t
+
+    t = timed(rows, x10, s10, None)
+    log(f"int8 e2e over {rows} rows: p50={t['p50_ms']:.3f} ms p95={t['p95_ms']:.3f} ms over "
+        f"{CALLS} queries (device p50 {t['device_p50_ms']})")
+    out = {"int8_rows": rows,
+           "latency_10M_int8_1chip_p50_ms": round(t["p50_ms"], 3),
+           "latency_10M_int8_1chip_p95_ms": round(t["p95_ms"], 3),
+           "latency_10M_int8_device_p50_ms": t["device_p50_ms"],
+           "queries_10M": CALLS}
+    # B2 scores 64 queries a launch: a batch of 128 sweeps the rows twice
+    for b in (128, 32):
+        tb = timed(rows, x10, s10, b)
+        qps = b / (tb["p50_ms"] / 1e3)
+        log(f"int8 batched B={b}: {tb['p50_ms']:.3f} ms per batch = {qps:.0f} queries/s")
+        out[f"qps_10M_int8_1chip_b{b}"] = round(qps)
+    # the first quarter and half of the same rows
+    for n_small, key in ((rows // 4, "latency_2M5_int8_1chip_p50_ms"),
+                         (rows // 2, "latency_5M_int8_1chip_p50_ms")):
+        n_pad_s = _ceil_to(n_small, TILE_N)
+        ts = timed(n_small, x10[:n_pad_s], s10[:n_pad_s], None)
+        log(f"int8 e2e over {n_small} rows: p50={ts['p50_ms']:.3f} ms")
+        out[key] = round(ts["p50_ms"], 3)
+    del x10, s10
+    gc.collect()
+    return out

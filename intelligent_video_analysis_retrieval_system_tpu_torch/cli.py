@@ -20,6 +20,13 @@ gate of the int8 capacity mode:
     python -m intelligent_video_analysis_retrieval_system_tpu_torch evaluate \
         index.rvdb [--search auto|exact|int8_rescore] [--queries 64] [--top-k 10]
 
+``compact`` — drop tombstoned rows from an index, in place.
+
+``bench`` — the end-to-end bench (``bench/``): one JSON line on stdout:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch bench \
+        [--device cuda] [--rows N] [--full] [--probes] [--skip-10m]
+
 The other commands of the JAX package's CLI (extract, filter, serve, ...)
 are ported with their subsystems in later changes.
 """
@@ -77,6 +84,14 @@ def _build_parser() -> argparse.ArgumentParser:
     st = sub.add_parser("stats", help="index statistics")
     st.add_argument("index_path")
     st.add_argument("--device", default="cuda")
+
+    cp = sub.add_parser("compact", help="drop tombstoned rows from an index")
+    cp.add_argument("index_path")
+    cp.add_argument("--device", default="cuda")
+
+    # the bench parses its own flags (bench.main)
+    sub.add_parser("bench", help="end-to-end bench: one JSON line on stdout",
+                   add_help=False)
 
     ev = sub.add_parser(
         "evaluate",
@@ -171,6 +186,20 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def cmd_compact(args) -> int:
+    from .index.unified import UnifiedIndex
+
+    index = UnifiedIndex(device=args.device)
+    index.load_unified_index(args.index_path, mode="a")
+    try:
+        out = index.compact()
+    finally:
+        index.close()
+    print(f"compacted {out['compacted']} tombstoned rows; "
+          f"{out['ntotal']} live rows remain")
+    return 0
+
+
 def cmd_evaluate(args) -> int:
     from .index.unified import UnifiedIndex
     from .retrieval.evaluation import evaluate_backends
@@ -251,11 +280,18 @@ def cmd_evaluate(args) -> int:
         index.close()
 
 
-_COMMANDS = {"build": cmd_build, "search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate}
+_COMMANDS = {"build": cmd_build, "search": cmd_search, "stats": cmd_stats,
+             "evaluate": cmd_evaluate, "compact": cmd_compact}
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = _build_parser().parse_args(argv)
+    args, rest = _build_parser().parse_known_args(argv)
+    if args.command == "bench":
+        from . import bench
+
+        return bench.main(rest)
+    if rest:
+        _build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
     return _COMMANDS[args.command](args)
 
 

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -47,24 +49,11 @@ constexpr int kChunk = 128;    // rows per chunk max (ops/topk.py CHUNK)
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kUnroll = 4;  // 32-column steps whose loads are in flight together
-
-// c[0..3] += A (16x16 bf16, row) . B (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // Fragment map of m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g and
 // g + 8 at k = {2t, 2t+1} (a0, a1) and {2t+8, 2t+9} (a2, a3); B holds query

@@ -32,24 +32,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;    // rows per chunk max (ops/topk.py CHUNK)
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;     // 64-column steps whose loads are in flight together
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-// c[0..3] += A (16x32 s8, row) . B (32x8 s8, col), s32 accumulate
-__device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // Fragment map of m16n8k32 s8 (g = lane / 4, t = lane % 4; four int8 per
 // register, the lowest k in the lowest byte): A holds row g at k = 4t..4t+3

@@ -4,19 +4,22 @@ Port of ``intelligent_video_analysis_retrieval_system_tpu/index/metadata.py``:
 the ``folder -> {image -> KeyframeMetadata}`` store, the per-folder
 temporal order by frame_id and the per-folder top-k cosine-similarity graph
 (threshold 0.7), one batched matmul per folder on the manager's ``device``
-(the port's ``ops.topk.topk_exact_reference``). The graph's readers (the
-agent tools) and the JSON save/load (portable export) come with their
-ports.
+(the port's ``ops.topk.topk_exact_reference``), and the verified JSON
+save/load (portable export). The graph's readers (the agent tools) come
+with their port.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Iterable, Sequence
 
 import numpy as np
 import torch
 
 from ..retrieval.results import KeyframeMetadata
+from ..utils.files import FileManager
 from .unified import resolve_device
 
 __all__ = ["MetadataManager"]
@@ -28,8 +31,10 @@ class MetadataManager:
         similarity_threshold: float = 0.7,   # core.py:3507
         similarity_top_k: int = 10,           # core.py:3493-3531
         device: torch.device | str = "cuda",
+        file_manager: FileManager | None = None,
     ) -> None:
         self.device = resolve_device(device)
+        self.fm = file_manager or FileManager()
         self.similarity_threshold = similarity_threshold
         self.similarity_top_k = similarity_top_k
         self.by_folder: dict[str, dict[str, KeyframeMetadata]] = {}
@@ -96,6 +101,44 @@ class MetadataManager:
 
     def count(self) -> int:
         return sum(len(v) for v in self.by_folder.values())
+
+    # -- persistence (the JAX package's format, readable by either) ----------
+
+    def save(self, path: str | Path) -> None:
+        payload = {
+            "version": "2.0",
+            "folders": {
+                folder: {img: m.to_dict() for img, m in images.items()}
+                for folder, images in self.by_folder.items()
+            },
+            "similarity_graph": self.similarity_graph,
+        }
+        raw = json.dumps(payload, ensure_ascii=False)
+        self.fm.safe_write(Path(path), raw)
+        # post-write verification
+        reread = json.loads(Path(path).read_text(encoding="utf-8"))
+        count = sum(len(v) for v in reread.get("folders", {}).values())
+        if count != self.count():
+            raise IOError(
+                f"metadata save verification failed: wrote {count}, "
+                f"expected {self.count()}"
+            )
+
+    def load(self, path: str | Path) -> None:
+        data = json.loads(Path(path).read_text(encoding="utf-8"))
+        metas: list[KeyframeMetadata] = []
+        for folder_data in data.get("folders", {}).values():
+            for record in folder_data.values():
+                metas.append(KeyframeMetadata.from_dict(record))
+        self.build_metadata(metas, features=None, build_similarity=False)
+        graph = data.get("similarity_graph", {})
+        self.similarity_graph = {
+            folder: {
+                img: [(n, float(s)) for n, s in pairs]
+                for img, pairs in folder_graph.items()
+            }
+            for folder, folder_graph in graph.items()
+        }
 
     def stats(self) -> dict[str, Any]:
         return {

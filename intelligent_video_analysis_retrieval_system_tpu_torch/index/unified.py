@@ -26,8 +26,12 @@ Not ported yet (each raises ``NotImplementedError`` naming the later
 change): IVF ANN and the multi-device mesh. A container that carries a
 persisted ANN structure is served by the exact sweep, with a warning.
 ``index.builder.RAGBuilder`` writes containers and hands the fresh one to
-:meth:`UnifiedIndex.attach_container`. Compaction and asset reads come with
-the REST server.
+:meth:`UnifiedIndex.attach_container`. Above ``metacols.SIDECAR_MIN_ROWS``
+rows the metadata opens from the columnar ``.meta.npz`` sidecar when it is
+fresh (records made on access), else record by record, after which the
+sidecar is written for the next open. :meth:`UnifiedIndex.compact` drops
+tombstoned rows into a fresh container. Asset reads come with the REST
+server.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..ops.quant import quantize_rows_int8, topk_search_int8
 from ..ops.topk import TILE_N, topk_search
 from ..retrieval.results import KeyframeMetadata, SearchResult
 from .container import IndexContainer
+from .metacols import SIDECAR_MIN_ROWS, LazyRowByKey, load_sidecar, write_sidecar
 
 __all__ = ["UnifiedIndex", "UnifiedIndexConfig"]
 
@@ -388,6 +393,17 @@ class UnifiedIndex:
 
     def _load_metadata_cache(self) -> None:
         assert self._container is not None
+        n = self._container.num_metadata
+        use_sidecar = self._container.path is not None and n >= SIDECAR_MIN_ROWS
+        if use_sidecar:
+            # columnar sidecar (metacols.py): the open reads a few arrays and
+            # records are made on access; the container's blobs below stay
+            # authoritative and are the fallback for every failure
+            cols = load_sidecar(self._container.path, n, self._container.get_metadata)
+            if cols is not None:
+                self._metadata = cols
+                self._row_by_key = LazyRowByKey(cols)
+                return
         self._metadata = []
         self._row_by_key = {}
         for i, record in enumerate(self._container.iter_metadata()):
@@ -395,6 +411,8 @@ class UnifiedIndex:
             meta = KeyframeMetadata.from_dict(record)
             self._metadata.append(meta)
             self._row_by_key[meta.key] = i
+        if use_sidecar:
+            write_sidecar(self._metadata, self._container.path)
 
     # -- int8 exact rescore ---------------------------------------------------
 
@@ -680,6 +698,71 @@ class UnifiedIndex:
             self.generation += 1
             self._rebuild_deleted_mask()
         return {"deleted": len(fresh), "num_live": self.num_live}
+
+    def compact(self, output_path: str | Path | None = None) -> dict[str, Any]:
+        """Physically drop tombstoned rows into a fresh container.
+
+        Writes a new file (renamed over the original by default, then
+        reloaded), remapping row ids; thumbnails, images, the journal, maps
+        and build info of live rows are kept. An int8 source with the bf16
+        copy of its rows is copied from that copy, so full precision
+        survives. Holds the index lock for the whole copy and swap:
+        searches queue behind it.
+        """
+        with self._lock:
+            if self._container is None or self.path is None:
+                raise RuntimeError("index not loaded from a file")
+            if not self._deleted:
+                return {"compacted": 0, "ntotal": self._n_valid}
+            src = self._container
+            dst_path = (Path(output_path) if output_path
+                        else self.path.with_name(self.path.name + ".compact"))
+            keep = [r for r in range(src.num_rows) if r not in self._deleted]
+            src_fp = getattr(src, "has_fp_rows", False)
+            with IndexContainer(dst_path, mode="w", dim=src.dim, dtype=src.dtype,
+                                keep_fp=src_fp) as dst:
+                CHUNK_ROWS = 8192
+                for start in range(0, len(keep), CHUNK_ROWS):
+                    rows = keep[start:start + CHUNK_ROWS]
+                    # bulk-read the covering range, then select (tombstones
+                    # are sparse, so the range is tight)
+                    lo, hi = rows[0], rows[-1] + 1
+                    if src_fp:
+                        block = native.bf16_to_f32(src.read_fp_bits(lo, hi))
+                    else:
+                        block = src.read_embeddings(lo, hi, as_float32=True)
+                    dst.append_embeddings(block[np.asarray(rows) - lo])
+                    range_records = src.read_metadata_range(lo, hi)
+                    records = []
+                    for new_id, old in enumerate(rows, start=start):
+                        record = range_records[old - lo]
+                        record["row_id"] = new_id
+                        records.append(record)
+                    dst.append_metadata(records)
+                    if src.num_thumbnails:
+                        thumbs = src.read_blob_range("thumbnails", lo, hi)
+                        dst.append_thumbnails([thumbs[r - lo] for r in rows])
+                    if src.num_images:
+                        imgs = src.read_blob_range("images", lo, hi)
+                        dst.append_images([imgs[r - lo] for r in rows])
+                dst.append_journal(sorted(src.journal_hashes()))
+                for folder in src.map_folders():
+                    dst.put_map(folder, src.get_map(folder))
+                build_info = src.get_system("build")
+                if build_info:
+                    dst.put_system("build", build_info)
+                dst.flush_checkpoint({"compacted_from": str(self.path)})
+            removed = len(self._deleted)
+            mode = self._container.mode
+            in_place = output_path is None
+            if in_place:
+                self._container.close()
+                self._container = None
+                self._invalidate_sidecar()
+                dst_path.replace(self.path)
+                self.load_unified_index(self.path, mode="a" if mode != "r" else "r")
+            return {"compacted": removed, "ntotal": self._n_valid,
+                    "path": str(self.path if in_place else dst_path)}
 
     def read_rows_f32(self, start: int = 0, end: int | None = None) -> np.ndarray:
         """f32 rows whatever the storage dtype (int8 dequantizes), for

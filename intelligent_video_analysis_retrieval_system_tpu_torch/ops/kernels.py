@@ -80,6 +80,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ivars_ln_mlp.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, i32, p]
     lib.ivars_normalize.restype = i32
     lib.ivars_normalize.argtypes = [p, p, i64, i32, i32, f32, f32, f32, f32, f32, f32, p]
+    for fn in (lib.ivars_probe_int8_mma, lib.ivars_probe_int8_convert):
+        fn.restype = i32
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p]
+    lib.ivars_probe_stream.restype = i32
+    lib.ivars_probe_stream.argtypes = [p, i64, p, i32, i32, p, ctypes.c_uint, p, i32, p]
 
 
 def _build(out_dir: Path, so_path: Path) -> None:

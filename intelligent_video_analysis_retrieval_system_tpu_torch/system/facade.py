@@ -6,13 +6,14 @@ Port of ``intelligent_video_analysis_retrieval_system_tpu/system/facade.py``:
 check, with ``build_progress`` events), ``load_system`` -> ``search`` /
 ``search_batch`` (cache -> translate -> CLIP text encode -> exact top-k over
 the device rows -> post processing -> cache), ``search_by_image`` over pixel
-arrays, ``get_system_stats`` and ``cleanup``.
+arrays, ``export_portable_index`` / ``load_portable_index``,
+``get_system_stats`` and ``cleanup``.
 
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
 kernels' plain versions); the embedder and the index share it. Not ported
 yet, each raising ``NotImplementedError`` that names the later change:
-``index_videos`` (video ingest), chat, portable export and the REST server
+``index_videos`` (video ingest), chat and the REST server
 (``start_server``); P2P fan-in over remote indexes comes with the REST
 server.
 """
@@ -29,6 +30,7 @@ import torch
 
 from ..index.builder import RAGBuilder
 from ..index.metadata import MetadataManager
+from ..index.portable import PortableIndex
 from ..index.unified import UnifiedIndex, UnifiedIndexConfig, resolve_device
 from ..retrieval.translator import UniversalQueryTranslator
 from ..retrieval.validator import DataConsistencyValidator
@@ -122,7 +124,7 @@ class EnhancedRetrievalSystem:
             device=self.device,
         )
         self.index: UnifiedIndex | None = None
-        self.metadata = MetadataManager(device=self.device)
+        self.metadata = MetadataManager(device=self.device, file_manager=self.fm)
         self.health = SystemHealthMonitor(self)
         self._callbacks: dict[str, list[Callable[..., None]]] = {}
         self._lock = threading.RLock()
@@ -261,7 +263,9 @@ class EnhancedRetrievalSystem:
         build_similarity = self.index.ntotal <= 200_000
         feats = (self.index._container.read_embeddings(as_float32=True)
                  if build_similarity else None)
-        self.metadata.build_metadata(list(self.index._metadata), feats,
+        # the index's own sequence, walked once: a columnar sidecar makes its
+        # records on the way and is never copied into a second list
+        self.metadata.build_metadata(self.index._metadata, feats,
                                      build_similarity=build_similarity)
 
     # -- search ---------------------------------------------------------------
@@ -464,6 +468,26 @@ class EnhancedRetrievalSystem:
             self.perf.record_error("search_by_image")
             return []
 
+    # -- portable packages ------------------------------------------------------
+
+    def export_portable_index(self, package_dir: str | Path) -> Path:
+        """Bundle the loaded index file (and the metadata export, when it
+        can be written) into a portable package directory."""
+        if self.index is None or self.index.path is None:
+            raise RuntimeError("no index loaded")
+        meta_path: Path | None = self.index.path.with_suffix(".metadata.json")
+        try:
+            self.metadata.save(meta_path)
+        except (OSError, TypeError, ValueError):  # the export is optional
+            meta_path = None
+        return PortableIndex().create_package(
+            self.index.path, package_dir, metadata_path=meta_path)
+
+    def load_portable_index(self, package_dir: str | Path) -> None:
+        """Validate a portable package and serve its index."""
+        self._adopt_index(PortableIndex().load_package(
+            package_dir, config=self._index_config(), device=self.device))
+
     # -- not ported yet -------------------------------------------------------
 
     def index_videos(self, *args: Any, **kwargs: Any) -> dict[str, Any]:
@@ -471,14 +495,6 @@ class EnhancedRetrievalSystem:
 
     def chat(self, *args: Any, **kwargs: Any) -> dict:
         raise NotImplementedError("chat is ported with the agents in a later change")
-
-    def export_portable_index(self, *args: Any, **kwargs: Any) -> Path:
-        raise NotImplementedError(
-            "portable export is ported with the REST server in a later change")
-
-    def load_portable_index(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(
-            "portable import is ported with the REST server in a later change")
 
     def start_server(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(

@@ -1,0 +1,159 @@
+"""The port's bench entry point on the CPU, at a small size.
+
+- ``bench`` with ``--device cpu --rows 20000 --skip-10m`` and narrow towers
+  prints one JSON line with the JAX bench's key names and
+  ``extra.not_ported``.
+- The headline section's answers equal the JAX ``topk_search`` on the same
+  rows and the same query vectors (tie-aware, atol 5e-4: bf16 rows, sums in
+  another order).
+- The int8 section at 4,096 rows returns the ids of the JAX
+  ``topk_search_int8`` and, bit for bit, the scores of that function run
+  eagerly (``jax.disable_jit``) and of its arithmetic ``(int_dot * s_row) *
+  s_q`` written out with its quantizer run eagerly. The jitted JAX search
+  itself is held to 2 ulps: under ``jit`` on this CPU, XLA
+  computes the query scale ``max|q| / 127.0`` as a multiplication by the
+  reciprocal, one ulp off in about one query in twenty (ROADMAP, queue C).
+- Without a card and without ``--device cpu`` the bench raises.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from intelligent_video_analysis_retrieval_system_tpu.ops import quant as jq
+from intelligent_video_analysis_retrieval_system_tpu.ops import topk as jtopk
+from intelligent_video_analysis_retrieval_system_tpu_torch import bench, cli
+from intelligent_video_analysis_retrieval_system_tpu_torch.bench import data, headline, timing
+from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import CLIPEmbedder
+from intelligent_video_analysis_retrieval_system_tpu_torch.testing import tie_aware_equal
+
+torch.set_num_threads(2)
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def narrow_towers(monkeypatch):
+    """ViT-L/14 and ViT-B/32 stand for the tiny test config."""
+    tiny = CLIPConfig.tiny_test()
+    monkeypatch.setattr(CLIPConfig, "vit_l_14", classmethod(lambda cls: tiny))
+    monkeypatch.setattr(CLIPConfig, "vit_b_32", classmethod(lambda cls: tiny))
+    return tiny
+
+
+def test_bench_prints_one_json_line_with_the_jax_key_names(narrow_towers, capsys):
+    assert cli.main(["bench", "--device", "cpu", "--rows", "20000", "--skip-10m"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    result = json.loads(out[0])
+    assert set(result) == {"metric", "value", "unit", "vs_baseline", "p95", "queries", "extra"}
+    assert result["metric"] == "e2e_text_query_latency_20k_index" and result["unit"] == "ms"
+    assert result["queries"] == 100 and 0 < result["value"] <= result["p95"]
+    assert result["vs_baseline"] == pytest.approx(39.0 / result["value"], abs=0.02)
+    extra = result["extra"]
+    assert list(extra)[0] == "gpu" and extra["gpu"] is None and extra["device"] == "cpu"
+    assert list(extra)[-1] == "not_ported"
+    assert extra["not_ported"] == ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static",
+                                   "ivf_10M", "served_qps", "served_10M"]
+    assert extra["tokenizer_kind"] == "hash_fallback"
+    assert extra["image_tower"] == "ViT-B/32" and extra["image_tower_fps"] > 0
+    assert extra["image_tower_batch"] == 8
+    for key in ("facade_search_p50_ms", "facade_search_p95_ms", "search_batch_b32_ms"):
+        assert extra[key] > 0
+    assert extra["headline_device_p50_ms"] is None        # no device time on the CPU
+    assert not any("10M" in key for key in extra)         # --skip-10m
+
+
+def test_bench_needs_a_card_unless_the_cpu_is_asked_for():
+    with pytest.raises(RuntimeError):
+        bench.main(["--skip-10m"])
+    with pytest.raises(RuntimeError):
+        bench.run_bench()
+
+
+def test_headline_answers_equal_jax_topk_search(narrow_towers):
+    seen = []
+    embedder = CLIPEmbedder(device=CPU)
+    out = headline.headline_1M(CPU, embedder, 20_000, verify=lambda *args: seen.append(args))
+    assert out["metric"] == "e2e_text_query_latency_20k_index" and out["queries"] == 100
+    (section, x, scales, n_valid, q, result), = seen
+    assert section == "headline_1M" and scales is None and n_valid == 20_000
+    assert x.dtype == torch.bfloat16 and x.shape == (20_480, 32)
+    assert q.shape == (100, 32) and result.indices.shape == (100, headline.K)
+    # every query differs (token 1 is salted) and is a unit vector
+    assert len({tuple(row) for row in q.float().numpy().round(4).tolist()}) == 100
+    np.testing.assert_allclose(q.float().norm(dim=-1).numpy(), 1.0, atol=1e-2)
+    jx = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    jres = jtopk.topk_search(jx, jnp.asarray(q.float().numpy(), jnp.bfloat16), headline.K,
+                             n_valid=n_valid, use_pallas=False)
+    jids, jscores = np.asarray(jres.indices), np.asarray(jres.scores)
+    for i in range(100):
+        tie_aware_equal(result.indices[i].numpy(), result.scores[i].numpy(), jids[i],
+                        jscores[i])
+
+
+def test_int8_section_equals_jax_topk_search_int8_bit_for_bit(narrow_towers):
+    seen = []
+    embedder = CLIPEmbedder(device=CPU)
+    out = headline.int8_10M(CPU, embedder, 4096, verify=lambda *args: seen.append(args))
+    assert out["int8_rows"] == 4096 and out["queries_10M"] == 100
+    for key in ("latency_10M_int8_1chip_p50_ms", "latency_10M_int8_1chip_p95_ms",
+                "qps_10M_int8_1chip_b128", "qps_10M_int8_1chip_b32",
+                "latency_2M5_int8_1chip_p50_ms", "latency_5M_int8_1chip_p50_ms"):
+        assert out[key] > 0
+    # all single queries, the first batch of 128 and of 32, then the two prefixes
+    assert [(s[3], s[4].shape[0]) for s in seen] == [(4096, 100), (4096, 128), (4096, 32),
+                                                     (1024, 100), (2048, 100)]
+    for section, x, scales, n_valid, q, result in seen:
+        assert section == "int8_10M" and x.dtype == torch.int8
+        jres = jq.topk_search_int8(jnp.asarray(x.numpy()), jnp.asarray(scales.numpy()),
+                                   jnp.asarray(q.numpy()), headline.K, n_valid=n_valid)
+        np.testing.assert_array_equal(result.indices.numpy(), np.asarray(jres.indices))
+        np.testing.assert_array_max_ulp(result.scores.numpy(), np.asarray(jres.scores), maxulp=2)
+        # bit for bit: the JAX package's own search, run eagerly
+        with jax.disable_jit():
+            eager = jq.topk_search_int8(jnp.asarray(x.numpy()), jnp.asarray(scales.numpy()),
+                                        jnp.asarray(q.numpy()), headline.K, n_valid=n_valid)
+        np.testing.assert_array_equal(result.indices.numpy(), np.asarray(eager.indices))
+        np.testing.assert_array_equal(result.scores.numpy(), np.asarray(eager.scores))
+        # and the same arithmetic written out, its quantizer run eagerly
+        q8, qs = jq._quantize_q(jnp.asarray(q.numpy()))
+        int_dot = np.asarray(q8).astype(np.float32) @ x[:n_valid].numpy().astype(np.float32).T
+        spec = (int_dot * scales[:n_valid].numpy()[None, :]) * np.asarray(qs)[:, None]
+        order = np.argsort(-spec, axis=1, kind="stable")[:, :headline.K]
+        np.testing.assert_array_equal(result.indices.numpy(), order)
+        np.testing.assert_array_equal(result.scores.numpy(),
+                                      np.take_along_axis(spec, order, axis=1))
+
+
+def test_generated_rows():
+    x = data.gen_db_bf16(600_000, 8, 7, CPU)              # two generator chunks
+    assert x.shape == (600_000, 8) and x.dtype == torch.bfloat16
+    np.testing.assert_allclose(x[::997].float().norm(dim=-1).numpy(), 1.0, atol=2e-2)
+    assert torch.equal(x[:1000], data.gen_db_bf16(600_000, 8, 7, CPU)[:1000])
+    assert not torch.equal(x[:1000], data.gen_db_bf16(600_000, 8, 8, CPU)[:1000])
+    xi, s = data.gen_db_int8(4096, 16, 0, CPU)
+    assert xi.dtype == torch.int8 and xi.shape == (4096, 16) and s.shape == (4096,)
+    assert int(xi.min()) == -127 and int(xi.max()) == 127
+    assert float(s.min()) >= 0.9 / 127 and float(s.max()) <= 1.1 / 127 + 1e-9
+    container = data.MemoryContainer(x[:5].view(torch.int16).numpy().view(np.uint16))
+    assert container.num_rows == container.num_metadata == 5 and container.path is None
+    assert container.get_metadata(3) == list(container.iter_metadata())[3]
+    np.testing.assert_array_equal(container.read_embeddings(1, 3, as_float32=True),
+                                  x[1:3].float().numpy())
+
+
+def test_percentile_wall_counts_calls_and_refuses_too_few():
+    calls = []
+    out = timing.percentile_wall(calls.append, 100, CPU)
+    assert calls == [-1, -2, -3, *range(100)]
+    assert out["calls"] == 100 and out["device_p50_ms"] is None
+    assert 0 <= out["p50_ms"] <= out["p95_ms"]
+    with pytest.raises(ValueError):
+        timing.percentile_wall(calls.append, 99, CPU)
+    assert timing.median_ms(lambda: None, CPU) >= 0

@@ -15,12 +15,16 @@ B5 (normalize) has no sum and is ``torch.equal`` to its plain version. B4
 (LN+MLP): f32 5e-5 (sums in another order, ``rsqrtf``), bf16 max abs
 difference at most 0.01 of the output's max abs (the same rounding points;
 a sum or an ``exp`` that lands on the other side of a bf16 boundary moves
-an element by one step).
+an element by one step). The bench probes: P1 (int8 tensor-core sweep) is
+exact, ``torch.equal`` to its plain version and to B2 under an all-zero
+tombstone mask; P2 (rows widened to bf16) within ``1e-5 x max |score|`` (f32
+sums in another order); P3 (memory stream) ``torch.equal``.
 """
 
 import pytest
 import torch
 
+from intelligent_video_analysis_retrieval_system_tpu_torch.bench import probes as tprobes
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention as tatt
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import block as tblock
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import preprocess as tpre
@@ -272,3 +276,83 @@ def test_ln_mlp_kernel_refuses_bad_input(cuda_device):
                                           torch.bfloat16, seed=3))
     with pytest.raises(ValueError):      # weights on another device
         tblock.fused_ln_mlp(args[0], *(a.cpu() for a in args[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the bench probes (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+
+def _probe_inputs(device, n_pad, d, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-127, 128, (n_pad, d), generator=gen, device=device, dtype=torch.int8)
+    xs = (torch.rand(n_pad, generator=gen, device=device) * 0.2 + 0.9) / 127.0
+    q = torch.randn(8, d, generator=gen, device=device)
+    q_i8 = tq.symmetric_int8(q, dim=-1)[0]
+    return x, xs, q.to(torch.bfloat16), q_i8
+
+
+@pytest.mark.parametrize("rows_per_block", [128, 256, 512])
+@pytest.mark.parametrize("n_valid", [8192, 8000, 4096 + 77, 1])
+@pytest.mark.parametrize("d", [768, 96, 48])
+def test_probe_int8_mma_kernel_is_exact(cuda_device, rows_per_block, n_valid, d):
+    x, xs, _, q_i8 = _probe_inputs(cuda_device, 8192, d, seed=d + n_valid)
+    before = tprobes.probe_int8_mma_sweep.launches
+    got = tprobes.probe_int8_mma_sweep(x, xs.reshape(-1, 1), q_i8, n_valid, rows_per_block)
+    torch.cuda.synchronize()
+    assert tprobes.probe_int8_mma_sweep.launches == before + 1
+    assert got.shape == (8192 // 128, 8)
+    assert torch.equal(got, tprobes.probe_int8_mma_sweep_plain(x, xs, q_i8, n_valid))
+    # B2 with an all-zero tombstone mask computes the same function
+    dead = torch.zeros(8192, dtype=torch.int8, device=cuda_device)
+    assert torch.equal(got, tq.int8_chunk_max_sweep(x, xs, q_i8, n_valid, dead))
+
+
+@pytest.mark.parametrize("rows_per_block", [128, 256, 512])
+@pytest.mark.parametrize("n_valid", [8192, 8000, 4096 + 77])
+@pytest.mark.parametrize("d", [768, 96, 48])
+def test_probe_int8_convert_kernel_matches_plain(cuda_device, rows_per_block, n_valid, d):
+    x, xs, q_bf, _ = _probe_inputs(cuda_device, 8192, d, seed=d + n_valid + 1)
+    before = tprobes.probe_int8_convert_sweep.launches
+    got = tprobes.probe_int8_convert_sweep(x, xs, q_bf, n_valid, rows_per_block)
+    torch.cuda.synchronize()
+    assert tprobes.probe_int8_convert_sweep.launches == before + 1
+    want = tprobes.probe_int8_convert_sweep_plain(x, xs, q_bf, n_valid)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    tol = 1e-5 * want[fin].abs().max().item()
+    assert (got[fin] - want[fin]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 4])
+@pytest.mark.parametrize("case", [(torch.bfloat16, 768, 2048), (torch.int8, 768, 2048),
+                                  (torch.int8, 768, 8192), (torch.int32, 192, 2048),
+                                  (torch.int8, 128, 8)])
+def test_probe_stream_kernel_returns_the_last_tiles_head(cuda_device, blocks_per_sm, case):
+    dtype, d, tile_n = case
+    n = 3 * tile_n + tile_n // 2          # a ragged tail the kernel never reads
+    gen = torch.Generator(device=cuda_device).manual_seed(d + tile_n)
+    if dtype == torch.bfloat16:
+        x = torch.randn(n, d, generator=gen, device=cuda_device).to(dtype)
+    else:
+        x = torch.randint(-100, 100, (n, d), generator=gen, device=cuda_device, dtype=dtype)
+    before = tprobes.probe_stream.launches
+    got = tprobes.probe_stream(x, tile_n, blocks_per_sm)
+    torch.cuda.synchronize()
+    assert tprobes.probe_stream.launches == before + 1
+    assert torch.equal(got, tprobes.probe_stream_plain(x, tile_n))
+    assert torch.equal(got, x[2 * tile_n:2 * tile_n + 8, :128].float())
+
+
+def test_probe_kernels_refuse_bad_input(cuda_device):
+    x, xs, q_bf, q_i8 = _probe_inputs(cuda_device, 2048, 72, seed=0)   # 72 % 16 != 0
+    with pytest.raises(ValueError):
+        tprobes.probe_int8_mma_sweep(x, xs, q_i8, 2048)
+    with pytest.raises(ValueError):
+        tprobes.probe_int8_convert_sweep(x, xs, q_bf, 2048)
+    x, xs, q_bf, q_i8 = _probe_inputs(cuda_device, 2048, 64, seed=0)
+    with pytest.raises(ValueError):      # queries on another device
+        tprobes.probe_int8_mma_sweep(x, xs, q_i8.cpu(), 2048)
+    with pytest.raises(ValueError):      # a view at an odd byte offset
+        flat = torch.zeros(2048 * 128 + 1, dtype=torch.int8, device=cuda_device)
+        tprobes.probe_stream(flat[1:].view(2048, 128), 64)

@@ -71,7 +71,7 @@ def test_no_source_line_imports_them(path):
 COPIES = ["utils/__init__.py", "utils/cache.py", "utils/config.py", "utils/dataproc.py",
           "utils/files.py", "utils/logging.py", "utils/paths.py", "utils/perf.py",
           "native/__init__.py", "native/ivars_native.cpp", "serve/batching.py",
-          "serve/handlers.py"]
+          "serve/handlers.py", "index/metacols.py", "index/portable.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -85,6 +85,13 @@ def test_copies_name_their_originals_and_keep_in_step(rel):
     own = [line for line in copy.splitlines() if line not in theirs]
     assert len(own) <= 30, own
     assert len(copy.splitlines()) >= len(original.splitlines())
+
+
+def test_the_bench_and_the_index_open_modules_are_walked():
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"bench/__init__.py", "bench/__main__.py", "bench/timing.py", "bench/data.py",
+            "bench/headline.py", "bench/probes.py", "index/metacols.py",
+            "index/fastloader.py", "index/portable.py"} <= names
 
 
 def test_native_copy_builds_into_its_own_cache_directory():

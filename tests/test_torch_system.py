@@ -440,13 +440,14 @@ def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
     for call in (lambda: system.chat("hi"),
                  lambda: system.start_server(), lambda: system.index_videos([]),
-                 lambda: system.export_portable_index(tmp_path),
                  lambda: CLIPEmbedder(compute_dtype="int8", device="cpu"),
                  lambda: EnhancedRetrievalSystem(device="cpu", mesh=object()),
                  lambda: create_system(torch_device="cpu",
                                        index={"index_type": "IndexIVFFlat"})._index_config()):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(RuntimeError):     # ported: it needs a loaded index
+        system.export_portable_index(tmp_path)
 
 
 def test_cuda_request_without_cuda_raises():
