@@ -179,7 +179,11 @@ class Timer:
     def __init__(self, device) -> None:
         self.device = device
 
-    def __call__(self, fn, iters: int = 10) -> float:
+    def __call__(self, fn, iters: int = 10, graph: bool = False) -> float:
+        """``graph``: capture the ``iters`` calls into one CUDA graph and time
+        its replay, so that a kernel shorter than the host's launch gap (tens
+        of microseconds from Python) is timed and not the gap. Only for
+        functions that neither synchronize nor read a result on the host."""
         import torch
 
         fn()
@@ -189,14 +193,23 @@ class Timer:
                 fn()
             return (time.perf_counter() - t0) * 1e3 / iters
         torch.cuda.synchronize()
+        call, calls, per = fn, iters, iters
+        if graph:
+            captured = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(captured):
+                for _ in range(iters):
+                    fn()
+            captured.replay()   # warm
+            call, calls, per = captured.replay, 3, 3 * iters
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        for _ in range(calls):
+            call()   # each result is dropped at once, so the allocator reuses its block
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
+        return start.elapsed_time(end) / per
 
 
 # ---------------------------------------------------------------------------
@@ -259,56 +272,52 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
                 f"library matmul + amax {lib:.4f} ms")
     del x, dead
 
-    # B3 at ViT-L/14 attention shapes
-    t, d, h = 257, 1024, 16
-    mha = {"max_abs_err": 0.0}
-    for b in (1, 8):
+    # B3: the towers' attention shapes, timed (CUDA-graph replay: the kernel is
+    # shorter than a launch gap), then the ragged shapes of both variants
+    on_card = device.type == "cuda"
+
+    def sdpa(q, k, v, h):
+        b_, t_, d_ = q.shape
+        return torch.nn.functional.scaled_dot_product_attention(
+            *(y.view(b_, t_, h, d_ // h).transpose(1, 2) for y in (q, k, v)))
+
+    def mha_case(b, t, d, h, timed):
         q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
                    for _ in range(3))
         got = attention.fused_mha(q, k, v, h)
         ref = attention._einsum_attention(q, k, v, h)
         err = float((got.float() - ref.float()).abs().max())
         if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
-            raise AssertionError(f"B3 B={b}: max abs err {err} beyond atol=rtol={TOL_MHA}")
-        mha["max_abs_err"] = max(mha["max_abs_err"], err)
-        log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16: max_abs_err={err:.3e} "
-            f"vs plain (atol=rtol={TOL_MHA})")
-        if b == 8:
-            mha["ms"] = timer(lambda: attention.fused_mha(q, k, v, h), iters=20)
-            mha["plain_ms"] = timer(lambda: attention._einsum_attention(q, k, v, h), iters=20)
-            dh = d // h
+            raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: max abs err {err} beyond "
+                                 f"atol=rtol={TOL_MHA}")
+        plan = attention.mha_plan(t, d // h)
+        log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16 ({plan['variant']}, "
+            f"{plan['frags']} fragments): max_abs_err={err:.3e} vs plain (atol=rtol={TOL_MHA})")
+        out = {"shape": [b, t, d, h], "max_abs_err": err}
+        if timed:
+            out.update(
+                ms=timer(lambda: attention.fused_mha(q, k, v, h), iters=20, graph=on_card),
+                plain_ms=timer(lambda: attention._einsum_attention(q, k, v, h), iters=10,
+                               graph=on_card),
+                library_ms=timer(lambda: sdpa(q, k, v, h), iters=20, graph=on_card),
+                **bound(4 * b * t * d * 2, 4.0 * b * t * t * d, "bf16"))
+            log("numbers", f"B3 B={b} T={t} D={d}: kernel {out['ms']:.4f} ms, plain "
+                f"{out['plain_ms']:.4f} ms, library scaled_dot_product_attention "
+                f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+        return out
 
-            def heads(y):
-                return y.view(b, t, h, dh).transpose(1, 2)
-
-            mha["library_ms"] = timer(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    heads(q), heads(k), heads(v)), iters=20)
-            mha.update(bound(4 * b * t * d * 2, 4.0 * b * h * t * t * dh, "bf16"))
-            log("numbers", f"B3 B=8: kernel {mha['ms']:.4f} ms, plain {mha['plain_ms']:.4f} ms, "
-                f"library scaled_dot_product_attention {mha['library_ms']:.4f} ms, bound "
-                f"{mha['bound_ms']:.4f} ms ({mha['bound_by']})")
-    # B3 at the ViT-B/32 shape of the bench's image tower
-    b, t, d, h = 256, 50, 768, 12
-    q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
-               for _ in range(3))
-    got = attention.fused_mha(q, k, v, h)
-    ref = attention._einsum_attention(q, k, v, h)
-    err = float((got.float() - ref.float()).abs().max())
-    if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
-        raise AssertionError(f"B3 B={b} T={t}: max abs err {err} beyond atol=rtol={TOL_MHA}")
-    mha["max_abs_err"] = max(mha["max_abs_err"], err)
-    t50 = {"ms": timer(lambda: attention.fused_mha(q, k, v, h), iters=20),
-           "plain_ms": timer(lambda: attention._einsum_attention(q, k, v, h), iters=20),
-           "library_ms": timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-               *(y.view(b, t, h, d // h).transpose(1, 2) for y in (q, k, v))), iters=20),
-           **bound(4 * b * t * d * 2, 4.0 * b * t * t * d, "bf16")}
-    mha["vit_b_32"] = {"shape": [b, t, d, h], "max_abs_err": err, **t50}
-    log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16: max_abs_err={err:.3e} "
-        f"vs plain (atol=rtol={TOL_MHA})")
-    log("numbers", f"B3 B={b} T={t}: kernel {t50['ms']:.4f} ms, plain {t50['plain_ms']:.4f} ms, "
-        f"library scaled_dot_product_attention {t50['library_ms']:.4f} ms, bound "
-        f"{t50['bound_ms']:.4f} ms ({t50['bound_by']})")
+    narrow = dim < DIM   # CPU rehearsal: small widths, few images
+    t_l, d_l, h_l = (257, 1024, 16) if not narrow else (17, 64, 4)
+    mha_case(1, t_l, d_l, h_l, timed=False)
+    main = mha_case(8, t_l, d_l, h_l, timed=True)           # image queries, self-test
+    big = mha_case(256 if not narrow else 4, t_l, d_l, h_l, timed=True)   # the build's batch
+    b32 = mha_case(256 if not narrow else 4, 50, 768 if not narrow else 48, 12, timed=True)
+    ragged = [mha_case(2, t, 256 if not narrow else 64, 4, timed=False)
+              for t in (1, 16, 17, 197, 273, 320)]
+    mha = {k_: v_ for k_, v_ in main.items() if k_ != "shape"}
+    mha["max_abs_err"] = max(c["max_abs_err"] for c in (main, big, b32, *ragged))
+    mha["vit_l_14_b256"] = big
+    mha["vit_b_32"] = b32
     if require_kernels and (topk.chunk_max_sweep.launches == 0
                             or attention.fused_mha.launches == 0):
         raise AssertionError("a kernel comparison ran without launching its kernel")
@@ -1013,9 +1022,9 @@ def check_build_kernels(device, timer: Timer, require_kernels: bool, config=None
 
         n_tok = x.numel() // d
         iters = 5 if n_tok > 10_000 else 20
-        ms = timer(lambda: block.fused_ln_mlp(*args), iters=iters)
+        ms = timer(lambda: block.fused_ln_mlp(*args), iters=iters, graph=on_card)
         plain = timer(lambda: block.fused_ln_mlp_reference(*args), iters=3)
-        lib = timer(library, iters=iters)
+        lib = timer(library, iters=iters, graph=on_card)
         esize = x.element_size()
         bd = bound(2 * x.numel() * esize + (w1.numel() + w2.numel()) * esize
                    + (3 * d + h) * 4, 4.0 * n_tok * d * h,
@@ -1025,7 +1034,43 @@ def check_build_kernels(device, timer: Timer, require_kernels: bool, config=None
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         if name == "vision B=256":   # the build path's shape
             b4.update(ms=ms, plain_ms=plain, library_ms=lib, **bd)
+        elif name == "vision B=8":   # an image query's
+            b4["vit_l_14_b8"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, **bd}
         del args, x, w1, w2, got, ref
+
+    # B4 across the gate: every width class of the kernel's template, token
+    # counts around its 64-token tile and beyond one round of clusters, the three
+    # activations at one shape (checked, not timed)
+    if config is None:
+        widths, counts = (128, 512, 768, 1024), (1, 63, 64, 65, 2056, 65_792)
+    else:
+        widths, counts = (128, 256), (1, 63, 64, 65)
+    swept = 0
+    for d in widths:
+        h = 4 * d if d > 128 else 256
+        for n_tok in counts:
+            for act in (block.ACTIVATIONS if n_tok == 65 else ("quick_gelu",)):
+                x = torch.randn(n_tok, d, generator=gen, device=device).to(torch.bfloat16)
+                args = (x, 1.0 + 0.1 * torch.randn(d, generator=gen, device=device),
+                        0.1 * torch.randn(d, generator=gen, device=device),
+                        (torch.randn(h, d, generator=gen, device=device) / d ** 0.5).to(x.dtype),
+                        0.1 * torch.randn(h, generator=gen, device=device),
+                        (torch.randn(d, h, generator=gen, device=device) / h ** 0.5).to(x.dtype),
+                        0.1 * torch.randn(d, generator=gen, device=device))
+                got = block.fused_ln_mlp(*args, act=act)
+                ref = block.fused_ln_mlp_reference(*args, act=act)
+                err = float((got.float() - ref.float()).abs().max())
+                top = float(ref.float().abs().max())
+                if not bool(torch.isfinite(got).all()) or err > TOL_LN_MLP * top:
+                    plan = block.ln_mlp_plan(n_tok, d)
+                    raise AssertionError(f"B4 D={d} H={h} tokens={n_tok} {act} (cluster "
+                                         f"{plan['cluster']}): max abs err {err} > {TOL_LN_MLP} "
+                                         f"x max abs {top}")
+                b4["max_abs_err"] = max(b4["max_abs_err"], err)
+                swept += 1
+                del args, x, got, ref
+    log("kernels", f"B4 fused_ln_mlp bf16 D in {widths} x tokens in {counts}, all activations at "
+        f"65 tokens: {swept} cases within {TOL_LN_MLP} x max abs of the plain version")
     if require_kernels and (block.fused_ln_mlp.launches == 0
                             or preprocess.normalize_images.launches == 0):
         raise AssertionError("a kernel comparison ran without launching its kernel")

@@ -1,0 +1,275 @@
+// Hopper primitives for the kernels that run on `wgmma` (ln_mlp.cu): shared-
+// memory barriers (`mbarrier`), bulk tensor copies (TMA), thread-block
+// clusters and distributed shared memory, and the warpgroup matrix product.
+// All of it is inline PTX for sm_90a; nothing here is a finished kernel.
+//
+// Layout convention used throughout: an operand tile is K-major with the
+// 128-byte swizzle, stored as blocks of [rows][64 bf16] (128 bytes a row);
+// within a block the 16-byte group `c` of row `r` sits at group `c ^ (r % 8)`.
+// That is what a TMA box of {64, rows} with CU_TENSOR_MAP_SWIZZLE_128B
+// writes, what `swizzled_offset` computes for threads that write a tile
+// themselves, and what `smem_desc` describes to `wgmma` (8-row groups 1,024
+// bytes apart).  Tiles start on 1,024-byte boundaries; a k-step of 16 values
+// advances the descriptor's start address by 32 bytes.
+//
+// Accumulator layout of `wgmma.m64nNk16` (f32): thread `tid` of the
+// warpgroup holds rows `16 * (tid / 32) + (tid % 32) / 4` (registers 4j, 4j+1)
+// and that row + 8 (registers 4j+2, 4j+3) at columns `8j + 2 * (tid % 4)` and
+// the next, for j in [0, N/8).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of element (row, k) in a [rows][64] bf16 block, 128-byte swizzle
+static __device__ __forceinline__ uint32_t swizzled_offset(int row, int k) {
+  return (uint32_t)(row * 128 + ((((k >> 3) ^ (row & 7)) << 4) | ((k & 7) << 1)));
+}
+
+// ---- mbarrier -------------------------------------------------------------
+
+static __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+static __device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+static __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+static __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Hand-over of a tile between the blocks of a cluster, and why its default
+// forms are weaker than acquire and release at cluster scope
+// (kClusterScope = false below; ln_mlp.cu's activation tiles):
+//  - Data, writer to reader.  The tile's bytes come from the peers' `st.async`
+//    (below), whose only defined completion is the `complete_tx` it performs
+//    on the reader's own barrier: the barrier's phase cannot end before the
+//    bytes it counts have been written, into the same shared memory the
+//    barrier lives in, of which there is one copy and no cache.  The reader
+//    waits on that barrier with the default `mbarrier.try_wait` (acquire, block
+//    scope): barrier, data and reader are in one block, and this is the wait
+//    CUTLASS's ClusterTransactionBarrier uses for bytes a peer sent.
+//  - "Tile free", reader to writers.  What is handed back is not data but the
+//    end of reads: those of `wgmma`, which have completed (not merely been
+//    issued) when `wgmma.wait_group` returns.  The arrival on the peers'
+//    barriers is issued after that by the same thread; a write that a peer
+//    issues after it has seen the arrival cannot reach a read that has already
+//    returned.  So the arrival needs to order nothing and is `.relaxed`.
+// The strict forms are a third slower: ops/kernel_lab.py `b4-handover`, on an
+// H100 at 700 W and ViT-L/14 widths, 5.95-5.97 ms against 4.49-4.51 at 65,792
+// tokens and 0.342 against 0.244 at 2,056.  The card tests hold the output
+// to the same bits over a hundred launches beside other work.
+
+// Arrive on the barrier at the same offset in block `cta` of the cluster.
+template <bool kClusterScope = false>
+static __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  if constexpr (kClusterScope)
+    asm volatile(
+        "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
+        :: "r"(bar), "r"(cta) : "memory");
+  else
+    asm volatile(
+        "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+        "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [ra];\n}\n"
+        :: "r"(bar), "r"(cta) : "memory");
+}
+// Spin until the barrier's phase differs from `parity` (acquire, at block
+// scope unless kClusterScope).  A wait that is not met within two seconds
+// traps: a lost arrival then ends the launch with an error instead of
+// hanging the card (a whole launch takes milliseconds).
+template <bool kClusterScope = false>
+static __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if constexpr (kClusterScope)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && (spins & 1023u) == 1023u) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 2000000000ull) __trap();
+    }
+  }
+}
+
+// ---- cluster ---------------------------------------------------------------
+
+static __device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster
+static __device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address, in the cluster's window, of block `cta`'s shared memory at
+// the offset `addr` has in this block's
+static __device__ __forceinline__ uint32_t map_cluster(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+// a 16-byte store to an address of the cluster's window that completes, with
+// its byte count, on the `mbarrier` at `bar` (an address of the same block in
+// the same window): the barrier's phase ends when the bytes it was told to
+// expect have landed, so the writer needs neither a fence nor an arrival
+static __device__ __forceinline__ void st_async_v4(uint32_t addr, uint32_t bar, uint32_t a,
+                                                   uint32_t b, uint32_t c, uint32_t d) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%2, %3, %4, %5}, [%1];\n"
+      :: "r"(addr), "r"(bar), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
+}
+// orders this thread's generic-proxy accesses to shared memory (its own
+// writes, and those it has observed) before the async proxy that `wgmma`
+// reads through
+static __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- TMA -------------------------------------------------------------------
+
+// one box of a 2-D tensor map into shared memory; completion on `bar`
+static __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar,
+                                                   int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1) : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// K-major, 128-byte swizzle, 8-row groups 1,024 bytes apart
+static __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
+static __device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+static __device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+static __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across a
+// point where the asynchronous product may still own it
+static __device__ __forceinline__ void acc_fence(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+
+// d (64 x N f32, this warpgroup's registers) = or += A (64 x 16, shared) .
+// B^T (N x 16, shared); scale_d = 0 overwrites d
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};

@@ -18,58 +18,122 @@
 //
 // Weights are read as nn.Linear holds them: w1 = fc1.weight (H, D),
 // w2 = fc2.weight (D, H), both row-major.  For `ln . w1^T` and `a . w2^T`
-// those are exactly column-major B operands with leading dimensions D and
-// H, so nothing is transposed per call.
+// those are exactly K-major B operands, so nothing is transposed per call.
 //
-// What bounds it on an H100: operations (16 D H per token: 34.5 GFLOP at
-// 2,056 tokens of ViT-L/14, against 25 MB of bytes), provided the weights
-// are reused across enough tokens.  LN and the MLP are per token, so the
-// grid runs over tiles of the flattened tokens and not over images (the
-// TPU kernel held one whole image in its fast memory and walked the hidden
-// chunks in grid order; a block here has 227 KB and blocks run in no
-// order, so a loop over hidden chunks inside the block takes the place of
-// the grid's second axis).
+// What bounds it on an H100: operations (4 D H per token: 34.5 GFLOP at
+// 2,056 tokens of ViT-L/14, 1.10 PFLOP at 65,792, against 25 MB and 286 MB),
+// provided the weights are reused across enough tokens: every token tile
+// streams all of w1 and w2 (16.8 MB at ViT-L/14) from L2, so the tile's
+// height sets the L2 traffic, and only `wgmma` reaches the tensor cores'
+// full rate.  LN and the MLP are per token, so the grid runs over tiles of
+// the flattened tokens and not over images (the TPU kernel held one whole
+// image in its fast memory and walked the hidden chunks in grid order; a
+// block here has 227 KB and blocks run in no order, so a loop over hidden
+// chunks inside the block takes the place of the grid's second axis).
 //
-// bf16: tensor cores through WMMA (16x16x16 bf16, f32 accumulators).  One
-// block of 8 warps per tile of M = 32 tokens.  The tile's LN(x) (M x D
-// bf16, 66 KB at D = 1024) lives in shared memory; the f32 accumulator
-// (M x D) lives in registers, 128 a thread at D = 1024: each warp owns D/8
-// output columns, 2 x D/128 fragments.  M = 64 would fit neither the
-// register file (it is the whole of it) nor, with the LN tile, shared
-// memory, without splitting D and computing fc1 twice; M = 32 was chosen
-// for that reason, and D is limited to 1024.  Per hidden chunk of 256:
-// every warp computes a 32 x 32 piece of fc1 (K = D, A fragments from
-// shared memory, B fragments straight from w1 in device memory / L2: each
-// weight element is loaded once per block, so staging it in shared memory
-// would add traffic, not save it), passes it through its own f32 staging
-// slab for bias, rounding and activation (the layout of a WMMA fragment is
-// opaque), and writes bf16 into the chunk's activation tile (M x 256, 17
-// KB of shared memory); after a block barrier every warp accumulates the
-// chunk's fc2 contribution into its columns (B fragments straight from
-// w2).  Every token tile streams all of w1 and w2 from L2 (16.8 MB at
-// ViT-L/14 vision): that traffic, not the tensor cores, bounds this
-// simple design; a larger token tile (wgmma with the accumulator split
-// over a cluster) is the way on.  The ragged last tile is masked: rows past
-// the last token are zero in shared memory and never stored.
+// bf16: a tile is 64 tokens, the height of one `wgmma`.  Its f32
+// accumulator (64 x D) is 256 KB at D = 1024, a whole multiprocessor's
+// register file, so it is split along D over a thread-block CLUSTER of 4
+// blocks (also for few tokens: 8 images of ViT-L/14 are 33 tiles, 132
+// blocks).  Block c owns output columns [c D/4, (c+1) D/4).  Its three
+// warpgroups each do one thing and meet only at barriers in shared memory:
+//   - The fc2 warpgroup holds the block's accumulator, 64 x D/4 in two parts
+//     of 64 x D/8 (128 registers a thread at D = 1024; `setmaxnreg` gives it
+//     232, taken from the producers).  The parts start at x_f32 + b2, written
+//     straight into the `wgmma` accumulator registers (layout in hopper.cuh).
+//     Per hidden chunk of 128 it waits for the chunk's activation tile and
+//     runs acc += a (64 x 128) . w2[cols, chunk]^T, one w2 stage (D/8 rows x
+//     64 of K) after the other.  With the accumulator and both products in
+//     one warpgroup, as a first version had it, the compiler ran out of the
+//     168 registers it plans with and serialised the asynchronous products.
+//   - The fc1 warpgroup computes the block's 32 columns of each chunk's fc1
+//     (K = D) from LN(x) and w1 stages (32 rows x 128 of K), adds b1 and
+//     rounds.  The values then go through the activation and, as bf16, into
+//     the activation tile of EVERY block of the cluster, in the swizzled
+//     K-major layout of fc2's A operand: the threads of a quad exchange words
+//     so that each holds a whole 16-byte group, and one asynchronous store
+//     per block (`st.async` on a `mapa`-mapped address) carries it over and
+//     counts its bytes on that block's `mbarrier` for the tile.  A block's fc2
+//     starts when the tile's 16 KB have landed; no fence and no arrival is
+//     needed on the way.  The activation's arithmetic is the longest part of
+//     the chunk for one warpgroup, so the fc1 warpgroup does it for half of
+//     its rows and leaves the other half as rounded pre-activations in its own
+//     block's tile, where the fc2 warpgroup, which would otherwise wait,
+//     picks them up, finishes them and sends them out the same way.
+//     Two tiles alternate; a tile is written again only after the fc2 warps
+//     of the whole cluster have arrived on its `empty` barrier, which they
+//     do once the products that read it have completed.  So fc1 of chunk
+//     i + 1 runs while fc2 of chunk i does.
+//   - LN(x) of the 64 tokens (64 x D bf16, 128 KB at D = 1024) is computed by
+//     every block of the cluster (cheap), by the fc1 and fc2 warpgroups
+//     together, into shared memory in the K-major 128-byte-swizzled layout
+//     `wgmma`'s A operand wants.  Rows past the last token are zero there
+//     and never stored: the ragged last tile is masked.
+//   - Two threads of the third warpgroup are the producers, one per weight:
+//     each keeps a ring of stages full by TMA (`cp.async.bulk.tensor`,
+//     128-byte swizzle, completing on an `mbarrier`), up to the ring's depth
+//     ahead of the products; a stage is released by each consumer warp once
+//     the `wgmma` group that read it has completed.  What LN(x) and the two
+//     activation tiles leave of the 227 KB is halved between the rings (at
+//     D = 1024: 4 stages of 8 KB for w1, 2 of 16 KB for w2; up to 8 each at
+//     smaller D).  The tensor maps are encoded on the host in the C entry
+//     point (`cuTensorMapEncodeTiled`, fetched through
+//     `cudaGetDriverEntryPoint`, so nothing links against libcuda) and
+//     passed as `__grid_constant__` parameters.
+//   - `wgmma` widths are built from four instructions (n16, n32, n64, n128):
+//     an accumulator part's D/8 = 16 ND columns are the sum of the widths of
+//     ND's binary digits, so every admitted D (multiples of 128 up to 1024)
+//     runs the same code, one template instance each.
+// What holds it back (ops/kernel_lab.py: timestamps of one block and
+// timing-only builds, D = 1024, 65,792 tokens): a chunk takes about 6,300
+// cycles in both warpgroups where the products alone need 2,048.  Dropping
+// one part after the other: 4.48 ms as it is, 4.05 without any product, 3.16
+// with the activation replaced by the identity as well, 2.57 without the
+// weights' loads, 2.36 without the exchange of tiles, 0.52 with no hidden
+// chunk at all.  So the products cost a tenth and the activation (8 values a
+// thread in each warpgroup: an `expf`, a division and five roundings each, on
+// one warp per scheduler) a fifth.  The products' phases are waits for
+// weights: with the products off they last as long.  A block pulls its 128 KB
+// of weights per chunk in the time the chunk takes, about 22 bytes a cycle,
+// whatever the stage size and ring depth and whether one cluster runs or a
+// card full of them; times 132 multiprocessors that is 5.1 TB/s, the card's
+// L2 rate.  So the kernel is bound by what one multiprocessor pulls from L2:
+// at 64 tokens a block does 64 operations per byte pulled, a third of what
+// the tensor cores want.
+// Tried and dropped, each measured slower or no faster: two fc1 warpgroups
+// (512 threads leave the compiler 128 registers, and it serialises the fc2
+// products), running the epilogue between the two halves of a chunk's
+// products in either warpgroup, all stores after all arithmetic, a reciprocal
+// in place of the division, handing a stage back before a wait, busy-polling
+// barrier waits.  A cluster of 2 token tiles x 4 parts of D sharing each
+// weight tile by one TMA multicast would halve the L2 reads but not a block's
+// intake; 128 tokens per block would, and LN(x) of 128 tokens fits only if
+// fc1 is split along K over the cluster (LN(x) a quarter the width, f32
+// partial sums exchanged like the tiles).  Neither is done here.
+// D stays limited to 1024: beyond it LN(x) of 64 tokens no longer fits one
+// block's shared memory beside the rings.  The card runs fewer than 32
+// clusters of 4 at a time (16 take what one takes, 32 twice that), so the 33
+// tiles of 8 images of ViT-L/14 take two rounds.
 //
 // f32: CUDA cores (tensor cores would round to TF32), 8 tokens per block of
 // 256 threads, one hidden column of the chunk per thread for fc1 and D/256
 // output columns per thread for fc2.  It is off the served path.
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
+#include "lab.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = 8;
-constexpr int kChunk = 256;    // hidden columns per step (H % 256 == 0)
-constexpr int kMaxD = 1024;    // accumulators live in registers
+constexpr int kThreads = 256;  // f32 kernel: threads per block
+constexpr int kChunk = 256;    // f32 kernel: hidden columns per step; the gate is H % 256 == 0
+constexpr int kMaxD = 1024;
 
 enum Act { kQuickGelu = 0, kGelu = 1, kGeluTanh = 2 };
 
@@ -92,15 +156,17 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 }
 
 // activation of a bf16 value (given and returned as the f32 that holds it)
-__device__ __forceinline__ float act_bf16(float x, int act) {
-  if (act == kQuickGelu) {
+template <int ACT>
+__device__ __forceinline__ float act_bf16(float x) {
+  if constexpr (kLabSkipActivation) return x;
+  if constexpr (ACT == kQuickGelu) {
     const float c = 1.703125f;  // bf16(1.702)
     const float t = round_bf16(-c * x);
     const float e = round_bf16(expf(t));
     const float den = round_bf16(1.0f + e);
     return round_bf16(x / den);
   }
-  return round_bf16(act == kGelu ? gelu_erf(x) : gelu_tanh(x));
+  return round_bf16(ACT == kGelu ? gelu_erf(x) : gelu_tanh(x));
 }
 
 __device__ __forceinline__ float act_f32(float x, int act) {
@@ -109,180 +175,590 @@ __device__ __forceinline__ float act_f32(float x, int act) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma, TMA rings, D split over a cluster, one warpgroup per product
 // ---------------------------------------------------------------------------
 
-constexpr int kTok = 32;          // tokens per block: two 16-row fragments
-constexpr int kMaxNT = kMaxD / (16 * kWarps);  // fc2 column fragments per warp
-constexpr int kStageLd = 36;      // per-warp f32 staging slab, 32 x 32 + pad
+constexpr int kTokB = 64;             // tokens per tile: one wgmma's rows
+constexpr int kChunkB = 128;          // hidden columns per step
+constexpr int kCluster = 4;           // blocks per tile: D split four ways
+constexpr int kF1N = kChunkB / kCluster;   // fc1 columns of a chunk per block
+constexpr int kThreadsB = 384;        // warpgroups: fc2, fc1, producers
+constexpr int kW1StageBytes = kF1N * 128 * 2;   // kF1N rows of w1 x 128 of K
+constexpr int kW2StageBytes = 16384;  // up to 128 rows of w2 x 64 of K
+constexpr int kMaxStages = 8;         // per ring
+constexpr int kActBytes = kTokB * kChunkB * 2;   // one activation tile
+constexpr int kBarBytes = 512;        // 4 x 8 ring barriers, 3 x 2 for the tiles
+constexpr int kSmemLimit = 232448;    // per block on this card
 
-struct LayoutBf16 {
-  int ld_ln, ld_a;
-  size_t ln_off, a_off, stage_off, total;
+// Scope of the operations that hand an activation tile from block to block:
+// false = as described under "hand-over" in hopper.cuh, true = acquire and
+// release at cluster scope throughout (-DIVARS_LAB_STRICT_HANDOVER, to price
+// the difference: ops/kernel_lab.py, `b4-handover`).
+#ifdef IVARS_LAB_STRICT_HANDOVER
+constexpr bool kHandoverClusterScope = true;
+#else
+constexpr bool kHandoverClusterScope = false;
+#endif
+
+struct PlanBf16 {
+  int w1_stages, w2_stages;
+  size_t smem;
 };
 
-__host__ __device__ inline LayoutBf16 layout_bf16(int d) {
-  LayoutBf16 L;
-  L.ld_ln = d + 8;       // +16 bytes a row: fragment rows fall on different banks
-  L.ld_a = kChunk + 8;
-  L.ln_off = 0;
-  L.a_off = L.ln_off + (size_t)kTok * L.ld_ln * sizeof(bf16);
-  L.stage_off = L.a_off + (size_t)kTok * L.ld_a * sizeof(bf16);
-  L.total = L.stage_off + (size_t)kWarps * kTok * kStageLd * sizeof(float);
-  return L;
+// The launch plan from D alone: what LN(x) and the activation tiles leave of
+// the block's shared memory is halved between the rings of w1 and of w2.
+__host__ __device__ inline PlanBf16 plan_bf16(int d) {
+  PlanBf16 p;
+  // 1,024 bytes of slack: the carve-up starts on a 1,024-byte boundary
+  const size_t fixed = 1024 + (size_t)kTokB * d * 2 + 2 * kActBytes + kBarBytes;
+  const size_t half = (kSmemLimit - fixed) / 2;
+  const int fit1 = (int)(half / kW1StageBytes), fit2 = (int)(half / kW2StageBytes);
+  p.w1_stages = fit1 < kMaxStages ? fit1 : kMaxStages;
+  p.w2_stages = fit2 < kMaxStages ? fit2 : kMaxStages;
+  p.smem = fixed + (size_t)p.w1_stages * kW1StageBytes + (size_t)p.w2_stages * kW2StageBytes;
+  return p;
 }
 
-// d = 128 * ntw (ntw in 1..8); h % 256 == 0; x, w1, w2, out 32-byte aligned.
-__global__ void __launch_bounds__(kThreads, 1)
-ln_mlp_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, const bf16* __restrict__ w1,
-                   const float* __restrict__ b1, const bf16* __restrict__ w2,
-                   const float* __restrict__ b2, bf16* __restrict__ out,
-                   long long n_tok, int d, int h, float eps, int act) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const LayoutBf16 L = layout_bf16(d);
-  bf16* ln_s = reinterpret_cast<bf16*>(smem_raw + L.ln_off);
-  bf16* a_s = reinterpret_cast<bf16*>(smem_raw + L.a_off);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float* stage = reinterpret_cast<float*>(smem_raw + L.stage_off) + warp * kTok * kStageLd;
+// acc (64 x 16 ND, one accumulator part) += A (64 x 16) . B^T (16 ND x 16): the
+// width is the sum of its binary digits' instructions
+template <int ND>
+__device__ __forceinline__ void fc2_step(float* acc, uint64_t da, uint64_t db) {
+  // rows of the B tile are 128 bytes: 8 descriptor units each
+  constexpr int r8 = (ND & 8) ? 128 : 0;
+  constexpr int r4 = r8 + ((ND & 4) ? 64 : 0);
+  constexpr int r2 = r4 + ((ND & 2) ? 32 : 0);
+  if constexpr ((ND & 8) != 0) Wgmma<128>::run(acc, da, db, 1);
+  if constexpr ((ND & 4) != 0) Wgmma<64>::run(acc + r8 / 2, da, db + r8 * 8, 1);
+  if constexpr ((ND & 2) != 0) Wgmma<32>::run(acc + r4 / 2, da, db + r4 * 8, 1);
+  if constexpr ((ND & 1) != 0) Wgmma<16>::run(acc + r2 / 2, da, db + r2 * 8, 1);
+}
 
-  const long long tok0 = (long long)blockIdx.x * kTok;
-  const int ntw = d / (16 * kWarps);   // fc2 column fragments of this warp
-  const int col0 = warp * 16 * ntw;    // its first output column
-  const bf16 zero = __float2bfloat16_rn(0.f);
+// word `idx` (0..3) of v, for an index only known at run time
+__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[4], int idx) {
+  const uint32_t lo = (idx & 1) ? v[1] : v[0], hi = (idx & 1) ? v[3] : v[2];
+  return (idx & 2) ? hi : lo;
+}
 
-  // ---- LN(x) of the tile's tokens into shared memory, 4 rows per warp
-  for (int r = warp; r < kTok; r += kWarps) {
-    const long long tok = tok0 + r;
-    bf16* lrow = ln_s + r * L.ld_ln;
-    if (tok < n_tok) {
-      const bf16* xrow = x + tok * d;
-      float v[kMaxD / 32];
-      float s = 0.f;
+// Eight bf16 values of one 16-byte group to the same place in the activation
+// tile of every block of the cluster: one asynchronous store per block, which
+// completes on that block's barrier for the tile.
+__device__ __forceinline__ void store_group(const uint32_t* cta_base, uint32_t off,
+                                            uint32_t bar_off, uint32_t w0, uint32_t w1,
+                                            uint32_t w2, uint32_t w3) {
 #pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
-        const int c = lane + 32 * i;
-        v[i] = c < d ? __bfloat162float(xrow[c]) : 0.f;
-        s += v[i];
+  for (int cta = 0; cta < kCluster; ++cta)
+    if (!kLabSkipExchange || off == 1)
+      st_async_v4(cta_base[cta] + off, cta_base[cta] + bar_off, w0, w1, w2, w3);
+}
+
+template <int ACT>
+__device__ __forceinline__ uint32_t act_pair(uint32_t pre) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&pre);
+  const __nv_bfloat162 p = __floats2bfloat162_rn(act_bf16<ACT>(__bfloat162float(x.x)),
+                                                 act_bf16<ACT>(__bfloat162float(x.y)));
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The fc1 warpgroup's share of a chunk's epilogue.  `c1` is the block's fc1
+// piece (64 x kF1N f32) + b1 still to add; a thread holds two columns of each
+// of the piece's four 8-column groups, for rows r0 and r0 + 8.  Row r0: the
+// values go through the activation, the four threads of a quad exchange words
+// so that each holds one whole group (thread tq group tq), and `store_group`
+// sends it to every block.  Row r0 + 8: the rounded pre-activations go as they
+// are into this block's own tile (`pre_addr`, the thread's word of group 0;
+// group j is `^ (j << 4)` on in the swizzled row), for the fc2 warpgroup to
+// finish (`finish_act`): the activation's arithmetic is most of the
+// epilogue, and the fc2 warpgroup would otherwise wait for it.
+template <int ACT>
+__device__ __forceinline__ void write_act(const float* c1, const float2* bias,
+                                          const uint32_t* cta_base, uint32_t bar_off,
+                                          uint32_t grp_off, uint32_t pre_addr, int tq) {
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(c1[4 * j + 2] + bias[j].x,
+                                                   c1[4 * j + 3] + bias[j].y);
+    asm volatile("st.shared.b32 [%0], %1;\n"
+                 :: "r"(pre_addr ^ (uint32_t)(j << 4)),
+                    "r"(*reinterpret_cast<const uint32_t*>(&p)) : "memory");
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(c1[4 * j] + bias[j].x, c1[4 * j + 1] + bias[j].y);
+    v[j] = act_pair<ACT>(*reinterpret_cast<const uint32_t*>(&p));
+  }
+  // in round s a thread hands the word of group tq ^ s to the thread that
+  // owns that group and gets word tq ^ s of its own
+  uint32_t got[4];
+  got[0] = pick(v, tq);
+#pragma unroll
+  for (int s = 1; s < 4; ++s) got[s] = __shfl_xor_sync(0xffffffffu, pick(v, tq ^ s), s);
+  // got[s] is word tq ^ s of the group: word i is got[i ^ tq]
+  store_group(cta_base, grp_off, bar_off, pick(got, tq), pick(got, 1 ^ tq), pick(got, 2 ^ tq),
+              pick(got, 3 ^ tq));
+}
+
+// The fc2 warpgroup's share: the thread's group of row r0 + 8, left in this
+// block's tile as rounded pre-activations, through the activation and to
+// every block (this one's own copy is overwritten in place).
+template <int ACT>
+__device__ __forceinline__ void finish_act(const uint32_t* cta_base, uint32_t bar_off,
+                                           uint32_t grp_off, uint32_t own_addr) {
+  uint32_t w0, w1, w2, w3;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w0), "=r"(w1), "=r"(w2), "=r"(w3) : "r"(own_addr) : "memory");
+  store_group(cta_base, grp_off, bar_off, act_pair<ACT>(w0), act_pair<ACT>(w1), act_pair<ACT>(w2),
+              act_pair<ACT>(w3));
+}
+
+// LN(x) of the tile's 64 tokens into shared memory at `ln_p` (K-major,
+// swizzled), by eight warps: `warp` in [0, 8).
+template <int ND>
+__device__ __forceinline__ void layer_norm_tile(unsigned char* ln_p, const bf16* __restrict__ x,
+                                                const float* __restrict__ gamma,
+                                                const float* __restrict__ beta, long long tok0,
+                                                long long n_tok, float eps, int warp, int lane) {
+  constexpr int D = 128 * ND;
+  // 8 rows per warp, ROWS at a time (fewer where a row is many registers).  A
+  // lane owns granules of 4 columns (8 bytes), ND of them a row; the loads of
+  // a pass's rows are issued before the first is used.
+  constexpr int ROWS = ND > 4 ? 2 : 4;
+  for (int pass = 0; pass < 8 / ROWS; ++pass) {
+    const int row_base = warp + 8 * ROWS * pass;
+    uint2 xin[ROWS][ND];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const long long tok = tok0 + row_base + 8 * i;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        xin[i][j] = tok < n_tok
+            ? *reinterpret_cast<const uint2*>(x + tok * D + 4 * (lane + 32 * j))
+            : make_uint2(0u, 0u);
+    }
+    auto widen = [](const uint2& g, float (&v)[4]) {
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&g.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&g.y);
+      v[0] = __bfloat162float(lo.x);
+      v[1] = __bfloat162float(lo.y);
+      v[2] = __bfloat162float(hi.x);
+      v[3] = __bfloat162float(hi.y);
+    };
+    float mu[ROWS], rstd[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        float v[4];
+        widen(xin[i][j], v);
+        sum += (v[0] + v[1]) + (v[2] + v[3]);
       }
-      const float mu = warp_sum(s) / (float)d;
+      mu[i] = warp_sum(sum) / (float)D;
       float q = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
-        const int c = lane + 32 * i;
-        const float dv = c < d ? v[i] - mu : 0.f;
-        q += dv * dv;
-      }
-      const float rstd = rsqrtf(warp_sum(q) / (float)d + eps);
+      for (int j = 0; j < ND; ++j) {
+        float v[4];
+        widen(xin[i][j], v);
 #pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) lrow[c] = __float2bfloat16_rn((v[i] - mu) * rstd * gamma[c] + beta[c]);
+        for (int e = 0; e < 4; ++e) q += (v[e] - mu[i]) * (v[e] - mu[i]);
       }
-    } else {
-      for (int c = lane; c < d; c += 32) lrow[c] = zero;
+      rstd[i] = rsqrtf(warp_sum(q) / (float)D + eps);
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = 4 * (lane + 32 * j);
+      float gm[4], bt[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gm[e] = gamma[c + e];
+        bt[e] = beta[c + e];
+      }
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int r = row_base + 8 * i;
+        float v[4], y[4];
+        widen(xin[i][j], v);
+        const bool live = tok0 + r < n_tok;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[e] = live ? (v[e] - mu[i]) * rstd[i] * gm[e] + bt[e] : 0.f;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+        *reinterpret_cast<uint2*>(ln_p + (c / 64) * (kTokB * 128) + swizzled_offset(r, c % 64)) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+      }
     }
   }
+}
 
-  // ---- accumulators start at x_f32 + b2 (residual and fc2 bias)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kMaxNT];
-#pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt) {
-    if (nt < ntw) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        for (int e = lane; e < 256; e += 32) {
-          const int r = e / 16, c = e % 16;
-          const long long tok = tok0 + mt * 16 + r;
-          const int col = col0 + nt * 16 + c;
-          stage[r * kStageLd + c] =
-              tok < n_tok ? __bfloat162float(x[tok * d + col]) + b2[col] : 0.f;
+// D = 128 ND; h % 128 == 0; x 8-byte and out 4-byte aligned; grid = tiles x
+// kCluster blocks in clusters of kCluster.
+template <int ND>
+__global__ void __launch_bounds__(kThreadsB, 1)
+ln_mlp_bf16_kernel(const __grid_constant__ CUtensorMap map_w1,
+                   const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ x,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   const float* __restrict__ b1, const float* __restrict__ b2,
+                   bf16* __restrict__ out, long long n_tok, int h, float eps, int act,
+                   int n1, int n2) {
+  constexpr int D = 128 * ND;
+  constexpr int F2N = 16 * ND;   // rows of w2 in an fc2 stage: one accumulator part's columns
+  constexpr int NQ = 2;          // parts: the block's D / 4 columns = NQ x F2N
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_a = smem_addr(smem_raw);
+  const uint32_t ring1 = (raw_a + 1023u) & ~1023u;
+  const uint32_t ring2 = ring1 + (uint32_t)n1 * kW1StageBytes;
+  const uint32_t ln_a = ring2 + (uint32_t)n2 * kW2StageBytes;
+  unsigned char* ln_p = smem_raw + (ln_a - raw_a);
+  const uint32_t act_a = ln_a + kTokB * D * 2;
+  const uint32_t bars = act_a + 2 * kActBytes;
+  const uint32_t full1 = bars, empty1 = bars + 64, full2 = bars + 128, empty2 = bars + 192;
+  const uint32_t act_full = bars + 256, act_empty = bars + 272, pre_full = bars + 288;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, role = warp / 4;
+  const uint32_t rank = cluster_rank();
+  const long long tok0 = (long long)(blockIdx.x / kCluster) * kTokB;
+  const int n_chunks = kLabHeadOnly ? 0 : h / kChunkB;
+
+  if (tid == 0) {
+    for (int i = 0; i < kMaxStages; ++i) {
+      mbar_init(full1 + 8 * i, 1);    // the producer's expect_tx
+      mbar_init(empty1 + 8 * i, 4);   // the warps of the fc1 warpgroup
+      mbar_init(full2 + 8 * i, 1);
+      mbar_init(empty2 + 8 * i, 4);   // the warps of the fc2 warpgroup
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(act_full + 8 * i, 1);               // the fc2 thread that tells it the tile's bytes
+      mbar_init(act_empty + 8 * i, 4 * kCluster);   // the fc2 warps of the cluster that read it
+      mbar_init(pre_full + 8 * i, 4);               // the fc1 warps that left their half in it
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();  // the peers' barriers exist before anything arrives on them
+
+  // One branch per role and no code after it: only then does the compiler
+  // honour `setmaxnreg`.  384 threads start with 168 registers each; the
+  // producers hand theirs to the fc2 warpgroup, which holds the accumulator.
+  if (role == 2) {
+    // ---- producers: one thread per ring keeps it full, in the order its
+    // consumers drain it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      // w1: this block's kF1N rows of the chunk, 128 of K a stage
+      int stage = 0;
+      uint32_t round = 0;   // times the ring has wrapped
+      for (int c = 0; c < n_chunks; ++c) {
+        const int row = c * kChunkB + (int)rank * kF1N;
+        for (int kb = 0; kb < ND; ++kb) {
+          mbar_wait(empty1 + 8 * stage, (round & 1) ^ 1);
+          if constexpr (kLabSkipLoads) {
+            mbar_arrive(full1 + 8 * stage);
+          } else {
+            mbar_expect_tx(full1 + 8 * stage, kW1StageBytes);
+            const uint32_t dst = ring1 + stage * kW1StageBytes;
+            tma_load_2d(dst, &map_w1, full1 + 8 * stage, kb * 128, row);
+            tma_load_2d(dst + kF1N * 128, &map_w1, full1 + 8 * stage, kb * 128 + 64, row);
+          }
+          if (++stage == n1) { stage = 0; ++round; }
         }
-        __syncwarp();
-        wmma::load_matrix_sync(acc[mt][nt], stage, kStageLd, wmma::mem_row_major);
-        __syncwarp();
       }
+    } else if (warp == 9 && lane == 0) {
+      // w2: F2N of this block's rows, 64 of K a stage
+      int stage = 0;
+      uint32_t round = 0;
+      for (int c = 0; c < n_chunks; ++c)
+        for (int kb = 0; kb < 2; ++kb)
+          for (int q = 0; q < NQ; ++q) {
+            mbar_wait(empty2 + 8 * stage, (round & 1) ^ 1);
+            if constexpr (kLabSkipLoads) {
+              mbar_arrive(full2 + 8 * stage);
+            } else {
+              mbar_expect_tx(full2 + 8 * stage, F2N * 128);
+              tma_load_2d(ring2 + stage * kW2StageBytes, &map_w2, full2 + 8 * stage,
+                          c * kChunkB + kb * 64, (int)rank * (D / kCluster) + q * F2N);
+            }
+            if (++stage == n2) { stage = 0; ++round; }
+          }
     }
-  }
-  __syncthreads();  // ln_s is complete
-
-  for (int h0 = 0; h0 < h; h0 += kChunk) {
-    // ---- fc1: this warp's 32 x 32 piece, hidden columns hc .. hc + 32
-    const int hc = h0 + warp * 32;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c1[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) wmma::fill_fragment(c1[mt][nt], 0.f);
-    const bf16* w1p = w1 + (long long)hc * d;
-#pragma unroll 4
-    for (int k = 0; k < d; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> f0, f1;
-      wmma::load_matrix_sync(f0, w1p + k, d);
-      wmma::load_matrix_sync(f1, w1p + (long long)16 * d + k, d);
-      wmma::load_matrix_sync(a0, ln_s + k, L.ld_ln);
-      wmma::load_matrix_sync(a1, ln_s + 16 * L.ld_ln + k, L.ld_ln);
-      wmma::mma_sync(c1[0][0], a0, f0, c1[0][0]);
-      wmma::mma_sync(c1[1][0], a1, f0, c1[1][0]);
-      wmma::mma_sync(c1[0][1], a0, f1, c1[0][1]);
-      wmma::mma_sync(c1[1][1], a1, f1, c1[1][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        wmma::store_matrix_sync(stage + mt * 16 * kStageLd + nt * 16, c1[mt][nt],
-                                kStageLd, wmma::mem_row_major);
     __syncwarp();
-    // + b1 in f32, round, activation in bf16: lane = column of the piece
-    {
-      const float bias = b1[hc + lane];
-      for (int r = 0; r < kTok; ++r) {
-        const float pre = round_bf16(stage[r * kStageLd + lane] + bias);
-        a_s[r * L.ld_a + warp * 32 + lane] = __float2bfloat16_rn(act_bf16(pre, act));
-      }
-    }
-    __syncthreads();  // the chunk's activation tile is complete
+    cluster_sync();  // as below
+  } else if (role == 1) {
+    // ---- fc1 warpgroup: the block's kF1N hidden columns of every chunk,
+    // through the activation, into every block's activation tile
+    const int g = lane / 4, tq = lane % 4;
+    const int r0 = (warp % 4) * 16 + g;  // this thread's accumulator rows: r0, r0 + 8
 
-    // ---- fc2: acc += a (32 x 256) . w2[cols, h0 : h0 + 256]^T
-    const bf16* w2p = w2 + (long long)col0 * h + h0;
-#pragma unroll 2
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, a_s + kk, L.ld_a);
-      wmma::load_matrix_sync(a1, a_s + 16 * L.ld_a + kk, L.ld_a);
+    layer_norm_tile<ND>(ln_p, x, gamma, beta, tok0, n_tok, eps, warp, lane);
+    fence_proxy_async();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // LN(x) is complete (both warpgroups' rows)
+
+    // where this thread's 16-byte group of row r0 goes in an activation tile
+    // (the block's group tq of the chunk's hidden columns), the address of this
+    // block's shared memory in every block's window,
+    // and where its own words of row r0 + 8 go in this block's tile
+    uint32_t cta_base[kCluster];
 #pragma unroll
-      for (int nt = 0; nt < kMaxNT; ++nt) {
-        if (nt < ntw) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> f;
-          wmma::load_matrix_sync(f, w2p + (long long)nt * 16 * h + kk, h);
-          wmma::mma_sync(acc[0][nt], a0, f, acc[0][nt]);
-          wmma::mma_sync(acc[1][nt], a1, f, acc[1][nt]);
+    for (uint32_t cta = 0; cta < kCluster; ++cta) cta_base[cta] = map_cluster(raw_a, cta);
+    const int hc = (int)rank * kF1N;
+    const uint32_t grp_off = (act_a - raw_a) + (hc / 64) * (kTokB * 128) +
+                             swizzled_offset(r0, hc % 64 + 8 * tq);
+    const uint32_t pre_addr0 = act_a + (hc / 64) * (kTokB * 128) +
+                               swizzled_offset(r0 + 8, hc % 64 + 2 * tq);
+
+    int stage = 0;      // ring position, in step with the producer
+    uint32_t round = 0;
+    LAB_TRACE_BEGIN(blockIdx.x == 8 && warp == 4);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c & 1;
+      LAB_STAMP(0);
+      // this thread's b1 values, fetched under the products
+      float2 bias[kF1N / 8];
+#pragma unroll
+      for (int j = 0; j < kF1N / 8; ++j) {
+        const int hc = c * kChunkB + (int)rank * kF1N + 8 * j + 2 * tq;
+        bias[j] = make_float2(b1[hc], b1[hc + 1]);
+      }
+
+      // ---- fc1: the block's kF1N hidden columns of chunk c, K = D
+      float c1[kF1N / 2];
+      int pending = -1;   // the stage whose products are still in flight
+      for (int kb = 0; kb < ND; ++kb) {
+        const int s = stage;
+        mbar_wait(full1 + 8 * s, round & 1);
+        if (++stage == n1) { stage = 0; ++round; }
+        const uint32_t w_tile = ring1 + s * kW1StageBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const uint64_t da = smem_desc(ln_a + (2 * kb + ks / 4) * (kTokB * 128) + (ks % 4) * 32);
+          const uint64_t db = smem_desc(w_tile + (ks / 4) * (kF1N * 128) + (ks % 4) * 32);
+          if (!kLabSkipProducts || n_tok < 0) Wgmma<kF1N>::run(c1, da, db, (kb | ks) != 0);
+        }
+        // the group just committed may run on; the one before it has
+        // completed, so the stage it read goes back to the producer
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (pending >= 0 && lane == 0) mbar_arrive(empty1 + 8 * pending);
+        pending = s;
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty1 + 8 * pending);
+      LAB_STAMP(0);
+#pragma unroll
+      for (int i = 0; i < kF1N / 2; ++i) acc_fence(c1[i]);
+
+      // the tile is free once every fc2 warp of the cluster has read chunk c - 2
+      if (c >= 2 && !kLabSkipExchange)
+        mbar_wait<kHandoverClusterScope>(act_empty + 8 * buf, (uint32_t)((c >> 1) - 1) & 1);
+      LAB_STAMP(0);
+
+      // ---- + b1 in f32, round, activation in bf16, into every block's tile
+      const uint32_t bar_off = (act_full - raw_a) + 8 * buf;
+      const uint32_t off = grp_off + buf * kActBytes, pre_addr = pre_addr0 + buf * kActBytes;
+      if (act == kQuickGelu) write_act<kQuickGelu>(c1, bias, cta_base, bar_off, off, pre_addr, tq);
+      else if (act == kGelu) write_act<kGelu>(c1, bias, cta_base, bar_off, off, pre_addr, tq);
+      else write_act<kGeluTanh>(c1, bias, cta_base, bar_off, off, pre_addr, tq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(pre_full + 8 * buf);   // the warp's rows r0 + 8 are in the tile
+      LAB_STAMP(0);
+    }
+    // no block leaves while a peer may still write into its shared memory
+    cluster_sync();
+  } else {
+    // ---- fc2 warpgroup: the block's D / 4 output columns of the 64 tokens
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int g = lane / 4, tq = lane % 4;
+    const int r0 = warp * 16 + g;  // this thread's accumulator rows: r0, r0 + 8
+
+    layer_norm_tile<ND>(ln_p, x, gamma, beta, tok0, n_tok, eps, warp, lane);
+    fence_proxy_async();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // with the fc1 warpgroup
+
+    // accumulators start at x_f32 + b2 (residual and fc2 bias); part q holds
+    // columns q F2N .. (q + 1) F2N of the block's
+    float acc[NQ][8 * ND];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int col0 = (int)rank * (D / kCluster) + q * F2N + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 2 * ND; ++j) {
+        const int col = col0 + 8 * j;
+        const float2 bias = make_float2(b2[col], b2[col + 1]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long tok = tok0 + r0 + 8 * half;
+          float lo = 0.f, hi = 0.f;
+          if (tok < n_tok) {
+            const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + tok * D + col);
+            lo = __bfloat162float(xv.x) + bias.x;
+            hi = __bfloat162float(xv.y) + bias.y;
+          }
+          acc[q][4 * j + 2 * half] = lo;
+          acc[q][4 * j + 2 * half + 1] = hi;
         }
       }
     }
-    __syncthreads();  // a_s is rewritten by the next chunk
-  }
 
-  // ---- store: one rounding
+    // this thread's 16-byte group of row r0 + 8 in an activation tile
+    uint32_t cta_base[kCluster];
 #pragma unroll
-  for (int nt = 0; nt < kMaxNT; ++nt) {
-    if (nt < ntw) {
+    for (uint32_t cta = 0; cta < kCluster; ++cta) cta_base[cta] = map_cluster(raw_a, cta);
+    const int hc = (int)rank * kF1N;
+    const uint32_t grp_off = (act_a - raw_a) + (hc / 64) * (kTokB * 128) +
+                             swizzled_offset(r0 + 8, hc % 64 + 8 * tq);
+
+    int stage = 0;         // ring position, in step with the producer
+    uint32_t round = 0;
+    int pending = -1;      // the stage whose products are still in flight
+    int tile_pending = -1; // the activation tile whose last products are
+
+    LAB_TRACE_BEGIN(blockIdx.x == 8 && warp == 0);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c & 1;
+      const uint32_t act_tile = act_a + buf * kActBytes;
+      LAB_STAMP(1);
+      // this warpgroup's half of the epilogue, under the products of the chunk
+      // before
+      mbar_wait(pre_full + 8 * buf, (uint32_t)(c >> 1) & 1);
+      LAB_STAMP(1);
+      {
+        const uint32_t bar_off = (act_full - raw_a) + 8 * buf, off = grp_off + buf * kActBytes;
+        if (act == kQuickGelu) finish_act<kQuickGelu>(cta_base, bar_off, off, raw_a + off);
+        else if (act == kGelu) finish_act<kGelu>(cta_base, bar_off, off, raw_a + off);
+        else finish_act<kGeluTanh>(cta_base, bar_off, off, raw_a + off);
+      }
+      LAB_STAMP(1);
+      // the chunk's tile is complete when the 16 KB the cluster's warpgroups
+      // store into it have landed
+      if (tid == 0) {
+        if constexpr (kLabSkipExchange) mbar_arrive(act_full + 8 * buf);
+        else mbar_expect_tx(act_full + 8 * buf, kActBytes);
+      }
+      mbar_wait<kHandoverClusterScope>(act_full + 8 * buf, (uint32_t)(c >> 1) & 1);
+      fence_proxy_async();  // the peers' writes, seen through the barrier, before the products
+      LAB_STAMP(1);
+
+      // ---- fc2: acc += a (64 x 128) . w2[cols, chunk c]^T
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        wmma::store_matrix_sync(stage, acc[mt][nt], kStageLd, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = e / 16, c = e % 16;
-          const long long tok = tok0 + mt * 16 + r;
+      for (int kb = 0; kb < 2; ++kb) {
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int s = stage;
+          mbar_wait(full2 + 8 * s, round & 1);
+          if (++stage == n2) { stage = 0; ++round; }
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            if (!kLabSkipProducts || n_tok < 0) fc2_step<ND>(acc[q], smem_desc(act_tile + kb * (kTokB * 128) + ks * 32),
+                         smem_desc(ring2 + s * kW2StageBytes + ks * 32));
+          // the group just committed may run on; those before it have
+          // completed: their stage goes back to the producer and, at a chunk's
+          // first stage, the tile of the chunk before to the fc1 warpgroups
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (lane == 0) {
+            if (pending >= 0) mbar_arrive(empty2 + 8 * pending);
+            if (tile_pending >= 0) {
+#pragma unroll
+              for (uint32_t cta = 0; cta < kCluster; ++cta)
+                mbar_arrive_cluster<kHandoverClusterScope>(act_empty + 8 * tile_pending, cta);
+            }
+          }
+          pending = s;
+          tile_pending = -1;
+        }
+      }
+      tile_pending = buf;
+      LAB_STAMP(1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int i = 0; i < 8 * ND; ++i) acc_fence(acc[q][i]);
+
+    // ---- store: one rounding
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int col0 = (int)rank * (D / kCluster) + q * F2N + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 2 * ND; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long tok = tok0 + r0 + 8 * half;
           if (tok < n_tok)
-            out[tok * d + col0 + nt * 16 + c] = __float2bfloat16_rn(stage[r * kStageLd + c]);
+            *reinterpret_cast<__nv_bfloat162*>(out + tok * D + col0 + 8 * j) =
+                __floats2bfloat162_rn(acc[q][4 * j + 2 * half], acc[q][4 * j + 2 * half + 1]);
         }
-        __syncwarp();
       }
     }
+    cluster_sync();  // as above
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's `cuTensorMapEncodeTiled`, looked up once through the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a row-major (rows, cols) bf16 matrix read in boxes of (box_rows x 64 of
+// cols), 128-byte swizzle
+bool weight_map(CUtensorMap* map, const void* w, int rows, int cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int ND>
+cudaError_t launch_bf16(const bf16* x, const float* gamma, const float* beta, const bf16* w1,
+                        const float* b1, const bf16* w2, const float* b2, bf16* out,
+                        long long n_tok, int h, float eps, int act, cudaStream_t s) {
+  constexpr int D = 128 * ND;
+  const PlanBf16 plan = plan_bf16(D);
+  CUtensorMap map_w1, map_w2;
+  if (!weight_map(&map_w1, w1, h, D, kF1N) || !weight_map(&map_w2, w2, D, h, 16 * ND))
+    return cudaErrorInvalidValue;
+  auto kernel = ln_mlp_bf16_kernel<ND>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (n_tok + kTokB - 1) / kTokB;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * kCluster));
+  cfg.blockDim = dim3(kThreadsB);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, map_w1, map_w2, x, gamma, beta, b1, b2, out, n_tok, h,
+                            eps, act, plan.w1_stages, plan.w2_stages);
 }
 
 // ---------------------------------------------------------------------------
@@ -400,6 +876,21 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 
 }  // namespace
 
+LAB_EXPORT_STAMPS(ivars_ln_mlp_set_stamps)
+
+// The bf16 launch plan for `n_tok` tokens of width `d`: blocks per cluster,
+// blocks in all, stages of each w1 ring and of the w2 ring, bytes of dynamic
+// shared memory per block.
+extern "C" void ivars_ln_mlp_plan(long long n_tok, int d, int* cluster, long long* blocks,
+                                  int* w1_stages, int* w2_stages, long long* smem_bytes) {
+  const PlanBf16 p = plan_bf16(d);
+  *cluster = kCluster;
+  *blocks = (n_tok + kTokB - 1) / kTokB * kCluster;
+  *w1_stages = p.w1_stages;
+  *w2_stages = p.w2_stages;
+  *smem_bytes = (long long)p.smem;
+}
+
 // x, out: contiguous (n_tok, d); gamma, beta, b2: f32 (d); w1: (h, d) and
 // w2: (d, h) in x's dtype, row-major (nn.Linear's weights); b1: f32 (h).
 // d % 128 == 0, d <= 1024, h % 256 == 0.  dtype: 0 = bfloat16, 1 = float32.
@@ -417,28 +908,39 @@ extern "C" int ivars_ln_mlp(const void* x, const void* gamma, const void* beta,
   const float* bt = static_cast<const float*>(beta);
   const float* fb1 = static_cast<const float*>(b1);
   const float* fb2 = static_cast<const float*>(b2);
-  cudaError_t err;
   if (dtype == 0) {
-    if (!aligned(x, 32) || !aligned(w1, 32) || !aligned(w2, 32) || !aligned(out, 32))
-      return (int)cudaErrorMisalignedAddress;  // WMMA loads from device memory
-    const size_t smem = layout_bf16(d).total;
-    err = cudaFuncSetAttribute(ln_mlp_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((n_tok + kTok - 1) / kTok);
-    ln_mlp_bf16_kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const bf16*>(x), g, bt, static_cast<const bf16*>(w1), fb1,
-        static_cast<const bf16*>(w2), fb2, static_cast<bf16*>(out), n_tok, d, h, eps, act);
-  } else {
-    if (!aligned(w1, 16) || !aligned(w2, 16)) return (int)cudaErrorMisalignedAddress;
-    const size_t smem = smem_bytes_f32(d);
-    err = cudaFuncSetAttribute(ln_mlp_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((n_tok + kTokF - 1) / kTokF);
-    ln_mlp_f32_kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(x), g, bt, static_cast<const float*>(w1), fb1,
-        static_cast<const float*>(w2), fb2, static_cast<float*>(out), n_tok, d, h, eps, act);
+    // TMA reads the weights from 16-byte-aligned rows; x is read in fours, out
+    // is written in pairs
+    if (!aligned(w1, 16) || !aligned(w2, 16) || !aligned(x, 8) || !aligned(out, 4))
+      return (int)cudaErrorMisalignedAddress;
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* w1b = static_cast<const bf16*>(w1);
+    const bf16* w2b = static_cast<const bf16*>(w2);
+    bf16* ob = static_cast<bf16*>(out);
+#define IVARS_LN_MLP_CASE(ND) \
+  case ND:                    \
+    return (int)launch_bf16<ND>(xb, g, bt, w1b, fb1, w2b, fb2, ob, n_tok, h, eps, act, s);
+    switch (d / 128) {
+      IVARS_LN_MLP_CASE(1)
+      IVARS_LN_MLP_CASE(2)
+      IVARS_LN_MLP_CASE(3)
+      IVARS_LN_MLP_CASE(4)
+      IVARS_LN_MLP_CASE(5)
+      IVARS_LN_MLP_CASE(6)
+      IVARS_LN_MLP_CASE(7)
+      IVARS_LN_MLP_CASE(8)
+    }
+#undef IVARS_LN_MLP_CASE
+    return (int)cudaErrorInvalidValue;
   }
+  if (!aligned(w1, 16) || !aligned(w2, 16)) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = smem_bytes_f32(d);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((n_tok + kTokF - 1) / kTokF);
+  ln_mlp_f32_kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x), g, bt, static_cast<const float*>(w1), fb1,
+      static_cast<const float*>(w2), fb2, static_cast<float*>(out), n_tok, d, h, eps, act);
   return (int)cudaGetLastError();
 }

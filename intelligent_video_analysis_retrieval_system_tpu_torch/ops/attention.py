@@ -5,8 +5,9 @@ PyTorch port of ``intelligent_video_analysis_retrieval_system_tpu/ops/attention.
 returns ``(B, T, D)``, with no mask. Per head: ``softmax(q.k^T * dh^-1/2)``
 in f32, the weights rounded to the input dtype, ``. v`` accumulated in f32.
 Heads are sliced by column offset inside the kernel (``csrc/mha.cu``: bf16
-on the tensor cores, f32 on the CUDA cores), so no head transpose reaches
-device memory.
+on the tensor cores with K/V of a head staged once per image and the scores
+kept in registers, f32 on the CUDA cores), so no head transpose reaches
+device memory. :func:`mha_plan` says which bf16 variant a shape takes.
 
 Dispatch depends only on where the tensors live: CPU tensors take the plain
 :func:`_einsum_attention`; CUDA tensors launch the kernel or raise. The
@@ -22,10 +23,41 @@ import torch
 
 from . import kernels
 
-__all__ = ["fused_mha", "fused_mha_qkv"]
+__all__ = ["fused_mha", "fused_mha_qkv", "mha_plan"]
 
 # per-block shared memory an H100 grants (227 KB)
 _MAX_SMEM = 232_448
+
+# keys the bf16 kernel's register-resident score tile takes (136 registers
+# a thread); longer sequences take the two-pass variant
+_MAX_REG_KEYS = 272
+_STREAM_KEYS = 128
+
+
+def mha_plan(t: int, head_dim: int, blocks: int = 1, sm_count: int = 132) -> dict:
+    """Which bf16 variant of ``csrc/mha.cu`` runs a sequence of ``t`` tokens
+    (chosen by ``t`` alone, as the C entry point does) and what it needs:
+    ``registers`` (one block per head and image, scores in ``frags``
+    accumulator fragments of 8 keys) up to 272 padded keys, ``stream`` (two
+    passes over key chunks of 128) beyond; ``smem_bytes`` of dynamic shared
+    memory per block (K and V rows of ``head_dim`` padded to a multiple of
+    32, plus 8); ``warps`` per block for a launch of ``blocks`` = heads x
+    images on a card of ``sm_count`` multiprocessors (the C entry point asks
+    the device for its count; 132 is an H100's): one per 16-row query tile up
+    to eight, four where the long register tile meets a grid more than two
+    blocks a multiprocessor deep."""
+    if t <= 0 or not 0 < head_dim <= 128 or blocks <= 0 or sm_count <= 0:
+        raise ValueError(f"mha_plan: t={t}, head_dim={head_dim}, blocks={blocks}, "
+                         f"sm_count={sm_count}")
+    t_pad = -(-t // 16) * 16
+    ld = -(-head_dim // 32) * 32 + 8
+    if t_pad > _MAX_REG_KEYS:
+        return {"variant": "stream", "frags": _STREAM_KEYS // 8, "blocks_per_head": -(-t // 128),
+                "warps": 8, "smem_bytes": 2 * _STREAM_KEYS * ld * 2}
+    frags = 8 if t_pad <= 64 else 16 if t_pad <= 128 else _MAX_REG_KEYS // 8
+    warps = 4 if t_pad > 128 and blocks > 2 * sm_count else min(t_pad // 16, 8)
+    return {"variant": "registers", "frags": frags, "blocks_per_head": 1, "warps": warps,
+            "smem_bytes": 2 * t_pad * ld * 2}
 
 
 def _einsum_attention(

@@ -9,8 +9,11 @@ which eager PyTorch runs as a chain of launches (LN, GEMM, activation,
 GEMM, add) with the ``(B, T, 4D)`` hidden activation written to and read
 back from device memory between the two products. :func:`fused_ln_mlp`
 runs the whole half-block in one kernel (``csrc/ln_mlp.cu``: bf16 on the
-tensor cores, f32 on the CUDA cores); the hidden activation never reaches
-device memory.
+tensor cores through ``wgmma``, tiles of 64 tokens with the accumulator split
+along D over a thread-block cluster of 4, one warpgroup for each product, and
+the weights streamed through shared memory by TMA; f32 on the CUDA cores); the
+hidden activation never reaches
+device memory. :func:`ln_mlp_plan` is the bf16 kernel's launch plan.
 
 Rounding points, shared by the kernel and its plain version
 :func:`fused_ln_mlp_reference`: LN statistics (two passes, biased variance),
@@ -43,13 +46,23 @@ __all__ = [
     "activation",
     "fused_ln_mlp",
     "fused_ln_mlp_reference",
+    "ln_mlp_plan",
     "supports_fused_ln_mlp",
 ]
 
 ACTIVATIONS = ("quick_gelu", "gelu", "gelu_tanh")
 
-# the kernel keeps the (tokens, D) f32 accumulator in registers
+# LN(x) of a 64-token tile (64 x D bf16) stays in one block's shared memory
+# beside two activation tiles and the weight rings: 128 KB of 227 at D = 1024
 _MAX_D = 1024
+
+# per-block shared memory an H100 grants (227 KB)
+MAX_SMEM = 232_448
+_TILE_TOKENS = 64
+_CLUSTER = 4
+_W1_STAGE_BYTES = 8_192    # 32 rows of w1 x 128 of K
+_W2_STAGE_BYTES = 16_384   # up to 128 rows of w2 x 64 of K
+_MAX_STAGES = 8
 
 
 def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -74,9 +87,32 @@ def activation(name: str):
 
 def supports_fused_ln_mlp(d: int, hidden: int, act: str) -> bool:
     """Shape/act gate of the JAX package (``d % 128 == 0``,
-    ``hidden % 256 == 0``, a known activation), and ``d <= 1024``: this
-    kernel's accumulator tile lives in registers."""
+    ``hidden % 256 == 0``, a known activation), and ``d <= 1024``: the
+    kernel keeps LN(x) of a 64-token tile in one block's shared memory (128
+    KB at D = 1024) beside the activation tiles and the weight ring; a wider
+    D leaves no room for the ring."""
     return act in ACTIVATIONS and d % 128 == 0 and hidden % 256 == 0 and d <= _MAX_D
+
+
+def ln_mlp_plan(n_tok: int, d: int) -> dict:
+    """The bf16 kernel's launch plan, as ``csrc/ln_mlp.cu`` computes it
+    (``plan_bf16`` there): ``tiles`` of 64 tokens, each run by a cluster of 4
+    ``blocks`` that split D four ways, whatever the token count (8 images of
+    ViT-L/14 are 33 tiles: 132 blocks). What LN(x) of the tile and two
+    activation tiles leave of a block's shared memory is halved between a ring
+    of ``w1_stages`` stages of 8 KB and one of ``w2_stages`` of 16 KB, at most
+    8 each; ``smem_bytes`` is the dynamic shared memory per block."""
+    if n_tok <= 0 or d <= 0 or d % 128 or d > _MAX_D:
+        raise ValueError(f"ln_mlp_plan: n_tok={n_tok}, d={d}")
+    tiles = -(-n_tok // _TILE_TOKENS)
+    # alignment slack, LN(x), two activation tiles of 64 x 128, barriers
+    fixed = 1024 + _TILE_TOKENS * d * 2 + 2 * _TILE_TOKENS * 128 * 2 + 512
+    half = (MAX_SMEM - fixed) // 2
+    w1_stages = min(_MAX_STAGES, half // _W1_STAGE_BYTES)
+    w2_stages = min(_MAX_STAGES, half // _W2_STAGE_BYTES)
+    return {"tile_tokens": _TILE_TOKENS, "tiles": tiles, "cluster": _CLUSTER,
+            "blocks": tiles * _CLUSTER, "w1_stages": w1_stages, "w2_stages": w2_stages,
+            "smem_bytes": fixed + w1_stages * _W1_STAGE_BYTES + w2_stages * _W2_STAGE_BYTES}
 
 
 def fused_ln_mlp_reference(

@@ -75,3 +75,75 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     q = torch.zeros((1, 4, 8), device="meta")
     with pytest.raises(ValueError):
         tatt.fused_mha(q, q, q, 2)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's host-side choice (which variant for which T) and the
+# ragged shapes it special-cases
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [17, 33])
+def test_plain_matches_jax_interpret_at_ragged_tiles(dtype, t):
+    # T % 16 == 1: the kernel's last query tile holds one real row; dh = 64
+    jd, td = _DT[dtype]
+    q, k, v = _qkv(10 + t, b=2, t=t, d=128)
+    want = jatt.fused_mha(*(jnp.asarray(a, jd) for a in (q, k, v)), 2, True)
+    got = tatt.fused_mha(*(torch.from_numpy(a).to(td) for a in (q, k, v)), 2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("head_dim", [1, 16, 32, 64, 80, 128])
+def test_mha_plan_is_total_and_fits_the_card(head_dim):
+    for t in list(range(1, 400)) + [577, 1024, 4097, 100_000]:
+        plan = tatt.mha_plan(t, head_dim)
+        t_pad = -(-t // 16) * 16
+        assert plan["smem_bytes"] <= 232_448, (t, plan)
+        if t_pad <= 272:
+            # the whole row's scores fit the register tile, K/V staged once
+            assert plan["variant"] == "registers" and plan["blocks_per_head"] == 1
+            assert plan["frags"] * 8 >= t_pad and plan["frags"] in (8, 16, 34)
+            assert plan["smem_bytes"] >= 2 * t_pad * head_dim * 2
+        else:
+            assert plan["variant"] == "stream" and plan["frags"] == 16
+            assert plan["blocks_per_head"] * 128 >= t
+
+
+@pytest.mark.parametrize("case", [(1, "registers", 8), (50, "registers", 8), (64, "registers", 8),
+                                  (65, "registers", 16), (128, "registers", 16),
+                                  (129, "registers", 34), (197, "registers", 34),
+                                  (257, "registers", 34), (272, "registers", 34),
+                                  (273, "stream", 16), (320, "stream", 16), (577, "stream", 16)])
+def test_mha_plan_variant_by_t_alone(case):
+    t, variant, frags = case
+    for head_dim in (32, 64, 128):
+        plan = tatt.mha_plan(t, head_dim)
+        assert (plan["variant"], plan["frags"]) == (variant, frags)
+    # ViT-L/14: 78,336 bytes for K and V of one head
+    assert tatt.mha_plan(257, 64)["smem_bytes"] == 2 * 272 * 72 * 2
+
+
+@pytest.mark.parametrize("case", [
+    # (t, blocks = heads x images, multiprocessors) -> warps per block
+    ((1, 16, 132), 1), ((50, 3072, 132), 4), ((64, 3072, 132), 4), ((128, 3072, 132), 8),
+    ((129, 128, 132), 8), ((257, 128, 132), 8), ((257, 264, 132), 8), ((257, 265, 132), 4),
+    ((257, 4096, 132), 4), ((257, 4096, 4096), 8), ((272, 4096, 132), 4), ((273, 4096, 132), 8),
+    ((577, 16, 132), 8)])
+def test_mha_plan_warps_by_tiles_and_grid_depth(case):
+    (t, blocks, sms), warps = case
+    plan = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms)
+    assert plan["warps"] == warps
+    if plan["variant"] == "registers":
+        # one warp per 16-row query tile at most
+        assert 1 <= plan["warps"] <= min(8, -(-t // 16))
+    # the defaults are one block on an H100
+    assert tatt.mha_plan(t, 64)["warps"] == tatt.mha_plan(t, 64, blocks=1, sm_count=132)["warps"]
+
+
+@pytest.mark.parametrize("args", [(0, 64), (-3, 64), (17, 0), (17, 129), (17, 64, 0),
+                                  (17, 64, 1, 0)])
+def test_mha_plan_refuses_what_the_kernel_refuses(args):
+    with pytest.raises(ValueError):
+        tatt.mha_plan(*args)

@@ -115,3 +115,55 @@ def test_gate_and_shape_errors():
         _port(x, p, "quick_gelu")
     with pytest.raises(ValueError):
         tblock.activation("relu")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's launch plan and the ragged token counts around its tile
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens", [63, 65])
+def test_token_counts_around_the_tile_match_jax(tokens, dtype):
+    # the kernel's tile is 64 tokens: one short of it and one past it
+    d, h = 128, 256
+    x = np.random.default_rng(tokens).standard_normal((1, tokens, d)).astype(np.float32)
+    p = _params(seed=tokens, d=d, h=h)
+    if dtype == "float32":
+        np.testing.assert_allclose(_port(x, p, "quick_gelu"), _jax(x, p, "quick_gelu"),
+                                   atol=2e-5, rtol=0)
+    else:
+        want = _jax(x, p, "quick_gelu", jnp.bfloat16)
+        got = _port(x, p, "quick_gelu", torch.bfloat16)
+        assert np.abs(got - want).max() <= 0.01 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 640, 768, 896, 1024])
+def test_ln_mlp_plan_is_total_over_the_gate(d):
+    assert tblock.supports_fused_ln_mlp(d, 4 * d if d > 128 else 256, "quick_gelu")
+    for n_tok in (1, 63, 64, 65, 129, 2056, 4223, 4224, 4225, 65_792, 10_000_000):
+        plan = tblock.ln_mlp_plan(n_tok, d)
+        assert plan["tile_tokens"] == 64 and plan["tiles"] == -(-n_tok // 64)
+        # D is split four ways whatever the token count
+        assert plan["cluster"] == 4 and plan["blocks"] == 4 * plan["tiles"]
+        assert 2 <= plan["w2_stages"] <= 8 and 4 <= plan["w1_stages"] <= 8
+        assert plan["smem_bytes"] <= tblock.MAX_SMEM == 232_448
+        # LN(x) of the tile, two activation tiles and both rings all fit
+        assert plan["smem_bytes"] >= (64 * d * 2 + 2 * 16_384 + plan["w1_stages"] * 8_192
+                                      + plan["w2_stages"] * 16_384)
+
+
+@pytest.mark.parametrize("case", [(2056, 1024, 132, 4, 2, 230_912), (65_792, 1024, 4112, 4, 2, 230_912),
+                                  (3850, 768, 244, 6, 3, 230_912), (19_712, 768, 1232, 6, 3, 230_912),
+                                  (1, 128, 4, 8, 5, 198_144)])
+def test_ln_mlp_plan_at_the_towers_shapes(case):
+    n_tok, d, blocks, w1_stages, w2_stages, smem = case
+    plan = tblock.ln_mlp_plan(n_tok, d)
+    assert (plan["blocks"], plan["w1_stages"], plan["w2_stages"], plan["smem_bytes"]) == (
+        blocks, w1_stages, w2_stages, smem)
+
+
+@pytest.mark.parametrize("args", [(0, 1024), (64, 1280), (64, 100), (64, 0)])
+def test_ln_mlp_plan_refuses_what_the_gate_refuses(args):
+    with pytest.raises(ValueError):
+        tblock.ln_mlp_plan(*args)

@@ -11,7 +11,10 @@ Tolerances: B1 chunk maxima 1e-3 (the kernel sums in another order than
 the f32 matmul of the plain version); top-k tie-aware (5e-4); B3 f32 1e-5,
 bf16 2e-2. B2 (int8) is exact: chunk maxima ``torch.equal`` to the plain
 version, top-k tie-aware with atol 0 against the full-matrix reference.
-B5 (normalize) has no sum and is ``torch.equal`` to its plain version. B4
+B5 (normalize) has no sum and is ``torch.equal`` to its plain version. B3 in
+bf16 is swept over sequence lengths on both sides of its two variants'
+boundary and head dims on and off its padding; B4 in bf16 over every width
+class and the token counts around its 64-token tile. B4
 (LN+MLP): f32 5e-5 (sums in another order, ``rsqrtf``), bf16 max abs
 difference at most 0.01 of the output's max abs (the same rounding points;
 a sum or an ``exp`` that lands on the other side of a bf16 boundary moves
@@ -101,6 +104,88 @@ def test_mha_kernel_matches_plain(cuda_device, dtype, shape):
     want = tatt._einsum_attention(q, k, v, h)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 50, 64, 65, 197, 257, 272, 273, 320])
+def test_mha_bf16_kernel_over_sequence_lengths_and_head_dims(cuda_device, t, dh, b):
+    # both variants and their boundary (272 | 273 padded keys), every register
+    # tile (T_pad <= 64, 128, 272), the one-row last tile (T % 16 == 1), head
+    # dims on and off the 32-column padding
+    heads = 3
+    gen = torch.Generator(device=cuda_device).manual_seed(1000 * t + dh + b)
+    q, k, v = (torch.randn(b, t, heads * dh, generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    before = tatt.fused_mha.launches
+    got = tatt.fused_mha(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert tatt.fused_mha.launches == before + 1
+    want = tatt._einsum_attention(q, k, v, heads)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert tatt.mha_plan(t, dh)["variant"] == ("registers" if t <= 272 else "stream")
+
+
+@pytest.mark.parametrize("t", [17, 257, 300])
+def test_mha_bf16_kernel_on_an_unaligned_view(cuda_device, t):
+    # data pointers 2 bytes past an allocation: the element-wise path
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    raw = torch.randn(3, 2 * t * 128 + 1, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (raw[i, 1:].view(2, t, 128) for i in range(3))
+    assert q.data_ptr() % 4 == 2
+    got = tatt.fused_mha(q, k, v, 2)
+    want = tatt._einsum_attention(q, k, v, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_mha_plan_matches_the_library(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    for t in (1, 50, 64, 65, 197, 257, 272, 273, 320, 577, 4097):
+        for dh in (16, 32, 64, 80, 128):
+            assert lib.ivars_mha_smem_bytes(t, dh, 0) == tatt.mha_plan(t, dh)["smem_bytes"]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for t in (1, 50, 64, 65, 128, 129, 257, 272, 273, 577):
+        for blocks in (1, 16, 2 * sms, 2 * sms + 1, 4096):
+            for count in (0, 64, sms):   # 0: the library asks the device
+                want = tatt.mha_plan(t, 64, blocks=blocks, sm_count=count or sms)["warps"]
+                assert lib.ivars_mha_warps(t, blocks, count) == want, (t, blocks, count)
+
+
+def _at_the_end_of_a_segment(values):
+    """``values`` copied to the last bytes of a device allocation of its own:
+    a buffer of a whole number of the allocator's 2 MiB pages, large enough
+    that the allocator asks the driver for exactly that many, with the
+    tensor as its tail. A read past the tensor's last element then leaves
+    the allocation."""
+    page = 2 << 20
+    n_bytes = values.numel() * values.element_size()
+    total = max(20 << 20, -(-n_bytes // page) * page)
+    raw = torch.empty(total, dtype=torch.uint8, device=values.device)
+    tail = raw[total - n_bytes:].view(values.dtype).view(values.shape)
+    tail.copy_(values)
+    assert tail.data_ptr() + n_bytes == raw.data_ptr() + total and tail.data_ptr() % 16 == 0
+    return tail
+
+
+@pytest.mark.parametrize("shape", [(1, 273, 64, 1), (2, 300, 128, 2), (1, 577, 1024, 16),
+                                   (1, 257, 1024, 16), (3, 17, 192, 3)])
+def test_mha_bf16_kernel_reads_nothing_past_its_inputs(cuda_device, shape):
+    # q, k and v each end where their allocation ends.  In the two-pass
+    # variant (T > 272) the last 128-row group has warps whose whole query
+    # tile lies past T, in both variants the last tile has rows past T: none
+    # of them may form an address beyond row T - 1.
+    b, t, d, h = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(t + d)
+    q, k, v = (_at_the_end_of_a_segment(
+        torch.randn(b, t, d, generator=gen, device=cuda_device).to(torch.bfloat16))
+        for _ in range(3))
+    for _ in range(3):
+        got = tatt.fused_mha(q, k, v, h)
+    torch.cuda.synchronize()   # an illegal address surfaces here
+    want = tatt._einsum_attention(q, k, v, h)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_mha_gradient_on_card(cuda_device):
@@ -256,6 +341,51 @@ def test_ln_mlp_kernel_matches_plain(cuda_device, shape, dtype, act):
         assert diff <= 0.01 * want.float().abs().max().item(), diff
 
 
+@pytest.mark.parametrize("tokens", [1, 63, 64, 65, 129, 2056])
+@pytest.mark.parametrize("d", [128, 256, 512, 768, 1024])
+def test_ln_mlp_bf16_kernel_over_widths_and_token_counts(cuda_device, d, tokens):
+    # every width class of the kernel's template, token counts around the
+    # 64-token tile
+    h = 4 * d if d > 128 else 256
+    args = _ln_mlp_args(cuda_device, (tokens,), d, h, torch.bfloat16, seed=d + tokens)
+    for act in (tblock.ACTIVATIONS if tokens == 65 else ("quick_gelu",)):
+        got = tblock.fused_ln_mlp(*args, act=act)
+        torch.cuda.synchronize()
+        want = tblock.fused_ln_mlp_reference(*args, act=act)
+        assert torch.isfinite(got).all()
+        diff = (got.float() - want.float()).abs().max().item()
+        assert diff <= 0.01 * want.float().abs().max().item(), (act, diff)
+
+
+def test_ln_mlp_bf16_kernel_on_a_non_contiguous_input(cuda_device):
+    args = _ln_mlp_args(cuda_device, (3, 70), 512, 2048, torch.bfloat16, seed=7)
+    wide = torch.cat([args[0], args[0]], dim=-1)
+    x = wide[..., :512]                       # rows 1,024 apart
+    assert not x.is_contiguous()
+    got = tblock.fused_ln_mlp(x, *args[1:])
+    want = tblock.fused_ln_mlp_reference(args[0], *args[1:])
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= 0.01 * want.float().abs().max().item(), diff
+
+
+def test_ln_mlp_plan_matches_the_library(cuda_device):
+    import ctypes
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    cluster, w1, w2 = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks, smem = ctypes.c_longlong(), ctypes.c_longlong()
+    for d in range(128, 1025, 128):
+        for n_tok in (1, 64, 65, 2056, 4223, 4224, 65_792):
+            lib.ivars_ln_mlp_plan(n_tok, d, ctypes.byref(cluster), ctypes.byref(blocks),
+                                  ctypes.byref(w1), ctypes.byref(w2), ctypes.byref(smem))
+            plan = tblock.ln_mlp_plan(n_tok, d)
+            assert (cluster.value, blocks.value, w1.value, w2.value, smem.value) == (
+                plan["cluster"], plan["blocks"], plan["w1_stages"], plan["w2_stages"],
+                plan["smem_bytes"])
+
+
 def test_ln_mlp_kernel_full_batch_shape(cuda_device):
     # the build path's shape: 256 images x 257 tokens of ViT-L/14
     args = _ln_mlp_args(cuda_device, (256, 257), 1024, 4096, torch.bfloat16, seed=1)
@@ -265,13 +395,42 @@ def test_ln_mlp_kernel_full_batch_shape(cuda_device):
     assert diff <= 0.01 * want.float().abs().max().item(), diff
 
 
+@pytest.mark.parametrize("case", [((256, 257), 1024, 4096, 20), ((8, 257), 1024, 4096, 100),
+                                  ((130,), 768, 3072, 100), ((4097,), 128, 256, 100)])
+def test_ln_mlp_bf16_kernel_gives_the_same_bits_every_launch(cuda_device, case):
+    # The blocks of a cluster hand activation tiles to one another through
+    # barriers in shared memory.  Every sum has a fixed order, so the output
+    # is a function of the inputs to the bit: one 16-byte group read before it
+    # had landed, or overwritten before it was read, in any of the thousands
+    # of hand-overs of a launch, shows as a difference between launches (the
+    # comparison with the plain version, at 1e-2 of the output's range, would
+    # let a single stale group pass).
+    tokens_shape, d, h, repeats = case
+    args = _ln_mlp_args(cuda_device, tokens_shape, d, h, torch.bfloat16, seed=d)
+    first = tblock.fused_ln_mlp(*args)
+    want = tblock.fused_ln_mlp_reference(*args)
+    diff = (first.float() - want.float()).abs().max().item()
+    assert diff <= 0.01 * want.float().abs().max().item(), diff
+    # other work on the card at the same time: B3 on a second stream
+    side = torch.cuda.Stream(device=cuda_device)
+    qkv = torch.randn(64, 50, 768, device=cuda_device).to(torch.bfloat16)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    for i in range(repeats):
+        if i % 2:
+            with torch.cuda.stream(side):
+                tatt.fused_mha(qkv, qkv, qkv, 12)
+        again = tblock.fused_ln_mlp(*args)
+        assert torch.equal(again, first), f"launch {i + 1} differs from the first"
+    torch.cuda.synchronize()
+
+
 def test_ln_mlp_kernel_refuses_bad_input(cuda_device):
     args = _ln_mlp_args(cuda_device, (2, 3), 256, 512, torch.float32, seed=2)
     with pytest.raises(ValueError):
         tblock.fused_ln_mlp(*args, act="relu")
     with pytest.raises(TypeError):
         tblock.fused_ln_mlp(args[0].to(torch.float16), *args[1:])
-    with pytest.raises(ValueError):      # d past the kernel's register tile
+    with pytest.raises(ValueError):      # d past what one block's shared memory holds
         tblock.fused_ln_mlp(*_ln_mlp_args(cuda_device, (2,), 1280, 5120,
                                           torch.bfloat16, seed=3))
     with pytest.raises(ValueError):      # weights on another device
