@@ -11,9 +11,10 @@ non-zero):
 1. device   the card's name and power limit (nvidia-smi); TF32 off.
 2. build    nvcc builds the kernels of ``csrc/`` for sm_90a.
 3. kernels  B1 (chunk-max sweep) over 1,000,000 x 768 bf16 rows, B in
-            {1, 8, 32}, n_valid = N - 1000, 0.1% tombstones, against its
+            {1, 8, 32, 64}, n_valid = N - 1000, 0.1% tombstones, against its
             plain torch version (atol 1e-3) and the full top-k against the
-            exact reference (tie-aware, atol 5e-4); B3 (fused attention) at
+            exact reference (tie-aware, atol 5e-4), timed with matmul + amax
+            by CUDA-graph replay at each B; B3 (fused attention) at
             ViT-L/14 shapes, B in {1, 8}, and at the bench's ViT-B/32 shape
             (B = 256, T = 50, D = 768, 12 heads), against its plain version
             (atol = rtol = 2e-2); B2 (int8 chunk-max sweep) over 10,000,000 x
@@ -229,7 +230,7 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
     n_valid = n_rows - 1000
     dead = (torch.rand(n_pad, generator=gen, device=device) < 1e-3).to(torch.int8)
     record = {}
-    for b in (1, 8, 32):
+    for b in (1, 8, 32, 64):
         q = torch.randn(b, dim, generator=gen, device=device)
         q = (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
         got = topk.chunk_max_sweep(x, q, n_valid, dead)
@@ -253,28 +254,34 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
         log("kernels", f"B1 chunk_max_sweep N={n_rows} (pad {n_pad}) D={dim} bf16 B={b}: "
             f"max_abs_err={err:.3e} vs plain; topk k=20,100 tie-aware equal to the exact reference")
     b1 = {"max_abs_err": max(record.values())}
-    for b in (1, 8, 32):
+    # kernel and yardstick by CUDA-graph replay (a launch gap is not timed);
+    # the plain version, milliseconds long, eagerly
+    on_card = device.type == "cuda"
+    per_b = {}
+    for b in (1, 8, 32, 64):
         q = torch.randn(b, dim, generator=gen, device=device).to(torch.bfloat16)
-        ms = timer(lambda: topk.chunk_max_sweep(x, q, n_valid, dead), iters=20)
+        ms = timer(lambda: topk.chunk_max_sweep(x, q, n_valid, dead), iters=20, graph=on_card)
         plain = timer(lambda: topk.chunk_max_plain(x, q, n_valid, dead), iters=5)
+        # yardstick (timed only, the port never calls it): one matmul over the
+        # same rows and the max per 128-row chunk, without the masks
+        lib = timer(lambda: (x @ q.T).view(n_pad // topk.CHUNK, topk.CHUNK, b).amax(dim=1),
+                    iters=20, graph=on_card)
+        b_pad = topk.bucket_b(b)   # the sweep's output and products run at the bucket
+        cell = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                    **bound(n_pad * dim * 2 + b * dim * 2 + n_pad + n_pad // topk.CHUNK * b_pad * 4,
+                            2.0 * n_pad * dim * b_pad, "bf16"))
+        per_b[b] = cell
         gbs = n_pad * dim * 2 / (ms * 1e-3) / 1e9
-        log("numbers", f"B1 B={b}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of rows), "
-            f"plain {plain:.4f} ms")
-        if b == 8:
-            # yardstick (timed only, the port never calls it): one matmul over the
-            # same rows and the max per 128-row chunk, without the masks
-            lib = timer(lambda: (x @ q.T).view(n_pad // topk.CHUNK, topk.CHUNK, b).amax(dim=1),
-                        iters=10)
-            b1.update(ms=ms, plain_ms=plain, library_ms=lib,
-                      **bound(n_pad * dim * 2 + b * dim * 2 + n_pad + n_pad // topk.CHUNK * b * 4,
-                              2.0 * n_pad * dim * b, "bf16"))
-            log("numbers", f"B1 B=8: bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}), "
-                f"library matmul + amax {lib:.4f} ms")
+        log("numbers", f"B1 B={b}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of rows), bound "
+            f"{cell['bound_ms']:.4f} ms ({cell['bound_by']}, {cell['bound_ms'] / ms:.0%}), "
+            f"library matmul + amax {lib:.4f} ms, plain {plain:.4f} ms")
+    b1.update(per_b[8])
+    b1["per_batch"] = {str(b): {k_: v_ for k_, v_ in c.items() if k_ != "bound_by"}
+                       for b, c in per_b.items()}
     del x, dead
 
     # B3: the towers' attention shapes, timed (CUDA-graph replay: the kernel is
     # shorter than a launch gap), then the ragged shapes of both variants
-    on_card = device.type == "cuda"
 
     def sdpa(q, k, v, h):
         b_, t_, d_ = q.shape

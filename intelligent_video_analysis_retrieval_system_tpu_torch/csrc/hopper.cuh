@@ -1,7 +1,9 @@
-// Hopper primitives for the kernels that run on `wgmma` (ln_mlp.cu): shared-
-// memory barriers (`mbarrier`), bulk tensor copies (TMA), thread-block
+// Hopper primitives for the kernels that run on `wgmma` (ln_mlp.cu,
+// chunk_max.cu): shared-memory barriers (`mbarrier`), bulk tensor copies
+// (TMA) and the host-side encoding of their tensor maps, thread-block
 // clusters and distributed shared memory, and the warpgroup matrix product.
-// All of it is inline PTX for sm_90a; nothing here is a finished kernel.
+// The device side is inline PTX for sm_90a; nothing here is a finished
+// kernel.
 //
 // Layout convention used throughout: an operand tile is K-major with the
 // 128-byte swizzle, stored as blocks of [rows][64 bf16] (128 bytes a row);
@@ -19,6 +21,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -159,6 +162,46 @@ static __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map
       :: "r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1) : "memory");
 }
 
+// libcuda's `cuTensorMapEncodeTiled`, looked up once through the runtime
+// (`cudaGetDriverEntryPoint`), so nothing links against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major (rows, cols) bf16 matrix read in boxes of
+// box_rows x 64 columns with the 128-byte swizzle (the operand layout above).
+// Boxes that reach past the last row or column are filled with zeros, and
+// still complete with the box's full byte count.  The map holds the base
+// pointer and the shape: encode one for every launch.  cols % 8 == 0 and a
+// 16-byte-aligned base (TMA's stride and address rules); false if libcuda
+// refuses it.
+static inline bool tma_map_bf16(CUtensorMap* map, const void* base, unsigned long long rows,
+                                int cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // K-major, 128-byte swizzle, 8-row groups 1,024 bytes apart
@@ -184,6 +227,19 @@ static __device__ __forceinline__ void acc_fence(float& r) { asm volatile("" : "
 // B^T (N x 16, shared); scale_d = 0 overwrites d
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<16> {

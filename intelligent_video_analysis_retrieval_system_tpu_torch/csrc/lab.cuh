@@ -9,8 +9,9 @@
 //                        through the entry point LAB_EXPORT_STAMPS defines),
 //                        LAB_STAMP(row) writes the next stamp of that row,
 //                        LAB_SETTLE makes the stamp wait for two registers
-//   -DIVARS_LAB_SKIP=n   timing-only builds of ln_mlp.cu that leave parts out
-//                        (bits below); their results are wrong on purpose
+//   -DIVARS_LAB_SKIP=n   timing-only builds of ln_mlp.cu and chunk_max.cu that
+//                        leave parts out (bits below); their results are
+//                        wrong on purpose
 
 #pragma once
 
@@ -19,7 +20,7 @@
 #endif
 constexpr bool kLabSkipProducts = (IVARS_LAB_SKIP & 1) != 0;    // no wgmma
 constexpr bool kLabSkipActivation = (IVARS_LAB_SKIP & 2) != 0;  // the identity
-constexpr bool kLabSkipLoads = (IVARS_LAB_SKIP & 4) != 0;       // no TMA of weights
+constexpr bool kLabSkipLoads = (IVARS_LAB_SKIP & 4) != 0;       // no TMA of weights or rows
 constexpr bool kLabSkipExchange = (IVARS_LAB_SKIP & 8) != 0;    // no tiles between blocks
 constexpr bool kLabHeadOnly = (IVARS_LAB_SKIP & 16) != 0;       // no hidden chunk at all
 

@@ -119,7 +119,6 @@
 // 256 threads, one hidden column of the chunk per thread for fc1 and D/256
 // output columns per thread for fc2.  It is off the served path.
 
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -698,39 +697,6 @@ ln_mlp_bf16_kernel(const __grid_constant__ CUtensorMap map_w1,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's `cuTensorMapEncodeTiled`, looked up once through the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a row-major (rows, cols) bf16 matrix read in boxes of (box_rows x 64 of
-// cols), 128-byte swizzle
-bool weight_map(CUtensorMap* map, const void* w, int rows, int cols, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int ND>
 cudaError_t launch_bf16(const bf16* x, const float* gamma, const float* beta, const bf16* w1,
                         const float* b1, const bf16* w2, const float* b2, bf16* out,
@@ -738,7 +704,7 @@ cudaError_t launch_bf16(const bf16* x, const float* gamma, const float* beta, co
   constexpr int D = 128 * ND;
   const PlanBf16 plan = plan_bf16(D);
   CUtensorMap map_w1, map_w2;
-  if (!weight_map(&map_w1, w1, h, D, kF1N) || !weight_map(&map_w2, w2, D, h, 16 * ND))
+  if (!tma_map_bf16(&map_w1, w1, h, D, kF1N) || !tma_map_bf16(&map_w2, w2, D, h, 16 * ND))
     return cudaErrorInvalidValue;
   auto kernel = ln_mlp_bf16_kernel<ND>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

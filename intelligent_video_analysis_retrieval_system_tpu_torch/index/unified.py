@@ -7,9 +7,11 @@ Port of the single-device half (dense and int8) of
   ``device`` plus the live row count; search is :func:`ops.topk.topk_search`
   (kernel B1 on a card);
 - rows load from the ``.flat`` sidecar when it is fresh (read through the
-  JAX package's ``native.FlatEmbeddingFile``), else from the container,
-  and are L2-normalized ON the device in chunks written in place into the
-  row buffer;
+  port's own ``native.FlatEmbeddingFile``), else from the container, which
+  then writes the sidecar for the next open (bf16 and f32 storage, at
+  ``_FLAT_MIN_ROWS`` rows or more); a stale, short or torn sidecar of
+  either kind falls back to the container. Rows are L2-normalized ON the
+  device in chunks written in place into the row buffer;
 - appends write into the padded capacity in place; an append past the
   capacity re-uploads;
 - tombstones are an int8 ``(capacity, 1)`` mask applied before chunk
@@ -255,10 +257,13 @@ class UnifiedIndex:
 
     def _read_rows_raw(self, n: int) -> np.ndarray:
         """Rows in their storage form (uint16 bf16 bits / f16 / f32): the
-        ``.flat`` sidecar when fresh, else the container."""
+        ``.flat`` sidecar when fresh, else the container, after which the
+        sidecar is written for the next open (not for float16 storage, as in
+        the JAX index)."""
         assert self._container is not None
         d = self._container.dim
-        flat_dtype = "bfloat16" if self._container.dtype == "bfloat16" else "float32"
+        store = self._container.dtype
+        flat_dtype = "bfloat16" if store == "bfloat16" else "float32"
         p = (self.path.with_name(self.path.name + ".flat")
              if self.path is not None else None)
         if p is not None and p.is_file():
@@ -270,12 +275,18 @@ class UnifiedIndex:
                                    else np.float32)
                     f.read_into(out)
                     return out
-            except OSError:  # stale or torn sidecar: the container wins
+            except Exception:  # stale or torn sidecar: the container wins
                 pass
-        return self._container.read_embeddings(0, n)
+        host = self._container.read_embeddings(0, n)
+        if store != "float16" and p is not None and n >= self._FLAT_MIN_ROWS:
+            try:
+                native.FlatEmbeddingFile.write_raw(p, host, flat_dtype)
+            except Exception:  # a read-only directory is never a load failure
+                pass
+        return host
 
-    # write the .flat8 sidecar only above this many rows (the JAX index's
-    # threshold): tiny corpora open instantly either way
+    # write the .flat and .flat8 sidecars only above this many rows (the JAX
+    # index's threshold): tiny corpora open instantly either way
     _FLAT_MIN_ROWS = 10_000
 
     def _fresh_flat8(self) -> "native.FlatInt8File | None":
@@ -289,7 +300,7 @@ class UnifiedIndex:
         try:
             f = native.FlatInt8File(p)
             n, d, norm = f.header()
-        except OSError:  # unreadable sidecar: the container wins
+        except Exception:  # unreadable or short sidecar: the container wins
             return None
         if (n, d, norm) == (self._container.num_rows, self._container.dim,
                             bool(self.config.normalize)):
@@ -307,7 +318,7 @@ class UnifiedIndex:
             try:
                 f8.read_into(rows_out, scales_out)
                 return
-            except OSError:  # torn mid-read: the container wins
+            except Exception:  # torn mid-read: the container wins
                 pass
         rows, scales = self._container.read_quantized()
         if self.config.normalize:
@@ -319,7 +330,7 @@ class UnifiedIndex:
                 native.FlatInt8File.write(self.path.with_name(self.path.name + ".flat8"),
                                           rows, scales,
                                           normalized=bool(self.config.normalize))
-            except OSError:  # a read-only directory is never a load failure
+            except Exception:  # a read-only directory is never a load failure
                 pass
 
     def _quantize_like_upload(self, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -1,5 +1,5 @@
-"""Kernel lab: where the time of B4 (``csrc/ln_mlp.cu``) and B3
-(``csrc/mha.cu``) goes on the card.
+"""Kernel lab: where the time of B4 (``csrc/ln_mlp.cu``), B3
+(``csrc/mha.cu``) and B1 (``csrc/chunk_max.cu``) goes on the card.
 
 Each experiment builds the kernels once more with a ``-DIVARS_LAB_...`` flag
 (``csrc/lab.cuh`` says what each does; the library the port loads is built
@@ -26,6 +26,12 @@ directory is keyed by the flags, and prints one JSON line per result.
   for the weights (not part of the default run).
 - ``b3-trace``: the same for one warp of B3, cycles per phase of a 16-row
   query tile.
+- ``b1-probes``: B1 in bf16 over 1,001,472 x 768 rows at B = 8 and 64, as it
+  is (checked against the plain version, beside P3's stream and matmul +
+  amax over the same rows), without any product (the TMA ring, the masks
+  and the max only: the rate a TMA stream reaches on this card) and without
+  the rows' loads (the products and the ring's hand-overs alone): timing
+  only, the results of the last two are wrong on purpose.
 - ``ab FILE.cu VARIANT.cu [VARIANT.cu ...]``: the source as it is against
   variants of it (paths; copies of ``csrc/`` with the file swapped are built
   under ``build/kernel_lab/``), each checked against the plain version and
@@ -74,6 +80,11 @@ EXPERIMENTS: dict[str, tuple[bool, list[tuple[str, tuple[str, ...], str]]]] = {
     "b4-trace-no-products": (False, [("b4_trace_no_products",
                                       ("-DIVARS_LAB_TRACE",) + _skip("products"), "b4-trace")]),
     "b3-trace": (True, [("b3_trace", ("-DIVARS_LAB_TRACE",), "b3-trace")]),
+    "b1-probes": (True, [
+        ("as_is", (), "b1-time"),
+        ("no_products", _skip("products"), "b1-time"),
+        ("no_loads", _skip("loads"), "b1-time"),
+    ]),
 }
 
 
@@ -152,7 +163,7 @@ def _stamps(lib, setter: str, rows: int, launch):
 def _run(name: str, csrc: str, what: str, flags: tuple[str, ...]) -> None:
     import torch
 
-    from . import attention, block, kernels
+    from . import attention, block, kernels, topk
 
     # this process builds and loads its own variant of the library
     kernels._CSRC = Path(csrc)
@@ -205,6 +216,32 @@ def _run(name: str, csrc: str, what: str, flags: tuple[str, ...]) -> None:
                 break
             emit(tile=dict(zip(("q_load", "qk", "softmax", "wait_v", "pv", "store"),
                                (s[i + j + 1] - s[i + j] for j in range(6)))))
+    elif what == "b1-time":
+        from ..bench import probes
+
+        n_pad, d, n_valid = 1_001_472, 768, 999_000
+        x = torch.randn(n_pad, d, generator=gen, device="cuda")
+        x = (x / x.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+        dead = (torch.rand(n_pad, generator=gen, device="cuda") < 1e-3).to(torch.int8)
+        gb = n_pad * d * 2 / 1e9
+        for b in (8, 64):
+            q = torch.randn(b, d, generator=gen, device="cuda")
+            q = (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+            ms = _graph_ms(lambda: topk.chunk_max_sweep(x, q, n_valid, dead))
+            row = {"b": b, "ms": ms, "gbps": gb / ms * 1e3}
+            if name == "as_is":
+                got, ref = topk.chunk_max_sweep(x, q, n_valid, dead), \
+                    topk.chunk_max_plain(x, q, n_valid, dead)
+                fin = torch.isfinite(ref)
+                row["max_abs_err"] = float((got[fin] - ref[fin]).abs().max())
+                row["ok"] = bool(torch.equal(fin, torch.isfinite(got))) and \
+                    row["max_abs_err"] <= 1e-3
+                row["library_ms"] = _graph_ms(
+                    lambda: (x @ q.T).view(n_pad // topk.CHUNK, topk.CHUNK, b).amax(dim=1))
+                if b == 8:   # P3's plain stream over the same bytes, 2 blocks a multiprocessor
+                    p3 = _graph_ms(lambda: probes.probe_stream(x, topk.TILE_N, 2))
+                    row.update(p3_ms=p3, p3_gbps=gb / p3 * 1e3)
+            emit(**row)
     else:
         raise SystemExit(f"kernel_lab: unknown measurement {what!r}")
 

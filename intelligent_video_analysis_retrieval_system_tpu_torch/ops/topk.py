@@ -45,6 +45,7 @@ __all__ = [
     "cosine_topk",
     "chunk_max_sweep",
     "chunk_max_plain",
+    "chunk_max_plan",
     "topk_lowest_index_first",
 ]
 
@@ -145,6 +146,50 @@ def chunk_max_plain(
     return out
 
 
+# kernel B1's bf16 launch (csrc/chunk_max.cu `plan_bf16`, which computes the
+# same): a ring of stages of 128 rows x 64 columns, the query group staged
+# for the block's life, shared memory per block and per multiprocessor
+_STAGE_BYTES = CHUNK * 64 * 2
+_MAX_STAGES, _MIN_STAGES = 8, 2
+_SMEM_BLOCK, _SMEM_SM = 232_448, 233_472
+_CONSUMER_WARPS = 8
+
+
+def chunk_max_plan(n_pad: int, d: int, b_pad: int, sm_count: int = 132) -> dict:
+    """How kernel B1 sweeps ``n_pad`` bf16 rows of width ``d`` for ``b_pad``
+    queries on a card of ``sm_count`` multiprocessors (the C entry point asks
+    the device; 132 is an H100's): the query ``group`` each block stages in
+    shared memory once (the largest of 64, 32, 16, 8 dividing ``b_pad`` that
+    leaves room for two ring stages), ``groups`` = sweeps of the rows, ring
+    ``stages`` of 16 KB, ``blocks_per_sm`` (two where each still gets four
+    stages), ``blocks`` along the chunks per group and ``smem_bytes`` of
+    dynamic shared memory per block. Raises ValueError where ``d`` is too
+    wide for any group."""
+    if n_pad <= 0 or n_pad % CHUNK or d <= 0 or d % 8 or b_pad <= 0 or b_pad % 8 \
+            or sm_count <= 0:
+        raise ValueError(f"chunk_max_plan: n_pad={n_pad}, d={d}, b_pad={b_pad}, "
+                         f"sm_count={sm_count}")
+    n_kb = -(-d // 64)
+
+    def fixed(group: int) -> int:
+        # alignment slack, query tiles, two buffers of the warps' maxima, barriers
+        return 1024 + n_kb * group * 128 + 2 * _CONSUMER_WARPS * group * 4 + 256
+
+    group = next((g for g in (64, 32, 16, 8)
+                  if b_pad % g == 0 and fixed(g) + _MIN_STAGES * _STAGE_BYTES <= _SMEM_BLOCK),
+                 None)
+    if group is None:
+        raise ValueError(f"chunk_max_plan: rows of {d} are too wide for kernel B1's "
+                         "shared memory")
+    fit2 = max(0, (_SMEM_SM // 2 - 1024 - fixed(group)) // _STAGE_BYTES)
+    per_sm = 2 if fit2 >= 4 else 1
+    stages = min(_MAX_STAGES, fit2 if per_sm == 2 else (_SMEM_BLOCK - fixed(group)) // _STAGE_BYTES)
+    groups = b_pad // group
+    blocks = min(n_pad // CHUNK, max(1, -(-(sm_count * per_sm) // groups)))
+    return {"group": group, "groups": groups, "stages": stages, "blocks_per_sm": per_sm,
+            "blocks": blocks, "smem_bytes": fixed(group) + stages * _STAGE_BYTES}
+
+
 def chunk_max_sweep(
     x: torch.Tensor, q: torch.Tensor, n_valid: int,
     deleted: torch.Tensor | None = None,
@@ -153,8 +198,9 @@ def chunk_max_sweep(
     TILE_N multiple and queries ``q`` of the same dtype.
 
     CPU tensors take :func:`chunk_max_plain`. CUDA tensors launch kernel B1
-    (``csrc/chunk_max.cu``) on PyTorch's current stream; the count of those
-    launches is ``chunk_max_sweep.launches``.
+    (``csrc/chunk_max.cu``; bf16 as :func:`chunk_max_plan` says) on
+    PyTorch's current stream; the count of those launches is
+    ``chunk_max_sweep.launches``.
     """
     n_pad, d = x.shape
     if n_pad % TILE_N != 0:
@@ -177,6 +223,8 @@ def chunk_max_sweep(
     if x.data_ptr() % 16 != 0:
         raise ValueError("chunk_max_sweep: x is not 16-byte aligned")
     q_p = pad_queries(q).contiguous()
+    if x.dtype == torch.bfloat16:
+        chunk_max_plan(n_pad, d, q_p.shape[0])   # raises where d does not fit
     if q_p.data_ptr() % 16 != 0:  # a view at an odd offset: a fresh copy aligns
         q_p = q_p.clone()
     dead = _dead_flat(deleted, n_pad)

@@ -6,7 +6,7 @@ Port of ``intelligent_video_analysis_retrieval_system_tpu/system/facade.py``:
 check, with ``build_progress`` events), ``load_system`` -> ``search`` /
 ``search_batch`` (cache -> translate -> CLIP text encode -> exact top-k over
 the device rows -> post processing -> cache), ``search_by_image`` over pixel
-arrays, ``export_portable_index`` / ``load_portable_index``,
+arrays and image files, ``export_portable_index`` / ``load_portable_index``,
 ``get_system_stats`` and ``cleanup``.
 
 Everything runs on the facade's explicit ``torch.device`` (default
@@ -446,21 +446,24 @@ class EnhancedRetrievalSystem:
                 out[i] = results
         return out  # type: ignore[return-value]
 
-    def search_by_image(self, image: np.ndarray,
+    def search_by_image(self, image: np.ndarray | str | Path,
                         options: SearchOptions | None = None) -> list[dict[str, Any]]:
         """Image-to-image search over a (H, W, 3) or (1, H, W, 3) pixel
-        array (normalize and the vision tower, so kernels B5 and B3 on a card). Image files are
-        decoded with the ingest port in a later change. Never raises on a
-        search failure (returns [])."""
-        if isinstance(image, (str, Path)):
-            raise NotImplementedError(
-                "image files are decoded by the ingest port in a later change; "
-                "pass the pixels as an array")
+        array, or an image file decoded and resized as the index builder
+        does (``encode_image_files``); then normalize and the vision tower,
+        so kernels B5 and B3 on a card. Never raises on a search failure,
+        and a file that cannot be decoded finds nothing: both return []."""
         options = options or SearchOptions()
         options.validate()
         try:
             with self.perf.timer("search_by_image"):
-                qvec = self.embedder.encode_images(np.asarray(image))[0]
+                if isinstance(image, (str, Path)):
+                    emb, ok = self.embedder.encode_image_files([image])
+                    if not ok:
+                        return []
+                    qvec = emb[0]
+                else:
+                    qvec = self.embedder.encode_images(np.asarray(image))[0]
                 return self._post_process(self._vector_search(qvec, options),
                                           options, None)
         except Exception:

@@ -8,7 +8,8 @@ imports no JAX, so it runs on a machine without it; there the repo's
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: B1 chunk maxima 1e-3 (the kernel sums in another order than
-the f32 matmul of the plain version); top-k tie-aware (5e-4); B3 f32 1e-5,
+the f32 matmul of the plain version), and in bf16 the same bits over 50
+launches beside B3 on another stream; top-k tie-aware (5e-4); B3 f32 1e-5,
 bf16 2e-2. B2 (int8) is exact: chunk maxima ``torch.equal`` to the plain
 version, top-k tie-aware with atol 0 against the full-matrix reference.
 B5 (normalize) has no sum and is ``torch.equal`` to its plain version. B3 in
@@ -87,6 +88,122 @@ def test_chunk_max_refuses_misaligned_rows(cuda_device):
     with pytest.raises(ValueError):
         ttopk.chunk_max_sweep(x, torch.zeros(2, 16, dtype=torch.bfloat16,
                                              device=cuda_device), 10)
+
+
+def _b1_inputs(device, n_pad, d, b, seed, dead_share=0.01):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n_pad, d, generator=gen, device=device).to(torch.bfloat16)
+    # scores of about unit size at every width, as the index's unit rows give
+    q = (torch.randn(b, d, generator=gen, device=device) / d ** 0.5).to(torch.bfloat16)
+    dead = (torch.rand(n_pad, generator=gen, device=device) < dead_share).to(torch.int8)
+    return x, q, dead
+
+
+def _b1_check(got, x, q, n_valid, dead):
+    want = ttopk.chunk_max_plain(x, q, n_valid, dead)
+    assert got.shape == want.shape
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("d", [768, 40])
+@pytest.mark.parametrize("n_valid", [8192 - 37, 4096 + 77, 130, 1, 0])
+def test_chunk_max_bf16_masks_inside_a_stage(cuda_device, n_valid, d, b):
+    # n_valid anywhere inside a 128-row stage of the ring, and every row of
+    # chunk 5 tombstoned: that chunk is -inf for every query
+    x, q, dead = _b1_inputs(cuda_device, 8192, d, b, seed=n_valid + d + b)
+    dead[5 * ttopk.CHUNK:6 * ttopk.CHUNK] = 1
+    got = ttopk.chunk_max_sweep(x, q, n_valid, dead)
+    torch.cuda.synchronize()
+    _b1_check(got, x, q, n_valid, dead)
+    assert torch.isneginf(got[5]).all()
+    assert torch.isneginf(got[-(-n_valid // ttopk.CHUNK):]).all()   # chunks past n_valid
+
+
+@pytest.mark.parametrize("case", [(2048, 40, 8), (4096, 96, 33), (8192, 768, 64), (2048, 768, 128)])
+def test_chunk_max_bf16_reads_nothing_past_its_inputs(cuda_device, case):
+    # x, q and the tombstones each end where their allocation ends: the last
+    # ring stage, the queries' tiles and the masks' bytes may not form an
+    # address past them
+    n_pad, d, b = case
+    x, q, dead = (_at_the_end_of_a_segment(t)
+                  for t in _b1_inputs(cuda_device, n_pad, d, ttopk.bucket_b(b), seed=d))
+    for _ in range(3):
+        got = ttopk.chunk_max_sweep(x, q, n_pad - 5, dead)
+    torch.cuda.synchronize()   # an illegal address surfaces here
+    _b1_check(got, x, q, n_pad - 5, dead)
+
+
+def test_chunk_max_bf16_two_row_tensors_of_one_shape(cuda_device):
+    # the tensor map names the rows' address: one encoded for the first x
+    # must never serve the second
+    x1, q, dead = _b1_inputs(cuda_device, 8192, 768, 8, seed=1)
+    x2 = _b1_inputs(cuda_device, 8192, 768, 8, seed=2)[0]
+    first = ttopk.chunk_max_sweep(x1, q, 8000, dead)
+    second = ttopk.chunk_max_sweep(x2, q, 8000, dead)
+    again = ttopk.chunk_max_sweep(x1, q, 8000, dead)
+    torch.cuda.synchronize()
+    _b1_check(first, x1, q, 8000, dead)
+    _b1_check(second, x2, q, 8000, dead)
+    assert torch.equal(again, first) and not torch.equal(second, first)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_chunk_max_bf16_at_the_smoke_row_count(cuda_device, b):
+    # 1,000,000 rows padded to 1,001,472 (489 tiles of 2,048): the last
+    # blocks' share of chunks, and n_valid 1,000 rows short of the rows
+    n_pad = -(-1_000_000 // ttopk.TILE_N) * ttopk.TILE_N
+    assert n_pad == 1_001_472
+    x, q, dead = _b1_inputs(cuda_device, n_pad, 768, b, seed=b, dead_share=1e-3)
+    got = ttopk.chunk_max_sweep(x, q, 999_000, dead)
+    torch.cuda.synchronize()
+    _b1_check(got, x, q, 999_000, dead)
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_chunk_max_bf16_gives_the_same_bits_every_launch(cuda_device, b):
+    # 50 launches on a second stream while B3 runs on the first: the ring's
+    # hand-overs leave the output a function of the inputs to the bit
+    x, q, dead = _b1_inputs(cuda_device, 65_536, 768, b, seed=b + 7)
+    first = ttopk.chunk_max_sweep(x, q, 65_000, dead)
+    torch.cuda.synchronize()
+    _b1_check(first, x, q, 65_000, dead)
+    qkv = torch.randn(64, 50, 768, device=cuda_device).to(torch.bfloat16)
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = []
+    for _ in range(50):
+        with torch.cuda.stream(side):
+            outs.append(ttopk.chunk_max_sweep(x, q, 65_000, dead))
+        tatt.fused_mha(qkv, qkv, qkv, 12)
+    torch.cuda.synchronize()
+    for i, again in enumerate(outs):
+        assert torch.equal(again, first), f"launch {i + 1} differs from the first"
+
+
+def test_chunk_max_plan_matches_the_library(cuda_device):
+    import ctypes
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    group, stages, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks, smem = ctypes.c_longlong(), ctypes.c_longlong()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n_pad in (2048, 1_001_472):
+        for d in (8, 40, 96, 512, 768, 1024, 4096, 12352):
+            for b_pad in (8, 16, 32, 64, 128, 160, 256):
+                for count in (0, 64, sms):   # 0: the library asks the device
+                    lib.ivars_chunk_max_plan(n_pad, d, b_pad, count, ctypes.byref(group),
+                                             ctypes.byref(stages), ctypes.byref(per_sm),
+                                             ctypes.byref(blocks), ctypes.byref(smem))
+                    plan = ttopk.chunk_max_plan(n_pad, d, b_pad, sm_count=count or sms)
+                    assert (group.value, stages.value, per_sm.value, blocks.value,
+                            smem.value) == (plan["group"], plan["stages"],
+                                            plan["blocks_per_sm"], plan["blocks"],
+                                            plan["smem_bytes"]), (n_pad, d, b_pad, count)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -162,6 +162,62 @@ def test_flat_sidecar_is_read(tmp_path):
     t.close()
 
 
+def _pair_of_copies(tmp_path, dtype: str, n: int):
+    """One container of ``n`` rows as ``a.rvdb`` (for the JAX index) and
+    ``b.rvdb`` (for the port)."""
+    if dtype == "int8":
+        _write_int8(tmp_path / "a.rvdb", n=n, keep_fp=False)
+    else:
+        _write(tmp_path / "a.rvdb", dtype, n=n)
+    shutil.copy(tmp_path / "a.rvdb", tmp_path / "b.rvdb")
+    return tmp_path / "a.rvdb", tmp_path / "b.rvdb"
+
+
+def _top_ids(index, q, top_k=5):
+    return [[h.metadata.row_id for h in hits] for hits in index.search_vectors(q, top_k=top_k)]
+
+
+def test_open_writes_the_flat_sidecar_as_jax_does(tmp_path, monkeypatch):
+    # a float32 container read from its blob writes `.flat` for the next
+    # open, in both packages, and the two sidecars are the same bytes
+    monkeypatch.setattr(JaxIndex, "_FLAT_MIN_ROWS", 8)
+    monkeypatch.setattr(UnifiedIndex, "_FLAT_MIN_ROWS", 8)
+    a, b = _pair_of_copies(tmp_path, "float32", 12)
+    q = np.random.default_rng(6).standard_normal((3, DIM)).astype(np.float32)
+    j = JaxIndex().load_unified_index(a)
+    t = UnifiedIndex(device="cpu").load_unified_index(b)
+    want = _top_ids(j, q)
+    assert _top_ids(t, q) == want
+    j.close()
+    t.close()
+    flat_a, flat_b = a.with_name(a.name + ".flat"), b.with_name(b.name + ".flat")
+    assert flat_b.is_file() and flat_b.read_bytes() == flat_a.read_bytes()
+
+    def _no_blob(self, *args, **kwargs):
+        raise AssertionError("the container's rows were read beside a fresh .flat")
+
+    monkeypatch.setattr(IndexContainer, "read_embeddings", _no_blob)
+    t = UnifiedIndex(device="cpu").load_unified_index(b)
+    assert t.ntotal == 12 and _top_ids(t, q) == want
+    t.close()
+
+
+@pytest.mark.parametrize("dtype,suffix,magic", [("float32", ".flat", b"IVARSFLT"),
+                                                ("int8", ".flat8", b"IVARSFL8")])
+def test_a_torn_sidecar_falls_back_to_the_container(tmp_path, dtype, suffix, magic):
+    # 12 bytes that keep the magic: the header cannot even be unpacked
+    a, b = _pair_of_copies(tmp_path, dtype, 12)
+    for path in (a, b):
+        path.with_name(path.name + suffix).write_bytes(magic + b"\0\0\0\0")
+    q = np.random.default_rng(7).standard_normal((3, DIM)).astype(np.float32)
+    j = JaxIndex().load_unified_index(a)
+    t = UnifiedIndex(device="cpu").load_unified_index(b)
+    assert t.ntotal == j.ntotal == 12
+    assert _top_ids(t, q) == _top_ids(j, q)
+    j.close()
+    t.close()
+
+
 def test_search_by_row_and_temporal_context(tmp_path):
     j, t = _open_pair(tmp_path, "float32")
     for row in (0, 1234):
@@ -235,10 +291,12 @@ def test_similarity_graph_matches_jax():
 
 def _write_int8(path, n: int = N, seed: int = 0, keep_fp: bool = True):
     """A JAX-written int8 container (with the bf16 copy when ``keep_fp``);
-    rows 7, 100 and 2500 duplicate row 1000, so they tie exactly."""
+    rows 7, 100 and 2500 duplicate row 1000 where there are that many, so
+    they tie exactly."""
     rng = np.random.default_rng(seed)
     rows = rng.standard_normal((n, DIM)).astype(np.float32)
-    rows[[7, 100, 2500]] = rows[1000]
+    if n > 2500:
+        rows[[7, 100, 2500]] = rows[1000]
     with JaxContainer(path, "w", dim=DIM, dtype="int8", keep_fp=keep_fp) as c:
         for s in range(0, n, 4096):
             c.append_embeddings(rows[s:s + 4096])

@@ -58,3 +58,16 @@ def test_the_port_builds_without_any_lab_flag():
 def test_unknown_experiment_is_refused():
     with pytest.raises(SystemExit):
         kernel_lab.main(["b5-trace"])
+
+
+def test_b1_probes_leave_out_parts_that_chunk_max_reads():
+    _, variants = kernel_lab.EXPERIMENTS["b1-probes"]
+    parts = {"no_products": "kLabSkipProducts", "no_loads": "kLabSkipLoads"}
+    for variant, flags, what in variants:
+        assert what == "b1-time"
+        if variant in parts:
+            assert parts[variant] in SOURCES["chunk_max.cu"]
+            assert re.search(r"constexpr bool %s = \(IVARS_LAB_SKIP & (\d+)\)" % parts[variant],
+                             SOURCES["lab.cuh"]).group(1) == flags[0].split("=")[1]
+        else:
+            assert flags == ()

@@ -175,21 +175,37 @@ def test_facade_options_match_jax(pair_factory):
 
 
 @pytest.mark.parametrize("size", [(32, 32), (40, 56)])   # as is; resized + cropped
-def test_search_by_image_matches_jax(pair_factory, size):
+def test_search_by_image_matches_jax(pair_factory, size, tmp_path):
+    from PIL import Image
+
     jsys, tsys = pair_factory("float32", True)
     img = np.random.default_rng(size[1]).integers(0, 256, (*size, 3)).astype(np.uint8)
+
+    def same_hits(got, want, qj, qt):
+        assert len(got) == len(want) == 12
+        (gk, gs), (wk, ws) = _pairs(got), _pairs(want)
+        row = {k: i for i, k in enumerate(sorted(set(gk) | set(wk)))}
+        tie_aware_equal([row[k] for k in gk], gs, [row[k] for k in wk], ws,
+                        atol=1e-5 + float(np.linalg.norm(qj - qt)))
+        assert float(np.linalg.norm(qj - qt)) < 1e-4
+
     want = jsys.search_by_image(img, JaxOptions(limit=12))
     got = tsys.search_by_image(img, SearchOptions(limit=12))
-    assert len(got) == len(want) == 12
-    qj = jsys.embedder.encode_images(img[None])[0]
-    qt = tsys.embedder.encode_images(img[None])[0]
-    (gk, gs), (wk, ws) = _pairs(got), _pairs(want)
-    row = {k: i for i, k in enumerate(sorted(set(gk) | set(wk)))}
-    tie_aware_equal([row[k] for k in gk], gs, [row[k] for k in wk], ws,
-                    atol=1e-5 + float(np.linalg.norm(qj - qt)))
-    assert float(np.linalg.norm(qj - qt)) < 1e-4
-    with pytest.raises(NotImplementedError):
-        tsys.search_by_image("frame.jpg")
+    same_hits(got, want, jsys.embedder.encode_images(img[None])[0],
+              tsys.embedder.encode_images(img[None])[0])
+    # the same pixels as a PNG file: decoded, resized and cropped by each
+    # facade's own embedder
+    png = tmp_path / "frame.png"
+    Image.fromarray(img).save(png)
+    want = jsys.search_by_image(png, JaxOptions(limit=12))
+    got = tsys.search_by_image(str(png), SearchOptions(limit=12))
+    same_hits(got, want, jsys.embedder.encode_image_files([png])[0][0],
+              tsys.embedder.encode_image_files([png])[0][0])
+    # a file that is no image finds nothing in either facade
+    junk = tmp_path / "frame.jpg"
+    junk.write_bytes(b"not an image")
+    assert jsys.search_by_image(junk, JaxOptions(limit=12)) == []
+    assert tsys.search_by_image(junk, SearchOptions(limit=12)) == []
 
 
 def test_request_layer_and_batcher_around_the_port(pair_factory):

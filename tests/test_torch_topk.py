@@ -158,3 +158,49 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
 def test_unpadded_rows_rejected():
     with pytest.raises(ValueError):
         ttopk.chunk_max_sweep(torch.zeros((100, 16)), torch.zeros((2, 16)), 10)
+
+
+# ---------------------------------------------------------------------------
+# kernel B1's launch plan (csrc/chunk_max.cu computes the same; the card test
+# holds the two together)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b_pad", [8, 16, 32, 64, 128, 160, 256, 288])
+def test_chunk_max_plan_fits_the_card_at_every_width(b_pad):
+    for d in range(8, 4097, 8):
+        plan = ttopk.chunk_max_plan(1_001_472, d, b_pad)
+        assert plan["group"] in (8, 16, 32, 64) and b_pad % plan["group"] == 0
+        assert plan["groups"] * plan["group"] == b_pad
+        assert 2 <= plan["stages"] <= 8 and plan["blocks_per_sm"] in (1, 2)
+        assert plan["smem_bytes"] <= 232_448
+        # the runtime keeps 1 KB of a multiprocessor's 228 KB for each block
+        assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= 233_472
+        if plan["blocks_per_sm"] == 2:
+            assert plan["stages"] >= 4
+        # the largest group that divides the batch, at the towers' widths
+        if d <= 1024:
+            assert plan["group"] == min(64, b_pad & -b_pad)
+
+
+@pytest.mark.parametrize("case", [
+    # (b_pad, d) -> (group, stages, blocks a multiprocessor, blocks along the chunks)
+    ((8, 768), (8, 6, 2, 264)), ((32, 768), (32, 8, 1, 132)), ((64, 768), (64, 7, 1, 132)),
+    ((128, 768), (64, 7, 1, 66)), ((160, 768), (32, 8, 1, 27)), ((8, 40), (8, 6, 2, 264)),
+    ((64, 96), (64, 5, 2, 264))])
+def test_chunk_max_plan_at_the_index_shapes(case):
+    (b_pad, d), (group, stages, per_sm, blocks) = case
+    plan = ttopk.chunk_max_plan(1_001_472, d, b_pad)
+    assert (plan["group"], plan["stages"], plan["blocks_per_sm"], plan["blocks"]) == \
+        (group, stages, per_sm, blocks)
+    # a small index: never more blocks than chunks
+    assert ttopk.chunk_max_plan(2048, d, b_pad, sm_count=132)["blocks"] <= 2048 // ttopk.CHUNK
+    # the stages in flight on a multiprocessor: 96 KB or more
+    assert per_sm * stages * 128 * 64 * 2 >= 96 * 1024
+
+
+@pytest.mark.parametrize("args", [(2048, 12360, 8), (2048, 100, 8), (2000, 64, 8),
+                                  (2048, 64, 12), (2048, 64, 8, 0)])
+def test_chunk_max_plan_refuses_what_the_kernel_refuses(args):
+    with pytest.raises(ValueError):
+        ttopk.chunk_max_plan(*args)
