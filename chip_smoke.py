@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving and index-build paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, IVF and index-build paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -23,7 +23,14 @@ non-zero):
             B in {1, 8, 32}, n_valid = N - 1000, 0.1% tombstones, a group of
             exactly tied rows: chunk maxima ``torch.equal`` to the plain
             version, ``topk_search_int8`` at k = 20 and 100 equal to the
-            blockwise ``int8_reference`` (tie-aware with atol 0).
+            blockwise ``int8_reference`` (tie-aware with atol 0). Then the IVF
+            mode below the facade over the same rows: ``build_ivf`` with the
+            bench's parameters (nlist 8192, 48 sample rows per list, 6
+            k-means iterations), answers at nprobe 16 and 64, B = 1 and 8,
+            bit for bit ``testing.ivf_candidate_reference`` (tombstones and
+            n_valid included), and ``ivf_topk`` at nprobe 64 against
+            ``topk_search_int8`` (B2) at B in {1, 2, 4, 8, 16}, wall and
+            CUDA-event time: the card's crossover at 10M rows.
 4. slice    ``create_system`` on cuda with seeded random ViT-L/14 towers in
             bf16 (loading runs the self-test, which runs B3), an index of
             1,000,000 x 768 rows from ``numpy.random.default_rng(0)``;
@@ -90,14 +97,30 @@ non-zero):
             writes the ``.meta.npz`` and ``.flat8`` sidecars), then through
             the sidecars (columnar metadata); seconds of each, the same hits
             from both.
-10. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
+10. ann     the IVF mode through the facade: ``index_type="IndexIVFFlat"``
+            over 1,000,000 x 768 bf16 rows around 4,096 seeded centres (the
+            slice's rows as noise) in a writable in-memory stand-in; nlist
+            4,096, bucket_cap 384; asserts ``ann_active``, builds again
+            (bit for bit the first), prints the recall guard's ladder; 8
+            facade queries at B=1 (each one ``ivf_topk`` call) tie-aware
+            equal to the candidate-set reference; nprobe = nlist at B=1 and
+            B=8 equal to ``exact=True`` (within the query's bf16 rounding,
+            which the dense path applies); B=8 equal to eight B=1 calls; a
+            batch above ``ann_max_batch`` through B1, equal to ``exact=True``;
+            p50/p95 of IVF, exact and facade queries at B=1; 1,000 appended
+            rows in the tail, each found by its own vector; deleted rows
+            never returned; ``measure_ann_crossover`` over B in {1, ..., 64};
+            a reopen with a default config restores ``ann_active``, nprobe
+            and ``ann_max_batch``. TF32 must be off.
+11. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
             of both serving slices, images/s of the build, kernel vs plain
             vs library-call times (CUDA events) beside each kernel's bound.
 
 Each slice sets every launch count to 0 just before it runs and reads the
 counts just after; the kernels' JSON line reports B1 and B3 from the bf16
 slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
-bench (whose own B1, B2, B3 and B5 launches are printed beside them).
+bench (whose own B1, B2, B3 and B5 launches are printed beside them). The
+IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -110,8 +133,11 @@ at B=1 and 32, search_batch at B=32): wall p50/p95 of 20 warm calls, each
 ended by a synchronize, then a ``torch.profiler`` trace of 20 more calls
 giving the device busy time (the union of kernel, copy and memset
 intervals), device ops per call and the milliseconds of each kernel; the
-idle share is 1 - busy / mean untraced wall. It checks no answers and
-prints no ``ok`` line.
+idle share is 1 - busy / mean untraced wall; then the IVF path at B=1:
+``search_vectors`` (IVF and ``exact=True``) and the facade's ``search``
+over the 1M clustered bf16 rows, ``ivf_topk`` at nprobe 16 and 64 and
+``topk_search_int8`` over 10M int8 rows. It checks no answers and prints no
+``ok`` line.
 """
 
 from __future__ import annotations
@@ -331,9 +357,11 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
     return b1, mha
 
 
-def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: bool):
+def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: bool,
+                       keep: dict | None = None):
     """B2 against its plain version, and the two-phase int8 search against
-    the full-matrix reference, at capacity scale."""
+    the full-matrix reference, at capacity scale. ``keep`` (a dict) gets the
+    rows, scales, live count and tombstones for the int8 IVF phase."""
     import torch
 
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
@@ -420,6 +448,8 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
                 f"library _int_mm + scale + amax {lib} ms")
     if require_kernels and quant.int8_chunk_max_sweep.launches == 0:
         raise AssertionError("the B2 comparison ran without launching its kernel")
+    if keep is not None:
+        keep.update(x_i8=x_i8, xs=xs, n_valid=n_valid, dead=dead)
     return b2
 
 
@@ -1146,6 +1176,7 @@ class WritableMemoryContainer(MemoryContainer):
         self.maps: dict[str, str] = {}
         self.system: dict = {}
         self.checkpoints = 0
+        self._ann = None
 
     @property
     def num_rows(self) -> int:
@@ -1674,8 +1705,11 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import (
         topk_exact_reference,
     )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.testing import (
+        ivf_candidate_reference,
+    )
 
-    checked = {"headline_1M": 0, "int8_10M": 0, "image_tower": 0}
+    checked = {"headline_1M": 0, "int8_10M": 0, "ivf_10M": 0, "image_tower": 0}
 
     def verify_tower(model, pixels, got) -> None:
         """The timed batch again, from the bench's own normalized pixels, with
@@ -1706,9 +1740,20 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
             if fn.launches != counters[k]:
                 raise AssertionError(f"the plain attention route launched kernel {k}")
 
-    def verify(section, x, scales, n_valid, queries, result) -> None:
+    def verify(section, x, scales, n_valid, queries, result, ivf=None) -> None:
         counters = {k: fn.launches for k, fn in bench_counters().items()}
         ids, scores = result.indices.cpu().numpy(), result.scores.cpu().numpy()
+        if ivf is not None:   # the IVF answers: bit for bit the candidate-set reference
+            state, nprobe = ivf
+            ref_s, ref_i = ivf_candidate_reference(x, state, queries, ids.shape[1], nprobe,
+                                                   n_valid, x_scales=scales)
+            for i in range(len(queries)):
+                if not np.array_equal(scores[i], ref_s[i]):
+                    raise AssertionError(f"{section} nprobe={nprobe}: scores differ from the "
+                                         "candidate-set reference")
+                tie_aware_equal(ids[i], scores[i], ref_i[i], ref_s[i], atol=0.0)
+            checked[section] += len(queries)
+            return
         for s in range(0, len(queries), 32):   # bounds the reference's score matrix
             q = queries[s:s + 32]
             if scales is None:
@@ -1751,7 +1796,9 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     if "--skip-10m" not in argv:
         want_extra += ["latency_10M_int8_1chip_p50_ms", "latency_10M_int8_1chip_p95_ms",
                        "queries_10M", "qps_10M_int8_1chip_b128", "qps_10M_int8_1chip_b32",
-                       "latency_2M5_int8_1chip_p50_ms", "latency_5M_int8_1chip_p50_ms"]
+                       "latency_2M5_int8_1chip_p50_ms", "latency_5M_int8_1chip_p50_ms",
+                       "ivf_build_10M_s", "latency_10M_int8_ivf_np16_p50_ms",
+                       "latency_10M_int8_ivf_np64_p50_ms"]
     if "--probes" in argv:
         want_extra.append("probes")
     missing = [k for k in want if result.get(k) is None] + \
@@ -1761,11 +1808,16 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     log("bench", f"bench.main({argv}) in {seconds:.1f} s: {result['metric']} p50 "
         f"{result['value']} ms, p95 {result['p95']} ms; {checked['headline_1M']} headline "
         f"answers tie-aware equal to the exact f32 reference, {checked['int8_10M']} int8 "
-        f"answers equal to int8_reference (atol 0); launches {launches}")
+        f"answers equal to int8_reference (atol 0), {checked['ivf_10M']} IVF answers bit for "
+        f"bit the candidate-set reference; launches {launches}")
     if checked["headline_1M"] < result["queries"]:
         raise AssertionError("the bench timed headline answers that were not checked")
     if checked["image_tower"] != extra["image_tower_batch"]:
         raise AssertionError("the bench's image tower batch was not checked")
+    if "--skip-10m" not in argv and checked["ivf_10M"] < 2 * result["queries"]:
+        raise AssertionError("the bench timed IVF answers that were not checked")
+    if "ivf_10M" in extra["not_ported"]:
+        raise AssertionError("the bench still lists ivf_10M as not ported")
     if require_kernels:
         idle = [k for k, n in launches.items() if n == 0
                 and not (k == "b2" and "--skip-10m" in argv)
@@ -1839,6 +1891,351 @@ def run_open_phase(device, bits: np.ndarray, config=None, workdir: Path | None =
     log("open", "the same 8 x 10 hits from both opens")
     shutil.rmtree(workdir, ignore_errors=True)
     return {k: {"open_s": v["open_s"], "attach_s": v["attach_s"]} for k, v in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the IVF approximate mode
+# ---------------------------------------------------------------------------
+
+ANN_CENTRES = 4096   # clusters of the 1M-row corpus (on uniform rows the recall
+                     # guard climbs to nprobe = nlist, which tests nothing)
+N_APPEND = 1000
+ANN_LADDER = (1, 2, 4, 8, 16)
+
+
+def clustered_rows_bf16_bits(noise_bits: np.ndarray, centres: int = ANN_CENTRES,
+                             noise: float = 0.35, seed: int = 1) -> np.ndarray:
+    """Rows around ``centres`` unit directions from numpy.random.default_rng(
+    seed), each moved by ``noise`` times the unit direction of its row of
+    ``noise_bits`` (the slice's standard-normal rows, as bf16 bits: drawing
+    as many normals again takes the host tens of seconds), L2-normalized, as
+    bf16 bits; made in blocks to bound host memory."""
+    n, dim = noise_bits.shape
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((centres, dim), dtype=np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    out = np.empty((n, dim), np.uint16)
+    for s in range(0, n, 131_072):
+        e = min(s + 131_072, n)
+        z = native.bf16_to_f32(noise_bits[s:e])
+        x = c[rng.integers(0, centres, e - s)]
+        x += (noise / np.maximum(np.linalg.norm(z, axis=1, keepdims=True), 1e-12)) * z
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        out[s:e] = native.f32_to_bf16(x)
+    return out
+
+
+class AppendableMemoryContainer(MemoryContainer):
+    """``MemoryContainer`` opened for writing: it also takes appended rows
+    and records, tombstones and checkpoints, and holds its ``ann`` group."""
+
+    def __init__(self, bits: np.ndarray) -> None:
+        super().__init__(bits, mode="a")
+        self._base = len(bits)
+        self._records: list[dict] = []
+        self._dead: set[int] = set()
+
+    def append_embeddings(self, rows: np.ndarray) -> tuple[int, int]:
+        start = self.num_rows
+        self._bits = np.concatenate(
+            [self._bits, native.f32_to_bf16(np.ascontiguousarray(rows, np.float32))])
+        return start, self.num_rows
+
+    def append_metadata(self, records: list[dict]) -> None:
+        self._records.extend(dict(r) for r in records)
+
+    def get_metadata(self, row_id: int) -> dict:
+        return (synthetic_record(row_id) if row_id < self._base
+                else dict(self._records[row_id - self._base]))
+
+    def iter_metadata(self):
+        return (self.get_metadata(i) for i in range(self.num_rows))
+
+    def append_journal(self, hashes: list[str]) -> None:
+        pass
+
+    def append_deleted(self, row_ids: list[int]) -> None:
+        self._dead.update(int(r) for r in row_ids)
+
+    def deleted_rows(self) -> set:
+        return set(self._dead)
+
+    def flush_checkpoint(self, extra: dict | None = None) -> None:
+        pass
+
+
+def _hit_rows(index, hits: list[dict]) -> tuple[np.ndarray, np.ndarray]:
+    rows = [index.row_for(h["folder"], h["image"]) for h in hits]
+    if None in rows:
+        raise AssertionError("a hit names no indexed keyframe")
+    return np.array(rows), np.array([h["similarity_score"] for h in hits], np.float32)
+
+
+def _answer_rows(answers) -> tuple[np.ndarray, np.ndarray]:
+    return (np.array([h.metadata.row_id for h in answers]),
+            np.array([h.similarity_score for h in answers], np.float32))
+
+
+def check_ivf_answer(index, qvec: np.ndarray, rows: np.ndarray, scores: np.ndarray,
+                     k: int) -> None:
+    """One answer against the plain candidate-set reference over the index's
+    own IVF state (tie-aware, atol 5e-4)."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.testing import (
+        ivf_candidate_reference,
+    )
+
+    q = np.asarray(qvec, np.float32).reshape(1, -1)
+    q = q / max(float(np.linalg.norm(q)), 1e-12)
+    ref_s, ref_i = ivf_candidate_reference(
+        index._dev_x, index._ann, torch.from_numpy(q).to(index.device), k,
+        index.config.ann_nprobe, index.ntotal, deleted=index._dev_deleted,
+        x_scales=index._dev_scales)
+    tie_aware_equal(rows, scores, ref_i[0], ref_s[0])
+
+
+def run_ann_slice(device, require_kernels: bool, bits: np.ndarray, config=None,
+                  batch_sizes=(1, 2, 4, 8, 16, 32, 64)) -> dict:
+    """The IVF mode through the facade: ``index_type="IndexIVFFlat"`` over
+    clustered bf16 rows (``clustered_rows_bf16_bits``) in a writable
+    in-memory stand-in. Every answer is checked; returns the launch and call
+    counts and the times."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+        UnifiedIndexConfig,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import ann, attention, topk
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+        create_system,
+    )
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the IVF rescore would not be full f32")
+    dim = bits.shape[1]
+    # the ANN path starts here: every count from zero
+    topk.chunk_max_sweep.launches = 0
+    attention.fused_mha.launches = 0
+    ann.ivf_topk.calls = 0
+    system = create_system(torch_device=device, index={"index_type": "IndexIVFFlat"})
+    if config is not None:
+        system.embedder._config_override = config
+    system.embedder.ensure_loaded()
+    container = AppendableMemoryContainer(bits)
+    index = UnifiedIndex(system._index_config(), device=device)
+    t0 = time.perf_counter()
+    index.attach_container(container)
+    opened = time.perf_counter() - t0
+    system.attach_index(index)
+    if not index.ann_active:
+        raise AssertionError("the IVF index type opened without the ANN mode")
+    first = index._ann
+    t0 = time.perf_counter()
+    report = index.build_ann(check_recall=True)
+    build_s = time.perf_counter() - t0
+    if not index.ann_active or not all(torch.equal(a, b) for a, b in zip(
+            (first.centroids, first.bucket_ids, first.tail_ids),
+            (index._ann.centroids, index._ann.bucket_ids, index._ann.tail_ids))):
+        raise AssertionError("a second build_ann over the same rows differs from the first")
+    nlist = report["nlist"]
+    log("ann", f"IndexIVFFlat over {index.ntotal} rows: attach (upload + build + recall guard) "
+        f"{opened:.1f} s; build_ann again {build_s:.2f} s, bit for bit the first: nlist "
+        f"{nlist}, bucket_cap {report['bucket_cap']}, leftover {report['leftover']}; recall "
+        f"guard ladder {report['recall_check']['ladder']} -> nprobe {index.config.ann_nprobe}")
+
+    nosave = SearchOptions(limit=10, use_cache=False)
+    for i in range(N_REQUESTS):
+        text = f"ann {i}: a red car driving at night past neon signs"
+        before = ann.ivf_topk.calls
+        hits = system.search(text, nosave)
+        if ann.ivf_topk.calls != before + 1:
+            raise AssertionError("a facade query at B=1 did not take the IVF path")
+        prompt, _ = system._clip_prompt(text, nosave)
+        check_ivf_answer(index, system.embedder.encode_text([prompt])[0],
+                         *_hit_rows(index, hits), 10)
+    log("ann", f"{N_REQUESTS} facade queries at B=1 through ivf_topk (nprobe "
+        f"{index.config.ann_nprobe}), tie-aware equal to the candidate-set reference")
+
+    rng = np.random.default_rng(2)
+    q8 = rng.standard_normal((8, dim)).astype(np.float32)
+    q8 /= np.linalg.norm(q8, axis=1, keepdims=True)
+    # the dense bf16 sweep scores with the query rounded to bf16, the IVF
+    # rescore with the f32 query (as in the reference): unit rows move a
+    # score by at most the rounding's norm
+    q8_bf16 = torch.from_numpy(q8).to(torch.bfloat16).float().numpy()
+    slack = np.linalg.norm(q8 - q8_bf16, axis=1)
+    exact8 = index.search_vectors(q8, top_k=20, exact=True)
+    full8 = index.search_vectors(q8, top_k=20, nprobe=nlist)
+    full1 = [index.search_vectors(q8[i:i + 1], top_k=20, nprobe=nlist)[0] for i in range(8)]
+    for i, (e, f, g) in enumerate(zip(exact8, full8, full1)):
+        tie_aware_equal(*_answer_rows(f), *_answer_rows(e), atol=5e-4 + float(slack[i]))
+        tie_aware_equal(*_answer_rows(g), *_answer_rows(f))
+    batched = index.search_vectors(q8, top_k=20, nprobe=index.config.ann_nprobe)
+    for i, hits in enumerate(batched):
+        one = index.search_vectors(q8[i:i + 1], top_k=20, nprobe=index.config.ann_nprobe)[0]
+        tie_aware_equal(*_answer_rows(hits), *_answer_rows(one))
+        check_ivf_answer(index, q8[i], *_answer_rows(hits), 20)
+    big = index.config.ann_max_batch + 1
+    before = (topk.chunk_max_sweep.launches, ann.ivf_topk.calls)
+    over = index.search_vectors(q8[:big] if big <= 8 else rng.standard_normal(
+        (big, dim)).astype(np.float32), top_k=20)
+    if require_kernels and topk.chunk_max_sweep.launches <= before[0]:
+        raise AssertionError("a batch above ann_max_batch launched no B1 kernel")
+    if ann.ivf_topk.calls != before[1]:
+        raise AssertionError("a batch above ann_max_batch took the IVF path")
+    for e, o in zip(index.search_vectors(q8[:big], top_k=20, exact=True), over):
+        tie_aware_equal(*_answer_rows(o), *_answer_rows(e), atol=0.0)
+    log("ann", f"nprobe = nlist at B=1 and B=8 equal to exact=True; B=8 equal to eight B=1 "
+        f"calls and to the reference; B={big} (above ann_max_batch) took B1, equal to exact")
+
+    lat = {"ann": [], "exact": [], "facade": []}
+    for i in range(N_LATENCY + 4):
+        qv = rng.standard_normal((1, dim)).astype(np.float32)
+        for key, fn in (("ann", lambda: index.search_vectors(qv, top_k=20)),
+                        ("exact", lambda: index.search_vectors(qv, top_k=20, exact=True)),
+                        ("facade", lambda: system.search(f"ann latency {i}: a market", nosave))):
+            t0 = time.perf_counter()
+            fn()
+            if i >= 4:
+                lat[key].append((time.perf_counter() - t0) * 1e3)
+    times = {k: (float(np.percentile(v, 50)), float(np.percentile(v, 95)))
+             for k, v in lat.items()}
+    log("numbers", f"ANN over {index.ntotal} bf16 rows, {N_LATENCY} warm queries at B=1: "
+        f"search_vectors IVF p50 {times['ann'][0]:.3f} ms p95 {times['ann'][1]:.3f} ms; "
+        f"exact=True p50 {times['exact'][0]:.3f} ms p95 {times['exact'][1]:.3f} ms; facade "
+        f"search p50 {times['facade'][0]:.3f} ms p95 {times['facade'][1]:.3f} ms")
+
+    n0 = index.ntotal
+    new = rng.standard_normal((N_APPEND, dim)).astype(np.float32)
+    index.incremental_update(new, [{"folder": "appended", "image": f"{i:04d}.jpg",
+                                    "frame_id": i} for i in range(N_APPEND)])
+    if not index.ann_active or index._ann.tail_count < N_APPEND:
+        raise AssertionError("the appended rows did not land in the IVF tail")
+    for s in range(0, N_APPEND, 4):
+        found = [h[0].metadata.row_id for h in index.search_vectors(new[s:s + 4], top_k=1,
+                                                                     nprobe=1)]
+        if found != list(range(n0 + s, n0 + s + len(found))):
+            raise AssertionError(f"appended rows {s}..: found {found}")
+    top = index.search_vectors(q8[:4], top_k=5)
+    dead = sorted({h.metadata.row_id for hits in top for h in hits})
+    index.delete_rows(dead)
+    for i, hits in enumerate(index.search_vectors(q8[:4], top_k=50)):
+        if {h.metadata.row_id for h in hits} & set(dead):
+            raise AssertionError("a deleted row came back")
+        check_ivf_answer(index, q8[i], *_answer_rows(hits), 50)
+    log("ann", f"{N_APPEND} appended rows in the tail (tail_count {index._ann.tail_count}), each "
+        f"found first by its own vector at nprobe 1; {len(dead)} deleted rows never returned")
+
+    t0 = time.perf_counter()
+    cx = index.measure_ann_crossover(batch_sizes=batch_sizes)
+    log("ann", f"measure_ann_crossover in {time.perf_counter() - t0:.1f} s: ann_max_batch "
+        f"{cx['max_batch']} at nprobe {cx['nprobe']}; ladder {cx['ladder']}")
+    tuned = (index.config.ann_nprobe, index.config.ann_max_batch)
+    launches = {"b1": topk.chunk_max_sweep.launches, "b3": attention.fused_mha.launches,
+                "ivf_topk": ann.ivf_topk.calls}
+    system.cleanup()
+    reopened = UnifiedIndex(UnifiedIndexConfig(), device=device).attach_container(container)
+    got = (reopened.config.ann_nprobe, reopened.config.ann_max_batch)
+    if not reopened.ann_active or got != tuned or not reopened._ann_crossover_measured:
+        raise AssertionError(f"reopened with a default config: ann_active "
+                             f"{reopened.ann_active}, (nprobe, max_batch) {got} != {tuned}")
+    hits = reopened.search_vectors(new[:1], top_k=1, nprobe=1)[0]
+    if hits[0].metadata.row_id != n0:
+        raise AssertionError("the reopened index lost an appended row")
+    reopened.close()
+    log("ann", f"persisted, closed and reopened with a default config: ann_active, nprobe "
+        f"{got[0]} and max_batch {got[1]} restored; launches {launches}")
+    if require_kernels and (launches["ivf_topk"] == 0 or launches["b1"] == 0
+                            or launches["b3"] == 0):
+        raise AssertionError(f"the ANN path missed a step: {launches}")
+    return {"launches": launches, "build_s": build_s, "open_s": opened, "nlist": nlist,
+            "nprobe": tuned[0], "max_batch": tuned[1], "crossover": cx["ladder"],
+            "times": times}
+
+
+def run_ann_int8(device, rows: dict, timer: Timer, n_valid: int | None = None,
+                 nlist: int = 8192, batch_sizes=ANN_LADDER) -> dict:
+    """``build_ivf`` below the facade over the int8 kernel phase's rows with
+    the bench's parameters; answers at nprobe 16 and 64, B = 1 and 8, bit for
+    bit the candidate-set reference; then ``ivf_topk`` against
+    ``topk_search_int8`` (B2) over the batch sizes, wall and CUDA-event time."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import ann, quant
+    from intelligent_video_analysis_retrieval_system_tpu_torch.testing import (
+        ivf_candidate_reference,
+    )
+
+    x_i8, xs, dead = rows["x_i8"], rows["xs"], rows["dead"]
+    n_valid = rows["n_valid"] if n_valid is None else n_valid
+    on_card = device.type == "cuda"
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    calls0 = ann.ivf_topk.calls
+    sync()
+    t0 = time.perf_counter()
+    state, report = ann.build_ivf(x_i8, n_rows=n_valid, x_scales=xs, nlist=nlist,
+                                  sample_per_list=48, kmeans_iters=6)
+    sync()
+    build_s = time.perf_counter() - t0
+    log("ann", f"build_ivf over {n_valid} x {x_i8.shape[1]} int8 rows: {build_s:.2f} s, nlist "
+        f"{report.nlist}, bucket_cap {report.bucket_cap}, leftover {report.leftover}")
+    gen = torch.Generator(device=device).manual_seed(3)
+    for nprobe in (16, 64):
+        for b in (1, 8):
+            q = torch.randn(b, x_i8.shape[1], generator=gen, device=device)
+            got = ann.ivf_topk(x_i8, state, q, 20, nprobe=nprobe, n_valid=n_valid,
+                               deleted=dead, x_scales=xs)
+            ref_s, ref_i = ivf_candidate_reference(x_i8, state, q, 20, nprobe, n_valid,
+                                                   deleted=dead, x_scales=xs)
+            for i in range(b):
+                scores = got.scores[i].cpu().numpy()
+                if not np.array_equal(scores, ref_s[i]):
+                    raise AssertionError(f"int8 IVF nprobe={nprobe} B={b}: scores differ from "
+                                         "the candidate-set reference")
+                tie_aware_equal(got.indices[i].cpu().numpy(), scores, ref_i[i], ref_s[i],
+                                atol=0.0)
+    log("ann", "int8 IVF at nprobe 16 and 64, B = 1 and 8: bit for bit the candidate-set "
+        "reference")
+    ladder = []
+    for b in batch_sizes:
+        q = torch.randn(b, x_i8.shape[1], generator=gen, device=device)
+        row = {"batch": b}
+        for key, fn in (("ivf", lambda: ann.ivf_topk(x_i8, state, q, 10, nprobe=64,
+                                                     n_valid=n_valid, deleted=dead,
+                                                     x_scales=xs)),
+                        ("b2", lambda: quant.topk_search_int8(x_i8, xs, q, 10, n_valid=n_valid,
+                                                              deleted=dead))):
+            fn()
+            sync()
+            wall = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            row[f"{key}_wall_ms"] = float(np.median(wall))
+            row[f"{key}_event_ms"] = timer(fn, iters=10)
+        ladder.append(row)
+        log("numbers", f"10M int8 B={b}: ivf_topk nprobe 64 wall {row['ivf_wall_ms']:.3f} ms "
+            f"(events {row['ivf_event_ms']:.3f}), topk_search_int8 (B2) wall "
+            f"{row['b2_wall_ms']:.3f} ms (events {row['b2_event_ms']:.3f})")
+    wins = [r["batch"] for r in ladder if r["ivf_wall_ms"] < r["b2_wall_ms"]]
+    crossover = 0
+    for r in ladder:
+        if r["ivf_wall_ms"] >= r["b2_wall_ms"]:
+            break
+        crossover = r["batch"]
+    log("ann", f"10M int8 crossover by wall time: {crossover} (IVF wins at {wins})")
+    return {"build_s": build_s, "nlist": report.nlist, "bucket_cap": report.bucket_cap,
+            "leftover": report.leftover, "ladder": ladder, "crossover": crossover,
+            "calls": ann.ivf_topk.calls - calls0}
 
 
 # ---------------------------------------------------------------------------
@@ -2066,6 +2463,67 @@ def run_profile(device, bits: np.ndarray, config=None, iters: int = 20) -> list[
     return rows
 
 
+def profile_ann(device, bits: np.ndarray, n_int8: int = N_INT8, config=None,
+                iters: int = 20) -> list[dict]:
+    """PERF.md section 5's rows of the IVF mode: search_vectors at B=1 over
+    the clustered bf16 rows behind the facade (IVF, exact=True, and the
+    facade's search), then ivf_topk at B=1 over 10M int8 rows made on the
+    card (nprobe 16 and 64) beside topk_search_int8."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench.data import gen_db_int8
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import UnifiedIndex
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import ann, quant
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+        create_system,
+    )
+
+    workdir = ROOT / "build" / "chip_smoke"
+    workdir.mkdir(parents=True, exist_ok=True)
+    rows = []
+    system = create_system(torch_device=device, index={"index_type": "IndexIVFFlat"})
+    if config is not None:
+        system.embedder._config_override = config
+    system.embedder.ensure_loaded()
+    dim = system.embedder.embed_dim
+    index = UnifiedIndex(system._index_config(), device=device)
+    index.attach_container(AppendableMemoryContainer(clustered_rows_bf16_bits(bits)))
+    system.attach_index(index)
+    log("profile", f"ann bf16: {index.ntotal} rows, nlist "
+        f"{int(index._ann.bucket_ids.shape[0])}, nprobe {index.config.ann_nprobe}")
+    qv1 = system.embedder.encode_text(["profile: a crowded market street in the rain"])
+    fresh = iter(range(10**9))
+    nosave = SearchOptions(limit=20, use_cache=False)
+    for name, fn in (("search_vectors_B1_ann", lambda: index.search_vectors(qv1, top_k=20)),
+                     ("search_vectors_B1_exact",
+                      lambda: index.search_vectors(qv1, top_k=20, exact=True)),
+                     ("search_e2e_B1_ann", lambda: system.search(
+                         f"profile {next(fresh)}: a crowded market street", nosave))):
+        row = {"dtype": "bf16", **profile_phase(name, fn, device, workdir, iters)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    system.cleanup()
+    del index, system
+    torch.cuda.empty_cache()
+    x, xs = gen_db_int8(-(-n_int8 // 2048) * 2048, dim, 0, device)
+    state, report = ann.build_ivf(x, n_rows=n_int8, x_scales=xs,
+                                  nlist=min(8192, ann.default_nlist(n_int8)),
+                                  sample_per_list=48, kmeans_iters=6)
+    log("profile", f"ann int8: {n_int8} rows, nlist {report.nlist}, cap {report.bucket_cap}")
+    q = torch.nn.functional.normalize(torch.randn(1, dim, device=device), dim=-1)
+    for name, fn in (("ivf_topk_B1_np16", lambda: ann.ivf_topk(x, state, q, 20, nprobe=16,
+                                                                n_valid=n_int8, x_scales=xs)),
+                     ("ivf_topk_B1_np64", lambda: ann.ivf_topk(x, state, q, 20, nprobe=64,
+                                                                n_valid=n_int8, x_scales=xs)),
+                     ("topk_search_int8_B1", lambda: quant.topk_search_int8(
+                         x, xs, q, 20, n_valid=n_int8))):
+        row = {"dtype": "int8", **profile_phase(name, fn, device, workdir, iters)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2098,14 +2556,20 @@ def main(argv: list[str] | None = None) -> int:
     if args.profile:
         profile_build(device)
         torch.cuda.empty_cache()
-        run_profile(device, make_rows(N_ROWS))
+        bits = make_rows(N_ROWS)
+        run_profile(device, bits)
+        torch.cuda.empty_cache()
+        profile_ann(device, bits)
         print(smi, flush=True)
         return 0
 
     timer = Timer(device)
     b1, b3 = check_kernels(device, N_ROWS, DIM, timer, require_kernels=True)
     torch.cuda.empty_cache()
-    b2 = check_int8_kernels(device, N_INT8, DIM, timer, require_kernels=True)
+    rows10 = {}
+    b2 = check_int8_kernels(device, N_INT8, DIM, timer, require_kernels=True, keep=rows10)
+    ann10 = run_ann_int8(device, rows10, timer)
+    del rows10
     torch.cuda.empty_cache()
     bits = make_rows(N_ROWS)
     result = run_slice(device, N_ROWS, require_kernels=True, bits=bits)
@@ -2113,7 +2577,14 @@ def main(argv: list[str] | None = None) -> int:
     result8 = run_int8_slice(device, bits, require_kernels=True)
     torch.cuda.empty_cache()
     opened = run_open_phase(device, bits)
+    t0 = time.perf_counter()
+    ann_bits = clustered_rows_bf16_bits(bits)
+    log("ann", f"made {len(ann_bits)} x {ann_bits.shape[1]} rows around {ANN_CENTRES} centres "
+        f"in {time.perf_counter() - t0:.1f} s")
     del bits
+    torch.cuda.empty_cache()
+    ann1 = run_ann_slice(device, require_kernels=True, bits=ann_bits)
+    del ann_bits
     torch.cuda.empty_cache()
     b4, b5 = check_build_kernels(device, timer, require_kernels=True)
     torch.cuda.empty_cache()
@@ -2158,6 +2629,10 @@ def main(argv: list[str] | None = None) -> int:
     ]}
     log("build", f"launches on the build path: {built['launches']}")
     log("open", f"1M-row int8 facade open: {opened}")
+    log("ann", f"1M bf16 facade: build {ann1['build_s']:.2f} s, nprobe {ann1['nprobe']}, "
+        f"ann_max_batch {ann1['max_batch']}, launches {ann1['launches']}; 10M int8: build "
+        f"{ann10['build_s']:.2f} s, crossover {ann10['crossover']}, ivf_topk calls "
+        f"{ann10['calls']}")
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ Counterpart of the JAX package's root ``bench.py`` and of its
 ``benchmarks/exp_int8.py`` / ``exp_stream_bw.py`` experiments. It runs the
 sections of :mod:`.headline` (the headline text query over ``--rows`` bf16
 rows, 1,000,000 by default; the image tower, ViT-B/32 or with ``--full``
-ViT-L/14; the int8 capacity mode over ten times ``--rows``, unless
-``--skip-10m``) and with ``--probes`` the kernels of :mod:`.probes`, logs to
-stderr, and prints one JSON line on stdout with the JAX bench's key names
+ViT-L/14; the int8 capacity mode over ten times ``--rows`` and the IVF
+approximate mode over the same rows, unless ``--skip-10m``) and with
+``--probes`` the kernels of :mod:`.probes`, logs to stderr, and prints one
+JSON line on stdout with the JAX bench's key names
 (``metric``, ``value``, ``unit``, ``vs_baseline``, ``p95``, ``queries``,
 ``extra``). ``extra`` starts with the card's name and power limit as
 ``nvidia-smi`` gives them, and ends with ``not_ported``: the sections of the
@@ -72,6 +73,7 @@ def run_bench(device: torch.device | str = "cuda", rows: int | None = None,
     if not skip_10m:
         # the 1M bf16 rows are gone by now (headline_1M frees them)
         extra.update(headline.int8_10M(device, embedder, 10 * rows, verify))
+        extra.update(headline.ivf_10M(device, embedder, 10 * rows, verify))
     if probes:
         del embedder
         gc.collect()
@@ -100,7 +102,7 @@ def main(argv: list[str] | None = None, verify: headline.Verify | None = None,
     parser.add_argument("--probes", action="store_true",
                         help="also time the int8 sweep probes and the memory-stream probe")
     parser.add_argument("--skip-10m", action="store_true",
-                        help="leave out the int8 capacity section")
+                        help="leave out the int8 capacity and IVF sections")
     args = parser.parse_args(argv)
     result = run_bench(args.device, args.rows, args.full, args.probes, args.skip_10m,
                        verify=verify, verify_tower=verify_tower, check_probes=check_probes)

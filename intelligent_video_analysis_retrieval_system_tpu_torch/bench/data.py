@@ -60,18 +60,22 @@ class MemoryContainer:
     """The read interface of ``index.container.IndexContainer`` over bf16
     rows held in host memory, with :func:`synthetic_record` metadata: what
     ``UnifiedIndex.attach_container`` needs to serve rows that never were a
-    file. ``path`` names where the index may keep its sidecars (None: no
-    sidecars)."""
+    file, and the container's ``ann`` group held in memory (``put_ann``,
+    ``get_ann``, ``update_ann_attrs``, ``drop_ann``: writes need ``mode``
+    "a" or "w", ``drop_ann`` and ``update_ann_attrs`` do nothing in "r", as
+    in the container). ``path`` names where the index may keep its sidecars
+    (None: no sidecars)."""
 
-    mode = "r"
     dtype = "bfloat16"
     num_thumbnails = 0
     num_images = 0
 
-    def __init__(self, bits: np.ndarray, path: Path | None = None) -> None:
+    def __init__(self, bits: np.ndarray, path: Path | None = None, mode: str = "r") -> None:
         self._bits = bits
         self.dim = bits.shape[1]
         self.path = path
+        self.mode = mode
+        self._ann: tuple[dict, dict] | None = None
 
     @property
     def num_rows(self) -> int:
@@ -93,8 +97,24 @@ class MemoryContainer:
     def deleted_rows(self) -> set:
         return set()
 
-    def get_ann(self):
-        return None
+    def put_ann(self, arrays: dict, attrs: dict) -> None:
+        if self.mode == "r":
+            raise PermissionError("container opened read-only")
+        self._ann = ({k: np.array(v) for k, v in arrays.items()}, dict(attrs))
+
+    def update_ann_attrs(self, attrs: dict) -> None:
+        if self._ann is not None and self.mode != "r":
+            self._ann[1].update(attrs)
+
+    def get_ann(self) -> tuple[dict, dict] | None:
+        if self._ann is None:
+            return None
+        arrays, attrs = self._ann
+        return {k: v.copy() for k, v in arrays.items()}, dict(attrs)
+
+    def drop_ann(self) -> None:
+        if self.mode != "r":
+            self._ann = None
 
     def stats(self) -> ContainerStats:
         return ContainerStats(path="<memory>", num_rows=self.num_rows, dim=self.dim,

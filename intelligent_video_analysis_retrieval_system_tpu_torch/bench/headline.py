@@ -1,5 +1,6 @@
 """The bench's sections: the headline text query over a 1M-row bf16 index,
-the image tower's throughput, and the int8 capacity mode at 10M rows.
+the image tower's throughput, the int8 capacity mode at 10M rows, and the
+IVF approximate mode over the same 10M int8 rows.
 
 Counterpart of the JAX package's root ``bench.py``. Each section takes the
 device and returns its keys; a section that fails raises. The sections
@@ -12,10 +13,12 @@ synthetic (``bench/data.py``).
 ``verify``, when given, is called after a section's timing with the rows
 the section searched and every answer it got (``verify(section, x, scales,
 n_valid, queries, result)``: ``scales`` None for bf16 rows, ``queries`` as
-they went into the search, ``result`` a ``TopKResult`` of all of them): the
-chip smoke holds them against the exact references. ``verify_tower``, when
-given to :func:`image_tower`, gets the model, the normalized pixels of the
-timed batch and the embeddings the timed route gave for them.
+they went into the search, ``result`` a ``TopKResult`` of all of them; the
+IVF section adds ``ivf=(state, nprobe)``, the structure and probe count the
+answers came from): the chip smoke holds them against the references.
+``verify_tower``, when given to :func:`image_tower`, gets the model, the
+normalized pixels of the timed batch and the embeddings the timed route gave
+for them.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from __future__ import annotations
 import gc
 import sys
 import tempfile
+import time
 from typing import Callable
 
 import torch
 
 from ..index.unified import UnifiedIndex
 from ..models.clip import CLIPConfig
+from ..ops.ann import build_ivf, default_nlist, ivf_topk
 from ..ops.preprocess import normalize_images
 from ..ops.quant import topk_search_int8
 from ..ops.topk import TILE_N, TopKResult, _ceil_to, topk_search
@@ -37,10 +42,10 @@ from ..system.facade import EnhancedRetrievalSystem, SearchOptions
 from ..utils.config import Config
 from .data import MemoryContainer, gen_db_bf16, gen_db_int8
 from .timing import MIN_CALLS as CALLS
-from .timing import percentile_wall
+from .timing import _sync, percentile_wall
 
 __all__ = ["K", "BASELINE_MS", "NOT_PORTED", "TextQuery", "headline_1M", "image_tower",
-           "int8_10M"]
+           "int8_10M", "ivf_10M"]
 
 K = 10
 # the reference system's own figure for one text query over its index (ms)
@@ -48,11 +53,10 @@ BASELINE_MS = 39.0
 PROMPT = "a photo of a scene"
 # sections of the JAX bench whose modules the port does not have yet; a later
 # change removes a name when it ports the section
-NOT_PORTED = ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static", "ivf_10M",
-              "served_qps", "served_10M"]
+NOT_PORTED = ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static", "served_qps",
+              "served_10M"]
 
-Verify = Callable[[str, torch.Tensor, "torch.Tensor | None", int, torch.Tensor, TopKResult],
-                  None]
+Verify = Callable[..., None]
 VerifyTower = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], None]
 
 
@@ -269,5 +273,56 @@ def int8_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
         log(f"int8 e2e over {n_small} rows: p50={ts['p50_ms']:.3f} ms")
         out[key] = round(ts["p50_ms"], 3)
     del x10, s10
+    gc.collect()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the IVF approximate mode over the 10M int8 rows
+# ---------------------------------------------------------------------------
+
+
+def ivf_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
+            verify: Verify | None = None) -> dict:
+    """``build_ivf`` over ``rows`` x D int8 rows (the int8 section's, made
+    again from its seed) with the JAX bench's parameters (nlist 8192, or
+    ``default_nlist`` where that is smaller; 48 sample rows per list; 6
+    k-means iterations), timed; then one text query + ``ivf_topk`` at B=1,
+    nprobe 16 and 64. The key names are the JAX bench's and say 10M
+    whatever ``rows`` is."""
+    tq = TextQuery(embedder)
+    n_pad = _ceil_to(rows, TILE_N)
+    log(f"IVF section: generating {rows} x {tq.dim} int8 rows on {device}...")
+    x10, s10 = gen_db_int8(n_pad, tq.dim, 0, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    state, report = build_ivf(x10, n_rows=rows, x_scales=s10,
+                              nlist=min(8192, default_nlist(rows)), sample_per_list=48,
+                              kmeans_iters=6)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    log(f"IVF build over {rows} rows: {build_s:.2f} s (nlist={report.nlist} "
+        f"cap={report.bucket_cap} leftover={report.leftover})")
+    out = {"ivf_build_10M_s": round(build_s, 2), "ivf_nlist": report.nlist,
+           "ivf_bucket_cap": report.bucket_cap}
+    for nprobe in (16, 64):
+        asked: list[torch.Tensor] = []
+        answers: list[TopKResult] = []
+
+        def query(i: int) -> None:
+            q = tq.encode(i + 1)
+            res = ivf_topk(x10, state, q, K, nprobe=nprobe, n_valid=rows, x_scales=s10)
+            if i >= 0:  # warm-up calls carry negative numbers
+                asked.append(q)
+                answers.append(res)
+
+        t = percentile_wall(query, CALLS, device)
+        log(f"{rows} int8 IVF e2e nprobe={nprobe}: p50={t['p50_ms']:.3f} ms "
+            f"p95={t['p95_ms']:.3f} ms (device p50 {t['device_p50_ms']})")
+        if verify is not None:
+            verify("ivf_10M", x10, s10, rows, torch.cat(asked), _stack(answers),
+                   ivf=(state, nprobe))
+        out[f"latency_10M_int8_ivf_np{nprobe}_p50_ms"] = round(t["p50_ms"], 3)
+    del x10, s10, state
     gc.collect()
     return out

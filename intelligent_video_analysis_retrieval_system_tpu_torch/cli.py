@@ -15,10 +15,17 @@
 
 ``evaluate`` — retrieval quality on the index's own corpus: the served
 search against an exact f32 oracle (recall@k, rank agreement), the quality
-gate of the int8 capacity mode:
+gate of the int8 capacity mode and of the IVF mode:
 
     python -m intelligent_video_analysis_retrieval_system_tpu_torch evaluate \
-        index.rvdb [--search auto|exact|int8_rescore] [--queries 64] [--top-k 10]
+        index.rvdb [--search auto|exact|ann|int8_rescore] [--nprobe N] \
+        [--tune-nprobe RECALL] [--queries 64] [--top-k 10]
+
+``tune`` — tune the IVF mode's knobs on the index's own corpus and persist
+them: nprobe to a recall target, then the IVF/dense crossover batch:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch tune \
+        index.rvdb [--target-recall 0.95] [--skip-crossover] [--build]
 
 ``compact`` — drop tombstoned rows from an index, in place.
 
@@ -89,6 +96,18 @@ def _build_parser() -> argparse.ArgumentParser:
     cp.add_argument("index_path")
     cp.add_argument("--device", default="cuda")
 
+    tu = sub.add_parser(
+        "tune",
+        help="self-tune the index's ANN knobs on its own corpus and persist them: nprobe "
+             "to a recall target (tune_nprobe) and the IVF/dense crossover batch cap "
+             "(measure_ann_crossover); a reopened index serves with the tuned values")
+    tu.add_argument("index_path")
+    tu.add_argument("--target-recall", type=float, default=0.95)
+    tu.add_argument("--skip-crossover", action="store_true", help="only tune nprobe")
+    tu.add_argument("--build", action="store_true",
+                    help="build the IVF structure first if absent")
+    tu.add_argument("--device", default="cuda")
+
     # the bench parses its own flags (bench.main)
     sub.add_parser("bench", help="end-to-end bench: one JSON line on stdout",
                    add_help=False)
@@ -109,9 +128,14 @@ def _build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--seed", type=int, default=0)
     ev.add_argument("--search", choices=["auto", "exact", "ann", "int8_rescore"],
                     default="auto",
-                    help="candidate path: auto = what the index serves; exact = "
-                         "the dense sweep (the same here: IVF is not ported); "
-                         "int8_rescore = the int8 exact-rescore mode")
+                    help="candidate path: auto = what the index serves; ann = force IVF "
+                         "probing (batches chunked to the ANN batch limit); exact = the "
+                         "dense sweep; int8_rescore = the int8 exact-rescore mode")
+    ev.add_argument("--nprobe", type=int, default=None,
+                    help="override ann_nprobe for --search ann")
+    ev.add_argument("--tune-nprobe", type=float, default=None, metavar="RECALL",
+                    help="pick the smallest nprobe reaching this recall@k target before "
+                         "evaluating (implies --search ann; prints the tested ladder)")
     ev.add_argument("--device", default="cuda")
     return p
 
@@ -200,13 +224,46 @@ def cmd_compact(args) -> int:
     return 0
 
 
+def cmd_tune(args) -> int:
+    """Tune and persist the ANN knobs on the index's own corpus."""
+    from .index.unified import UnifiedIndex
+
+    index = UnifiedIndex(device=args.device)
+    index.load_unified_index(args.index_path, mode="a")
+    try:
+        if not index.ann_active:
+            if not args.build:
+                print("ANN not active on this index; pass --build to build the IVF "
+                      "structure first")
+                return 1
+            rep = index.build_ann()
+            print(f"built IVF: nlist={rep['nlist']}")
+        tune = index.tune_nprobe(target_recall=args.target_recall)
+        if tune.get("raced_mutation"):
+            print("tune raced a concurrent mutation; re-run when the index is quiescent")
+            return 1
+        print(f"nprobe={tune['nprobe']} at recall@{tune['top_k']} {tune['recall']:.4f} "
+              f"(target {args.target_recall}); ladder {tune['ladder']}")
+        if not args.skip_crossover:
+            cx = index.measure_ann_crossover()
+            if cx.get("raced_mutation"):
+                print("crossover measurement raced a mutation; cap unchanged")
+                return 1
+            rungs = ", ".join(f"B={r['batch']}: ivf {r['ann_ms']} / dense {r['dense_ms']} ms"
+                              for r in cx["ladder"])
+            verdict = ("IVF never wins — serving stays dense" if cx["max_batch"] == 0
+                       else "persisted")
+            print(f"ann_max_batch={cx['max_batch']} ({verdict}); {rungs}")
+        print("tuned values persisted; reopened indexes serve with them")
+        return 0
+    finally:
+        index.close()
+
+
 def cmd_evaluate(args) -> int:
     from .index.unified import UnifiedIndex
     from .retrieval.evaluation import evaluate_backends
 
-    if args.search == "ann":
-        raise NotImplementedError("evaluate --search ann: IVF ANN search is ported "
-                                  "in a later change")
     index = UnifiedIndex(device=args.device)
     index.load_unified_index(args.index_path)
     try:
@@ -239,9 +296,28 @@ def cmd_evaluate(args) -> int:
                 return 1
             index.config.int8_rescore = True
             search_mode = "auto"
+        if args.tune_nprobe:
+            search_mode = "ann"
+        if search_mode == "ann":
+            if not index.ann_active:
+                index.build_ann(persist=False)
+            if args.nprobe:
+                index.config.ann_nprobe = int(args.nprobe)
+        tune_report = None
+        if args.tune_nprobe:
+            tune_report = index.tune_nprobe(target_recall=float(args.tune_nprobe), top_k=k,
+                                            seed=args.seed)
 
         def candidate(queries):
-            per_query = index.search_vectors(queries, top_k=k)
+            if search_mode == "ann":
+                # chunks of the ANN batch limit, so that every query probes
+                step = max(1, index.config.ann_max_batch)
+                per_query = []
+                for s in range(0, len(queries), step):
+                    per_query.extend(index.search_vectors(queries[s:s + step], top_k=k))
+            else:
+                per_query = index.search_vectors(queries, top_k=k,
+                                                 exact=search_mode == "exact")
             ids = np.array([[h.metadata.row_id for h in hits] for hits in per_query])
             scores = np.array([[h.similarity_score for h in hits] for hits in per_query],
                               np.float64)
@@ -274,6 +350,10 @@ def cmd_evaluate(args) -> int:
         out["dtype"] = index.get_stats()["container"]["dtype"]
         out["rows"] = n
         out["search"] = search_mode
+        if index.ann_active:
+            out["ann"] = index.get_stats()["ann"]
+        if tune_report is not None:
+            out["tuned"] = tune_report
         print(json.dumps(out, indent=2))
         return 0
     finally:
@@ -281,7 +361,7 @@ def cmd_evaluate(args) -> int:
 
 
 _COMMANDS = {"build": cmd_build, "search": cmd_search, "stats": cmd_stats,
-             "evaluate": cmd_evaluate, "compact": cmd_compact}
+             "evaluate": cmd_evaluate, "compact": cmd_compact, "tune": cmd_tune}
 
 
 def main(argv: list[str] | None = None) -> int:

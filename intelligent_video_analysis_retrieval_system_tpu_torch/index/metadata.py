@@ -4,9 +4,10 @@ Port of ``intelligent_video_analysis_retrieval_system_tpu/index/metadata.py``:
 the ``folder -> {image -> KeyframeMetadata}`` store, the per-folder
 temporal order by frame_id and the per-folder top-k cosine-similarity graph
 (threshold 0.7), one batched matmul per folder on the manager's ``device``
-(the port's ``ops.topk.topk_exact_reference``), and the verified JSON
-save/load (portable export). The graph's readers (the agent tools) come
-with their port.
+(the port's ``ops.topk.topk_exact_reference``), their readers (``get``,
+``folders``, ``get_temporal_neighbors``, ``get_similar_frames``, the
+gap-based ``get_scene_boundaries``), and the verified JSON save/load
+(portable export).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class MetadataManager:
         self,
         similarity_threshold: float = 0.7,   # core.py:3507
         similarity_top_k: int = 10,           # core.py:3493-3531
+        scene_gap_threshold: int = 5,         # core.py:3242-3276
         device: torch.device | str = "cuda",
         file_manager: FileManager | None = None,
     ) -> None:
@@ -37,6 +39,7 @@ class MetadataManager:
         self.fm = file_manager or FileManager()
         self.similarity_threshold = similarity_threshold
         self.similarity_top_k = similarity_top_k
+        self.scene_gap_threshold = scene_gap_threshold
         self.by_folder: dict[str, dict[str, KeyframeMetadata]] = {}
         self.temporal_index: dict[str, list[str]] = {}
         self.similarity_graph: dict[str, dict[str, list[tuple[str, float]]]] = {}
@@ -99,8 +102,45 @@ class MetadataManager:
 
     # -- queries ------------------------------------------------------------
 
+    def get(self, folder: str, image: str) -> KeyframeMetadata | None:
+        return self.by_folder.get(folder, {}).get(image)
+
+    def folders(self) -> list[str]:
+        return sorted(self.by_folder)
+
     def count(self) -> int:
         return sum(len(v) for v in self.by_folder.values())
+
+    def get_temporal_neighbors(self, folder: str, image: str,
+                               window: int = 3) -> list[KeyframeMetadata]:
+        """+-window neighbours in frame order."""
+        order = self.temporal_index.get(folder, [])
+        try:
+            pos = order.index(image)
+        except ValueError:
+            return []
+        out = []
+        for offset in range(-window, window + 1):
+            idx = pos + offset
+            if offset != 0 and 0 <= idx < len(order):
+                out.append(self.by_folder[folder][order[idx]])
+        return out
+
+    def get_similar_frames(self, folder: str, image: str) -> list[tuple[str, float]]:
+        return self.similarity_graph.get(folder, {}).get(image, [])
+
+    def get_scene_boundaries(self, folder: str) -> list[int]:
+        """Start positions (in frame order) of the folder's scenes: a new
+        scene where the frame_id gap exceeds ``scene_gap_threshold``."""
+        order = self.temporal_index.get(folder, [])
+        if not order:
+            return []
+        frame_ids = [self.by_folder[folder][img].frame_id for img in order]
+        boundaries = [0]
+        for i in range(1, len(frame_ids)):
+            if frame_ids[i] - frame_ids[i - 1] > self.scene_gap_threshold:
+                boundaries.append(i)
+        return boundaries
 
     # -- persistence (the JAX package's format, readable by either) ----------
 

@@ -1,6 +1,6 @@
 """UnifiedIndex: the searchable single-file index, rows on a device.
 
-Port of the single-device half (dense and int8) of
+Port of the single-device half (dense, int8 and IVF) of
 ``intelligent_video_analysis_retrieval_system_tpu/index/unified.py``:
 
 - the searchable state is a padded ``(capacity, dim)`` bf16/f32 tensor on
@@ -22,18 +22,23 @@ Port of the single-device half (dense and int8) of
   rows load from the ``.flat8`` sidecar when it is fresh, else from the
   container, which then writes the sidecar for the next open. With
   ``int8_rescore`` the widened int8 candidate set is rescored on the host
-  against the container's bf16 copy of the rows.
+  against the container's bf16 copy of the rows;
+- the IVF approximate mode (:mod:`ops.ann`, ``config.ann`` or a container
+  that carries a persisted ``ann`` group): batches of at most
+  ``config.ann_max_batch`` queries probe ``config.ann_nprobe`` buckets,
+  larger ones and ``exact=True`` take the dense sweep. The structure is
+  built off the index lock over the live row buffer, recall-checked
+  (:meth:`UnifiedIndex.tune_nprobe`), persisted in the container with its
+  tuned knobs, restored on open (rows appended since go to its tail), and
+  rebuilt after a compaction.
 
-Not ported yet (each raises ``NotImplementedError`` naming the later
-change): IVF ANN and the multi-device mesh. A container that carries a
-persisted ANN structure is served by the exact sweep, with a warning.
+Not ported yet: the multi-device mesh (raises ``NotImplementedError``).
 ``index.builder.RAGBuilder`` writes containers and hands the fresh one to
 :meth:`UnifiedIndex.attach_container`. Above ``metacols.SIDECAR_MIN_ROWS``
 rows the metadata opens from the columnar ``.meta.npz`` sidecar when it is
 fresh (records made on access), else record by record, after which the
 sidecar is written for the next open. :meth:`UnifiedIndex.compact` drops
-tombstoned rows into a fresh container. Asset reads come with the REST
-server.
+tombstoned rows into a fresh container.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..ops import ann
 from ..ops.quant import quantize_rows_int8, topk_search_int8
 from ..ops.topk import TILE_N, topk_search
 from ..retrieval.results import KeyframeMetadata, SearchResult
@@ -57,7 +63,6 @@ from .metacols import SIDECAR_MIN_ROWS, LazyRowByKey, load_sidecar, write_sideca
 
 __all__ = ["UnifiedIndex", "UnifiedIndexConfig"]
 
-_LATER_ANN = "IVF ANN search is ported in a later change"
 _LATER_MESH = "multi-device search is ported in a later change"
 
 # rows normalized per device step at upload (bounds the f32 temporary)
@@ -99,7 +104,7 @@ def resolve_device(device: torch.device | str) -> torch.device:
 @dataclass(slots=True)
 class UnifiedIndexConfig:
     """Build and runtime knobs of the index (the reference's fields that
-    this port reads; the IVF fields come with that mode)."""
+    this port reads)."""
 
     # build (index.builder.RAGBuilder): files per device batch and container
     # transaction, chunks between checkpoint flushes, stored assets, and the
@@ -110,6 +115,8 @@ class UnifiedIndexConfig:
     thumbnail_size: int = 224
     store_full_images: bool = False
     dtype: str = "bfloat16"
+    # temporal-context window of augmented_search (the reference's +-5)
+    temporal_window: int = 5
     # L2-normalize rows at upload and append (cosine = inner product)
     normalize: bool = True
     # int8 exact-rescore mode: an int8 container that carries the bf16 copy
@@ -120,9 +127,25 @@ class UnifiedIndexConfig:
     # keep the bf16 rescore rows in host RAM instead of gathering them from
     # the container per query (2 bytes x dim per row)
     int8_rescore_cache: bool = False
-    # IVF approximate search: refused until the ANN port lands
+    # IVF approximate search (ops.ann): opt-in latency mode for small
+    # batches. Batches larger than ann_max_batch take the dense sweep, which
+    # amortizes one pass over the rows across the batch. The default 4 is the
+    # crossover of ivf_topk (nprobe 64) against topk_search_int8 over 10M
+    # int8 rows on an H100 (chip_smoke.py's IVF phase); over 1M bf16 rows the
+    # dense sweep wins already at B=1. measure_ann_crossover() measures the
+    # corpus's own crossover, installs and persists it.
     ann: bool = False
-    # False: ignore a persisted ANN structure without the warning
+    ann_nlist: int | None = None     # None = ops.ann.default_nlist(n)
+    ann_nprobe: int = 32
+    ann_max_batch: int = 4
+    # recall guard: every build_ann() samples recall at the configured nprobe
+    # and climbs the tune_nprobe ladder to this target (on a corpus without
+    # cluster structure the ladder lands at nprobe = nlist, which is exact,
+    # and warns). None disables (build time only; restores skip it).
+    ann_target_recall: float | None = 0.95
+    # a container carrying an ``ann`` group reactivates approximate search
+    # on open even with ann=False (the file is the index type); False serves
+    # exact only whatever the container carries (the facade's "exact")
     ann_restore: bool = True
 
 
@@ -138,8 +161,6 @@ class UnifiedIndex:
         if mesh is not None:
             raise NotImplementedError(_LATER_MESH)
         self.config = config or UnifiedIndexConfig()
-        if self.config.ann:
-            raise NotImplementedError(_LATER_ANN)
         self.device = resolve_device(device)
         self._container: Any | None = None
         self._lock = threading.RLock()
@@ -152,6 +173,21 @@ class UnifiedIndex:
         # host-RAM bf16 bits of the rescore rows (config.int8_rescore_cache)
         self._fp_cache: np.ndarray | None = None
         self._fp_cache_n = 0
+        # IVF structure (ops.ann.IVFState) while the ANN mode is active
+        self._ann: ann.IVFState | None = None
+        # bumps whenever self._ann is replaced (build, drop, restore, tail
+        # registration): tune_nprobe and measure_ann_crossover watch it, as
+        # an ANN swap does not bump self.generation
+        self._ann_gen = 0
+        # True once config.ann_max_batch comes from a crossover measurement
+        self._ann_crossover_measured = False
+        # set while an overflow-append reload runs: the persisted structure
+        # is restored, but no synchronous k-means rebuild blocks the append
+        self._ann_autobuild_suppressed = False
+        # bumps only when existing row ids change meaning (reload, compact,
+        # close): the off-lock build_ann install retries on it, and rides
+        # appends and deletes
+        self._rows_gen = 0
         # bumps on load/append/delete so result caches keyed on it never
         # serve hits from before a mutation
         self.generation = 0
@@ -212,8 +248,11 @@ class UnifiedIndex:
             self._dev_x = None
             self._dev_scales = None
             self._dev_deleted = None
+            self._ann = None
+            self._ann_gen += 1
             self._n_valid = 0
             self._capacity = 0
+            self._rows_gen += 1
             self._metadata = []
             self._row_by_key = {}
             self._fp_cache = None
@@ -223,14 +262,12 @@ class UnifiedIndex:
 
     def _upload_embeddings(self) -> None:
         assert self._container is not None
-        if self.config.ann_restore and self._container.get_ann() is not None:
-            logging.getLogger("ivars").warning(
-                "container carries a persisted ANN structure; IVF search is "
-                "not ported yet, serving exact dense search"
-            )
         n = self._container.num_rows
         self._n_valid = n
         self.generation += 1
+        self._rows_gen += 1
+        self._ann = None
+        self._ann_gen += 1
         self._dev_scales = None
         self._fp_cache = None
         self._fp_cache_n = 0
@@ -254,6 +291,360 @@ class UnifiedIndex:
         self._dev_deleted = None
         if self._deleted:
             self._rebuild_deleted_mask()
+        self._restore_or_build_ann()
+
+    # -- ANN (IVF approximate search, ops.ann) -----------------------------
+
+    def _restore_or_build_ann(self) -> None:
+        """Restore the persisted IVF structure (rows appended since its
+        build go to the always-scanned tail), or build it when the config
+        enables ANN. A failed build logs and serves dense search."""
+        self._ann = None
+        self._ann_gen += 1
+        if self._dev_x is None:
+            return
+        if (not self._restore_persisted_ann() and self.config.ann
+                and not self._ann_autobuild_suppressed):
+            try:
+                self.build_ann()
+            except Exception:
+                logging.getLogger("ivars").exception(
+                    "ANN build failed; falling back to dense search")
+
+    def _restore_persisted_ann(self) -> bool:
+        assert self._container is not None
+        if not self.config.ann_restore:
+            return False  # exact-only serving requested
+        got = self._container.get_ann()
+        if got is None:
+            return False
+        arrays, attrs = got
+        ann_rows = int(attrs.get("ann_rows", -1))
+        if ann_rows < 0 or ann_rows > self._n_valid or int(attrs.get("dim", self.dim)) != self.dim:
+            self._container.drop_ann()  # stale (a no-op when read-only)
+            return False
+        tail_count = int(attrs.get("tail_count", 0))
+        extra = self._n_valid - ann_rows
+        if tail_count + extra > ann.TAIL_MAX:
+            return False  # appends outgrew the tail: dense until rebuilt
+        try:
+            # a corrupt or partly written group degrades to dense search
+            state = ann.IVFState(
+                centroids=torch.from_numpy(
+                    np.ascontiguousarray(arrays["centroids"], np.float32)).to(self.device),
+                bucket_ids=torch.from_numpy(
+                    np.ascontiguousarray(arrays["bucket_ids"], np.int32)).to(self.device),
+                tail_ids=torch.from_numpy(
+                    np.ascontiguousarray(arrays["tail_ids"], np.int32)).to(self.device),
+                tail_count=tail_count,
+                ann_rows=ann_rows,
+            )
+            if (state.centroids.dim() != 2 or state.bucket_ids.dim() != 2
+                    or int(state.centroids.shape[1]) != self.dim):
+                raise ValueError(f"bad ANN shapes: centroids {tuple(state.centroids.shape)}, "
+                                 f"bucket_ids {tuple(state.bucket_ids.shape)}")
+            if extra:
+                state = ann.tail_append(state, list(range(ann_rows, self._n_valid)))
+        except Exception:
+            logging.getLogger("ivars").exception(
+                "persisted ANN group unreadable; dropping it and serving dense search")
+            try:
+                self._container.drop_ann()  # a no-op when read-only
+            except Exception:
+                pass
+            return False
+        self._ann = state
+        self._ann_gen += 1
+        # the knobs tuned or measured on this corpus come back, but only where
+        # the live config still holds the dataclass default (an explicitly
+        # set value is never clobbered by a stale build-time one)
+        defaults = type(self.config)()
+        if "nprobe" in attrs and self.config.ann_nprobe == defaults.ann_nprobe:
+            self.config.ann_nprobe = int(attrs["nprobe"])
+        if "max_batch" in attrs and self.config.ann_max_batch == defaults.ann_max_batch:
+            self.config.ann_max_batch = int(attrs["max_batch"])
+            self._ann_crossover_measured = bool(attrs.get("max_batch_measured", False))
+        if not self.config.ann:
+            logging.getLogger("ivars").warning(
+                "persisted ANN restored (nlist=%d, nprobe=%d): small batches serve "
+                "approximate results; pass exact=True per query, use "
+                "index_type='exact', or drop_ann() for exact-only serving",
+                int(state.bucket_ids.shape[0]), self.config.ann_nprobe)
+        return True
+
+    def build_ann(self, nlist: int | None = None, persist: bool = True,
+                  check_recall: bool | None = None, **build_kwargs) -> dict[str, Any]:
+        """Build (or rebuild) the IVF structure over the current device rows
+        and activate approximate search (``config.ann_nprobe`` probes per
+        query, exact within the probed candidates; see :mod:`ops.ann`).
+
+        The build runs off the index lock over the live row buffer, so
+        searches keep serving: rows below the snapshot's count never change
+        in place (appends write past it, deletes only mask). Rows appended
+        meanwhile ride the fresh structure's tail; a remap (reload, compact,
+        close) seen at install time retries the build, at most three times.
+        ``persist`` stores the structure in a writable container.
+        ``check_recall`` (default: on when ``config.ann_target_recall`` is
+        set) samples recall against the exact path afterwards and climbs the
+        :meth:`tune_nprobe` ladder to the target.
+        """
+        log = logging.getLogger("ivars")
+        report = None
+        remap_retries, max_remap = 0, 3
+        while True:
+            if remap_retries >= max_remap:
+                raise RuntimeError(
+                    "build_ann gave up: rows were reloaded/remapped mid-build on every "
+                    f"attempt ({remap_retries} retries); retry when the index stops being "
+                    "rebuilt concurrently (the previous ANN structure, if any, is still "
+                    "serving)")
+            with self._lock:
+                if self._dev_x is None or self._n_valid == 0:
+                    raise RuntimeError("no device rows loaded")
+                x, scales = self._dev_x, self._dev_scales
+                snap_n, snap_gen = self._n_valid, self._rows_gen
+            state, report = ann.build_ivf(x, n_rows=snap_n, x_scales=scales,
+                                          nlist=nlist or self.config.ann_nlist, **build_kwargs)
+            with self._lock:
+                if self._rows_gen != snap_gen:
+                    remap_retries += 1
+                    log.info("build_ann: rows reloaded/remapped mid-build (retry %d/%d); "
+                             "rebuilding over the new buffer", remap_retries, max_remap)
+                    continue
+                self._ann = state
+                self._ann_gen += 1
+                if self._n_valid > snap_n:
+                    # rows appended mid-build ride the fresh state's tail
+                    self._ann_register_append(snap_n, self._n_valid - snap_n)
+                if (self._ann is not None and persist and self._container is not None
+                        and self._container.mode != "r"):
+                    self._persist_ann()
+                break
+        out = report._asdict()
+        target = self.config.ann_target_recall
+        if check_recall is None:
+            check_recall = bool(target)
+        if check_recall and target and self._container is not None and self._ann is not None:
+            try:
+                tune = self.tune_nprobe(target_recall=float(target))
+                out["recall_check"] = tune
+                nlist_built = int(state.bucket_ids.shape[0])
+                if tune.get("raced_mutation"):
+                    log.warning("ANN recall check raced a concurrent mutation; the estimate "
+                                "was discarded — run tune_ann when mutations settle")
+                elif tune["nprobe"] >= nlist_built:
+                    log.warning(
+                        "ANN recall check: this corpus shows weak cluster structure — "
+                        "nprobe climbed to nlist=%d (equivalent to exact search with gather "
+                        "overhead; ladder: %s). ANN buys no latency here; consider "
+                        "index_type='exact'.", nlist_built, tune["ladder"])
+                else:
+                    log.info("ANN recall check: recall@%d %.4f at tuned nprobe=%d "
+                             "(target %.2f)", tune["top_k"], tune["recall"], tune["nprobe"],
+                             float(target))
+            except Exception:
+                log.exception("ANN recall check failed; keeping configured nprobe %d "
+                              "UNVERIFIED on this corpus", self.config.ann_nprobe)
+        return out
+
+    def tune_nprobe(self, target_recall: float = 0.99, sample: int = 32, top_k: int = 10,
+                    noise: float = 0.25, seed: int = 0) -> dict[str, Any]:
+        """Pick the smallest ``ann_nprobe`` reaching ``target_recall``.
+
+        Samples ``sample`` stored rows, perturbs them (``noise`` is the
+        relative norm of the noise vector: served queries embed near, not
+        at, their matches), and compares the ANN path with the exact sweep
+        at each rung of a doubling ladder from 4, stopping at the first
+        rung whose mean recall@``top_k`` meets the target. The ladder runs
+        off the index lock with a per-call ``nprobe``; a mutation or an ANN
+        swap during it discards the result (``raced_mutation=True``).
+        Installs the result into ``config.ann_nprobe`` and the persisted
+        group, and returns ``{"nprobe", "recall", "ladder", ...}``.
+        """
+        with self._lock:
+            if self._ann is None:
+                raise RuntimeError("ANN not active; call build_ann() first")
+            assert self._container is not None
+            rng = np.random.default_rng(seed)
+            n_live = self._n_valid - len(self._deleted)
+            if n_live <= 0:
+                raise RuntimeError("no live rows to sample")
+            # rejection-sample live row ids (tombstones are sparse)
+            want = min(sample, n_live)
+            picks: list[int] = []
+            seen: set[int] = set()
+            while len(picks) < want:
+                for r in rng.integers(0, self._n_valid, size=4 * want):
+                    r = int(r)
+                    if r in seen or r in self._deleted:
+                        continue
+                    seen.add(r)
+                    picks.append(r)
+                    if len(picks) >= want:
+                        break
+                else:
+                    if len(seen) + len(self._deleted) >= self._n_valid:
+                        picks = [r for r in range(self._n_valid)
+                                 if r not in self._deleted][:want]
+                        break
+            picks = sorted(picks)
+            rows = np.stack([self._container.read_embeddings(r, r + 1, as_float32=True)[0]
+                             for r in picks])
+            nlist = int(self._ann.bucket_ids.shape[0])
+            snap_gen, snap_ann_gen = self.generation, self._ann_gen
+        q = rows / np.maximum(np.linalg.norm(rows, axis=1, keepdims=True), 1e-12)
+        if noise > 0:
+            d = q.shape[1]
+            q = q + (noise / d**0.5) * rng.standard_normal(q.shape).astype(np.float32)
+            q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        exact = self.search_vectors(q, top_k=top_k, exact=True)
+        exact_ids = [{h.metadata.row_id for h in hits} for hits in exact]
+        ladder: list[tuple[int, float]] = []
+        best = nlist
+        nprobe = 4
+        while True:
+            nprobe = min(nprobe, nlist)
+            got: list[list] = []
+            step = max(int(self.config.ann_max_batch), 1)
+            for s in range(0, len(q), step):
+                got.extend(self.search_vectors(q[s:s + step], top_k=top_k, nprobe=nprobe))
+            recall = float(np.mean([len({h.metadata.row_id for h in hits} & ids)
+                                    / max(len(ids), 1)
+                                    for hits, ids in zip(got, exact_ids)]))
+            ladder.append((nprobe, recall))
+            if recall >= target_recall or nprobe >= nlist:
+                best = nprobe
+                break
+            nprobe *= 2
+        with self._lock:
+            raced = self.generation != snap_gen or self._ann_gen != snap_ann_gen
+            if not raced:
+                self.config.ann_nprobe = best
+                if self._container is not None and self._container.mode != "r":
+                    # travels with the structure: a reopened index serves at it
+                    self._container.update_ann_attrs({"nprobe": int(best)})
+        if raced:
+            logging.getLogger("ivars").warning(
+                "tune_nprobe: index mutated during the ladder (row ids may have remapped, "
+                "deflating the recall estimate toward random overlap); the measured "
+                "nprobe=%d was NOT installed — config keeps nprobe=%d. Re-run when "
+                "mutations settle.", best, self.config.ann_nprobe)
+        return {"nprobe": best, "recall": ladder[-1][1], "target": target_recall,
+                "ladder": ladder, "sample": len(q), "top_k": top_k, "raced_mutation": raced}
+
+    def measure_ann_crossover(self, batch_sizes: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
+                              top_k: int = 10, repeats: int = 3,
+                              persist: bool = True) -> dict[str, Any]:
+        """Measure the IVF/dense crossover batch size on this corpus and
+        device, install it as ``config.ann_max_batch`` and persist it with
+        the structure.
+
+        Walks ``batch_sizes`` in order; at each B times ``search_vectors``
+        on the ANN path (an explicit ``nprobe`` forces probing past the
+        current cap) against the exact sweep, fresh random queries every
+        timed call, min over ``repeats``. The crossover is the last B before
+        IVF first loses; 0 means IVF never won and every batch takes the
+        dense sweep. Runs off the index lock; a mutation or ANN swap during
+        the ladder discards the result (``raced_mutation=True``).
+        """
+        with self._lock:
+            if self._ann is None:
+                raise RuntimeError("ANN not active; call build_ann() first")
+            if self._dev_x is None:
+                raise RuntimeError("no device rows loaded")
+            snap_gen, snap_ann_gen = self.generation, self._ann_gen
+            nprobe = int(self.config.ann_nprobe)
+            d = self.dim
+        rng = np.random.default_rng(0)
+        ladder: list[dict[str, Any]] = []
+        crossover = 0
+        for b in batch_sizes:
+            if b > self._n_valid:
+                break
+            warm = rng.standard_normal((b, d)).astype(np.float32)
+            self.search_vectors(warm, top_k=top_k, nprobe=nprobe)
+            self.search_vectors(warm, top_k=top_k, exact=True)
+            t_ann = t_dense = float("inf")
+            for _ in range(repeats):
+                q = rng.standard_normal((b, d)).astype(np.float32)
+                t0 = time.perf_counter()
+                self.search_vectors(q, top_k=top_k, nprobe=nprobe)
+                t_ann = min(t_ann, time.perf_counter() - t0)
+                q = rng.standard_normal((b, d)).astype(np.float32)
+                t0 = time.perf_counter()
+                self.search_vectors(q, top_k=top_k, exact=True)
+                t_dense = min(t_dense, time.perf_counter() - t0)
+            ladder.append({"batch": b, "ann_ms": round(t_ann * 1e3, 3),
+                           "dense_ms": round(t_dense * 1e3, 3)})
+            if t_ann < t_dense:
+                crossover = b
+            else:
+                break
+        with self._lock:
+            raced = self.generation != snap_gen or self._ann_gen != snap_ann_gen
+            if not raced:
+                self.config.ann_max_batch = crossover
+                self._ann_crossover_measured = True
+                if persist and self._container is not None and self._container.mode != "r":
+                    self._container.update_ann_attrs(
+                        {"max_batch": int(crossover), "max_batch_measured": True})
+        if raced:
+            logging.getLogger("ivars").warning(
+                "measure_ann_crossover: index mutated during the ladder; the measured "
+                "crossover=%d was NOT installed — config keeps ann_max_batch=%d. Re-run "
+                "when mutations settle.", crossover, self.config.ann_max_batch)
+        return {"max_batch": crossover, "nprobe": nprobe, "ladder": ladder,
+                "raced_mutation": raced}
+
+    def _persist_ann(self) -> None:
+        assert self._container is not None and self._ann is not None
+        state = self._ann
+        self._container.put_ann(
+            {"centroids": state.centroids.cpu().numpy().astype(np.float32),
+             "bucket_ids": state.bucket_ids.cpu().numpy().astype(np.int32),
+             "tail_ids": state.tail_ids.cpu().numpy().astype(np.int32)},
+            {"ann_rows": int(state.ann_rows),
+             "tail_count": int(state.tail_count),
+             "dim": self.dim,
+             "nlist": int(state.bucket_ids.shape[0]),
+             # the knobs measured on this corpus travel with the structure
+             "nprobe": int(self.config.ann_nprobe),
+             "max_batch": int(self.config.ann_max_batch),
+             "max_batch_measured": bool(self._ann_crossover_measured),
+             "version": 1},
+        )
+
+    @property
+    def ann_active(self) -> bool:
+        return self._ann is not None
+
+    def drop_ann(self) -> dict[str, Any]:
+        """Deactivate approximate search and (when writable) remove the
+        persisted structure: the container is a plain exact index again on
+        every later open."""
+        with self._lock:
+            was_active = self._ann is not None
+            self._ann = None
+            self._ann_gen += 1
+            dropped = False
+            if self._container is not None and self._container.mode != "r":
+                self._container.drop_ann()
+                dropped = True
+            return {"was_active": was_active, "persisted_removed": dropped}
+
+    def _ann_register_append(self, start: int, count: int) -> None:
+        """Track appended rows in the IVF tail; on overflow serve dense
+        search until the next :meth:`build_ann`."""
+        if self._ann is None or count == 0:
+            return
+        try:
+            self._ann = ann.tail_append(self._ann, list(range(start, start + count)))
+        except OverflowError:
+            logging.getLogger("ivars").warning(
+                "IVF tail full after append; reverting to dense search until build_ann() "
+                "is called again")
+            self._ann = None
+        self._ann_gen += 1
 
     def _read_rows_raw(self, n: int) -> np.ndarray:
         """Rows in their storage form (uint16 bf16 bits / f16 / f32): the
@@ -394,13 +785,25 @@ class UnifiedIndex:
         else:
             self._dev_x[n:n + m].copy_(
                 torch.from_numpy(np.ascontiguousarray(rows, np.float32)))
+        self._ann_register_append(n, m)
         self._n_valid += m
 
     def _reload_for_append(self) -> None:
-        """Re-upload past the capacity; the resident rescore cache is
-        rebuilt from the container, which already holds the new rows."""
-        self._upload_embeddings()
+        """Re-upload past the capacity, without the ANN auto-build (an append
+        never blocks on a k-means rebuild; the persisted structure is still
+        restored when its tail can take the new rows, else search is dense
+        until :meth:`build_ann`). The resident rescore cache is rebuilt from
+        the container, which already holds the new rows."""
+        self._ann_autobuild_suppressed = True
+        try:
+            self._upload_embeddings()
+        finally:
+            self._ann_autobuild_suppressed = False
         self._maybe_build_fp_cache()
+        if self.config.ann and self._ann is None:
+            logging.getLogger("ivars").warning(
+                "ANN rebuild deferred after capacity-overflow append; dense search until "
+                "build_ann() is called")
 
     def _load_metadata_cache(self) -> None:
         assert self._container is not None
@@ -500,9 +903,17 @@ class UnifiedIndex:
         top_k: int = 20,
         filter_fn: Callable[[KeyframeMetadata], bool] | None = None,
         over_fetch: int = 4,
+        exact: bool = False,
+        nprobe: int | None = None,
     ) -> list[list[SearchResult]]:
-        """Top-k per query vector, as ranked SearchResults (exact search;
-        an int8 container searches its quantized metric).
+        """Top-k per query vector, as ranked SearchResults (an int8
+        container searches its quantized metric).
+
+        Exact by default; while the IVF mode is active, batches of at most
+        ``config.ann_max_batch`` queries probe instead. ``exact=True``
+        forces the dense sweep for the call; ``nprobe`` overrides the
+        configured probe count for the call only and, as an explicit
+        request for the IVF path, bypasses the batch cap.
 
         ``filter_fn``: metadata predicate applied after the search, over
         ``over_fetch`` x ``top_k`` candidates. With ``int8_rescore`` on an
@@ -521,7 +932,26 @@ class UnifiedIndex:
             if rescore_fp:
                 fetch = min(self._n_valid,
                             fetch * max(int(self.config.int8_rescore_factor), 1))
-            if self._dev_scales is not None:  # int8
+            use_ann = (not exact and self._ann is not None
+                       and (nprobe is not None or len(q) <= self.config.ann_max_batch))
+            if nprobe is None:
+                nprobe_eff = self.config.ann_nprobe
+            elif int(nprobe) <= 0:
+                raise ValueError(f"nprobe must be positive, got {nprobe}")
+            else:
+                nprobe_eff = int(nprobe)
+            if use_ann:  # IVF latency mode
+                result = ann.ivf_topk(
+                    self._dev_x,
+                    self._ann,
+                    torch.from_numpy(q).to(self.device),
+                    fetch,
+                    nprobe=nprobe_eff,
+                    n_valid=self._n_valid,
+                    deleted=self._dev_deleted,
+                    x_scales=self._dev_scales,
+                )
+            elif self._dev_scales is not None:  # int8
                 result = topk_search_int8(
                     self._dev_x,
                     self._dev_scales,
@@ -577,6 +1007,21 @@ class UnifiedIndex:
         return self.search_vectors(q[None] if q.ndim == 1 else q, top_k,
                                    filter_fn)[0]
 
+    def augmented_search(
+        self,
+        query_vector: np.ndarray,
+        top_k: int = 20,
+        temporal_window: int | None = None,
+        filter_fn: Callable[[KeyframeMetadata], bool] | None = None,
+    ) -> list[SearchResult]:
+        """:meth:`search`, each hit with its temporal context
+        (``config.temporal_window`` neighbours unless given)."""
+        window = self.config.temporal_window if temporal_window is None else temporal_window
+        hits = self.search(query_vector, top_k, filter_fn)
+        for hit in hits:
+            hit.temporal_context = self.get_temporal_context(hit.metadata.row_id, window)
+        return hits
+
     def search_by_row(
         self,
         row_id: int,
@@ -605,6 +1050,33 @@ class UnifiedIndex:
 
     def row_for(self, folder: str, image: str) -> int | None:
         return self._row_by_key.get((folder, image))
+
+    def get_thumbnail(self, row_id_or_folder: int | str, image: str | None = None) -> bytes:
+        """Thumbnail JPEG by row id or (folder, image) pair."""
+        if self._container is None:
+            raise RuntimeError("index not loaded")
+        return self._container.get_thumbnail(self._resolve_row(row_id_or_folder, image))
+
+    def get_full_image(self, row_id_or_folder: int | str, image: str | None = None) -> bytes:
+        """The stored full image, else the original file on disk (where the
+        build stored no full images), else ``b""``."""
+        if self._container is None:
+            raise RuntimeError("index not loaded")
+        row = self._resolve_row(row_id_or_folder, image)
+        data = self._container.get_image(row) if self._container.num_images else b""
+        if not data:
+            meta = self._metadata[row]
+            if meta.path and Path(meta.path).is_file():
+                return Path(meta.path).read_bytes()
+        return data
+
+    def _resolve_row(self, row_or_folder: int | str, image: str | None) -> int:
+        if isinstance(row_or_folder, int):
+            return row_or_folder
+        row = self._row_by_key.get((row_or_folder, image or ""))
+        if row is None:
+            raise KeyError(f"no such keyframe: {row_or_folder}/{image}")
+        return row
 
     def get_temporal_context(self, row_id: int, window: int = 5) -> list[dict[str, Any]]:
         """+-window neighbours within the same folder (adjacent rows)."""
@@ -710,6 +1182,14 @@ class UnifiedIndex:
             self._rebuild_deleted_mask()
         return {"deleted": len(fresh), "num_live": self.num_live}
 
+    def delete_keys(self, keys: Sequence[tuple[str, str]]) -> dict[str, Any]:
+        """Tombstone rows by (folder, image); unknown keys are skipped."""
+        return self.delete_rows([self._row_by_key[key] for key in keys
+                                 if key in self._row_by_key])
+
+    def is_deleted(self, row_id: int) -> bool:
+        return row_id in self._deleted
+
     def compact(self, output_path: str | Path | None = None) -> dict[str, Any]:
         """Physically drop tombstoned rows into a fresh container.
 
@@ -799,9 +1279,19 @@ class UnifiedIndex:
             "capacity": self._capacity,
             "load_time_s": self.load_time_s,
             "loaded": self.is_loaded,
-            "ann_active": False,
+            "ann_active": self._ann is not None,
             "device": str(self.device),
         }
+        if self._ann is not None:
+            stats["ann"] = {
+                "nlist": int(self._ann.bucket_ids.shape[0]),
+                "bucket_cap": int(self._ann.bucket_ids.shape[1]),
+                "nprobe": self.config.ann_nprobe,
+                "max_batch": self.config.ann_max_batch,
+                "max_batch_measured": self._ann_crossover_measured,
+                "tail_count": int(self._ann.tail_count),
+                "ann_rows": self._ann.ann_rows,
+            }
         if self._container is not None:
             stats["container"] = self._container.stats().as_dict()
         return stats

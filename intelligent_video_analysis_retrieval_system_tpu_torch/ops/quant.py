@@ -82,9 +82,13 @@ _RESCORE_ELEMS = 1 << 26
 def symmetric_int8(x: torch.Tensor, dim: int, eps: float = 1e-12):
     """Symmetric per-slice int8 quantization: ``scale = max(max|x|, eps) /
     127`` along ``dim`` (kept), values ``clip(round(x / scale), -127, 127)``.
-    Operation for operation the JAX ``symmetric_int8``."""
+    Operation for operation the JAX ``symmetric_int8``. The divisor is a
+    tensor on ``x``'s device: CUDA divides by a Python scalar as a multiply
+    by its reciprocal, one ulp off for some rows, and the scale must be the
+    same bits on the card as on the CPU."""
     x = x.float()
-    scale = torch.clamp(x.abs().amax(dim=dim, keepdim=True), min=eps) / 127.0
+    amax = torch.clamp(x.abs().amax(dim=dim, keepdim=True), min=eps)
+    scale = amax / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 

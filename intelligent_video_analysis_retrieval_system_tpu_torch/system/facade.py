@@ -7,19 +7,25 @@ check, with ``build_progress`` events), ``load_system`` -> ``search`` /
 ``search_batch`` (cache -> translate -> CLIP text encode -> exact top-k over
 the device rows -> post processing -> cache), ``search_by_image`` over pixel
 arrays and image files, ``export_portable_index`` / ``load_portable_index``,
-``get_system_stats`` and ``cleanup``.
+``chat`` (the greeting, then ``chat_search``), ``export_data``,
+``optimize``, ``get_system_stats`` and ``cleanup``. The index types are the reference's
+names: ``flat``/``exact``/``IndexFlatIP``/``IndexFlatL2`` serve the exact
+sweep, ``ivf``/``ann``/``IndexIVFFlat``/``IndexHNSW``/``IndexLSH`` the IVF
+approximate mode, self-tuned to ``index.ann_target_recall`` after every
+build and load.
 
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
 kernels' plain versions); the embedder and the index share it. Not ported
 yet, each raising ``NotImplementedError`` that names the later change:
-``index_videos`` (video ingest), chat and the REST server
-(``start_server``); P2P fan-in over remote indexes comes with the REST
-server.
+``index_videos`` (video ingest), the LLM processor (``enable_llm``) and the
+REST server (``start_server``); P2P fan-in over remote indexes comes with
+the REST server.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 from dataclasses import dataclass
 from pathlib import Path
@@ -187,6 +193,7 @@ class EnhancedRetrievalSystem:
                 raise RuntimeError(f"post-build inconsistency: {consistency.errors}")
             # step 6: finalize
             self.is_built = True
+            self._maybe_tune_ann()
             self._emit("build_progress", stage="done", done=6, total=6)
             self.logger.info("build complete", **report.as_dict())
             return {"report": report.as_dict(), "index_path": str(output_path)}
@@ -214,6 +221,22 @@ class EnhancedRetrievalSystem:
             index = UnifiedIndex(self._index_config(), device=self.device)
             index.load_unified_index(index_path, mode="a" if writable else "r")
             self._adopt_index(index)
+            self._maybe_tune_ann()
+
+    def _maybe_tune_ann(self) -> None:
+        """Self-tuning ANN: with ``index.ann_target_recall`` configured and
+        the ANN mode active, pick the smallest nprobe reaching the target on
+        this corpus (``UnifiedIndex.tune_nprobe``). A failure keeps the
+        configured nprobe: tuning never blocks a load."""
+        target = self.config.section("index").get("ann_target_recall")
+        if not target or self.index is None or not self.index.ann_active:
+            return
+        try:
+            rep = self.index.tune_nprobe(target_recall=float(target))
+            self.logger.info("ANN self-tuned", nprobe=rep["nprobe"],
+                             recall=round(rep["recall"], 4), target=float(target))
+        except Exception:
+            self.logger.exception("ANN self-tuning failed; keeping configured ann_nprobe")
 
     def attach_index(self, index: UnifiedIndex) -> None:
         """Serve an index the caller opened (e.g. over
@@ -235,12 +258,6 @@ class EnhancedRetrievalSystem:
     def _index_config(self) -> UnifiedIndexConfig:
         sec = self.config.section("index")
         index_type = str(sec.get("index_type", "flat"))
-        if index_type in ("ivf", "ann", "IndexIVFFlat", "IndexHNSW", "IndexLSH"):
-            raise NotImplementedError(
-                f"index_type {index_type!r}: IVF ANN is ported in a later change")
-        if index_type not in ("flat", "exact", "IndexFlatIP", "IndexFlatL2"):
-            self.logger.warning(
-                f"Unknown index type: {index_type}, using exact flat search")
         return UnifiedIndexConfig(
             chunk_size=sec.get("chunk_size", 1024),
             checkpoint_every_chunks=sec.get("checkpoint_every_chunks", 5),
@@ -248,12 +265,40 @@ class EnhancedRetrievalSystem:
             thumbnail_size=sec.get("thumbnail_size", 224),
             store_full_images=sec.get("store_full_images", False),
             dtype=sec.get("dtype", "bfloat16"),
+            ann=self._resolve_index_type(index_type),
+            ann_nlist=sec.get("ann_nlist"),
+            ann_nprobe=int(sec.get("ann_nprobe", 32)),
+            ann_max_batch=int(sec.get("ann_max_batch", 4)),
+            # None in the section means the dataclass default (0.95, the
+            # default-on recall guard); 0/false disables. The default is read
+            # from __dataclass_fields__: on a slots=True dataclass the class
+            # attribute is the member descriptor, not the value
+            ann_target_recall=(
+                UnifiedIndexConfig.__dataclass_fields__["ann_target_recall"].default
+                if sec.get("ann_target_recall") is None
+                else (float(sec["ann_target_recall"]) or None)
+            ),
             int8_rescore=bool(sec.get("int8_rescore", False)),
             int8_rescore_factor=int(sec.get("int8_rescore_factor", 4)),
             int8_rescore_cache=bool(sec.get("int8_rescore_cache", False)),
             # "exact" (the native spelling) also ignores a persisted ANN group
             ann_restore=index_type != "exact",
         )
+
+    def _resolve_index_type(self, index_type: str) -> bool:
+        """The configured index type -> exact (False) or IVF ANN (True), by
+        the reference's FAISS names; an unknown name serves exact search,
+        with the reference's warning."""
+        name = str(index_type or "flat")
+        if name in ("flat", "exact", "IndexFlatIP", "IndexFlatL2"):
+            return False
+        if name in ("ivf", "ann", "IndexIVFFlat", "IndexHNSW", "IndexLSH"):
+            if name in ("IndexHNSW", "IndexLSH"):
+                self.logger.info("index_type served by the IVF ANN mode (same approximate-"
+                                 "search capability)", index_type=name)
+            return True
+        self.logger.warning(f"Unknown index type: {name}, using exact flat search")
+        return False
 
     def _rebuild_metadata(self) -> None:
         if self.index is None or self.index.ntotal == 0:
@@ -496,15 +541,78 @@ class EnhancedRetrievalSystem:
     def index_videos(self, *args: Any, **kwargs: Any) -> dict[str, Any]:
         raise NotImplementedError(_LATER_INGEST)
 
-    def chat(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError("chat is ported with the agents in a later change")
+    def enable_llm(self, *args: Any, **kwargs: Any) -> Any:
+        raise NotImplementedError("the LLM processor is ported with the agents in a later "
+                                  "change")
 
     def start_server(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(
             "the REST/WebSocket server is ported in a later change; serve "
             "through serve.handlers.RequestHandler and serve.batching.QueryBatcher")
 
+    # -- chat (no LLM processor yet: the greeting, then chat_search) -----------
+
+    def chat(self, message: str, context_frames: Sequence[dict] | None = None) -> dict:
+        """Conversational entry: a greeting short-circuits; anything else is
+        answered by :meth:`chat_search` (the reference's chain falls back to
+        it where no LLM processor is attached, as here)."""
+        message = message.strip()
+        if message.lower() in {"hi", "hello", "hey", "xin chào", "chào", "chào bạn"}:
+            return {"response": ("Hello! Ask me to find scenes, e.g. 'a red car at night', "
+                                 "or ask about selected frames."),
+                    "search_results": [], "method": "greeting"}
+        return self.chat_search(message)
+
+    def chat_search(self, message: str) -> dict:
+        """Search + a templated answer."""
+        results = self.search(message, SearchOptions(limit=5))
+        if results:
+            top = results[0]
+            response = (f"I found {len(results)} matching keyframes. Best match: "
+                        f"{top['folder']}/{top['image']} "
+                        f"(similarity {top['similarity_score']:.3f}).")
+        else:
+            response = ("I couldn't find matching keyframes. Try different wording "
+                        "or check that an index is loaded.")
+        return {"response": response, "search_results": results, "method": "search"}
+
+    # -- export -----------------------------------------------------------------
+
+    def export_data(self, results: Sequence[dict], output_path: str | Path,
+                    fmt: str | None = None) -> Path:
+        """Results as JSON, CSV or XLSX (xlsx needs pandas), by ``fmt`` or
+        the file's suffix."""
+        output_path = Path(output_path)
+        fmt = (fmt or output_path.suffix.lstrip(".") or "json").lower()
+        output_path.parent.mkdir(parents=True, exist_ok=True)
+        rows = [dict(r) for r in results]
+        if fmt == "json":
+            self.fm.safe_write(output_path, json.dumps(rows, ensure_ascii=False, indent=2))
+        elif fmt == "csv":
+            import csv
+            import io
+
+            buf = io.StringIO()
+            if rows:
+                keys = sorted({k for r in rows for k in r
+                               if not isinstance(r[k], (list, dict))})
+                writer = csv.DictWriter(buf, fieldnames=keys, extrasaction="ignore")
+                writer.writeheader()
+                writer.writerows(rows)
+            self.fm.safe_write(output_path, buf.getvalue())
+        elif fmt == "xlsx":
+            import pandas as pd
+
+            pd.DataFrame(rows).to_excel(output_path, index=False)
+        else:
+            raise ValueError(f"unsupported export format: {fmt}")
+        return output_path
+
     # -- maintenance ------------------------------------------------------------
+
+    def optimize(self) -> dict[str, Any]:
+        """Temp cleanup + the cache's stats."""
+        return {"temp_removed": self.fm.cleanup_temp(), "cache": self.cache.get_stats()}
 
     def cleanup(self) -> None:
         with self._lock:

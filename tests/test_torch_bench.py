@@ -59,7 +59,7 @@ def test_bench_prints_one_json_line_with_the_jax_key_names(narrow_towers, capsys
     assert list(extra)[0] == "gpu" and extra["gpu"] is None and extra["device"] == "cpu"
     assert list(extra)[-1] == "not_ported"
     assert extra["not_ported"] == ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static",
-                                   "ivf_10M", "served_qps", "served_10M"]
+                                   "served_qps", "served_10M"]
     assert extra["tokenizer_kind"] == "hash_fallback"
     assert extra["image_tower"] == "ViT-B/32" and extra["image_tower_fps"] > 0
     assert extra["image_tower_batch"] == 8

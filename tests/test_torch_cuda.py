@@ -23,12 +23,20 @@ an element by one step). The bench probes: P1 (int8 tensor-core sweep) is
 exact, ``torch.equal`` to its plain version and to B2 under an all-zero
 tombstone mask; P2 (rows widened to bf16) within ``1e-5 x max |score|`` (f32
 sums in another order); P3 (memory stream) ``torch.equal``.
+
+The IVF mode (``ops.ann``, torch operations, no kernel of its own) on the
+card against the same calls on CPU tensors over one state: int8 bit for bit,
+float tie-aware; two card builds bit for bit; a card build against a CPU
+build (centroids within 1e-5, the same bucket table but for rows that
+near-tie in similarity); full-f32 scores (TF32 off); the batched union
+searcher at B=16 over 1M rows, within its gather budget.
 """
 
 import pytest
 import torch
 
 from intelligent_video_analysis_retrieval_system_tpu_torch.bench import probes as tprobes
+from intelligent_video_analysis_retrieval_system_tpu_torch.ops import ann as tann
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention as tatt
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import block as tblock
 from intelligent_video_analysis_retrieval_system_tpu_torch.ops import preprocess as tpre
@@ -632,3 +640,155 @@ def test_probe_kernels_refuse_bad_input(cuda_device):
     with pytest.raises(ValueError):      # a view at an odd byte offset
         flat = torch.zeros(2048 * 128 + 1, dtype=torch.int8, device=cuda_device)
         tprobes.probe_stream(flat[1:].view(2048, 128), 64)
+
+
+# ---------------------------------------------------------------------------
+# the IVF mode (ops.ann) on the card
+# ---------------------------------------------------------------------------
+
+
+def _clustered(n, d, seed, clusters=32):
+    """Clustered unit rows, made on the CPU from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    centres = torch.nn.functional.normalize(torch.randn(clusters, d, generator=gen), dim=1)
+    x = centres[torch.randint(0, clusters, (n,), generator=gen)]
+    x = x + (0.35 / d**0.5) * torch.randn(n, d, generator=gen)
+    return torch.nn.functional.normalize(x, dim=1)
+
+
+def _to(state, device):
+    return state._replace(centroids=state.centroids.to(device),
+                          bucket_ids=state.bucket_ids.to(device),
+                          tail_ids=state.tail_ids.to(device))
+
+
+@pytest.fixture(scope="module")
+def ivf_cpu():
+    x = _clustered(4096, 64, seed=7)
+    q = torch.nn.functional.normalize(x[:20] + 0.06 * torch.randn(20, 64,
+                                      generator=torch.Generator().manual_seed(1)), dim=1)
+    x_i8, xs = tq.symmetric_int8(x, dim=-1)
+    state, _ = tann.build_ivf(x, nlist=64, kmeans_iters=6)
+    return x, q, x_i8, xs[:, 0].contiguous(), state
+
+
+@pytest.mark.parametrize("nprobe", [1, 8, 64])
+@pytest.mark.parametrize("b", [1, 8, 20])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ivf_topk_on_card_matches_cpu(cuda_device, ivf_cpu, dtype, b, nprobe):
+    x, q, x_i8, xs, state = ivf_cpu
+    dead = torch.zeros(4096, 1, dtype=torch.int8)
+    dead[::9] = 1
+    q = q[:b] if b <= 20 else q
+    kw = dict(k=10, nprobe=nprobe, n_valid=4000)
+    if dtype == "int8":
+        want = tann.ivf_topk(x_i8, state, q, x_scales=xs, deleted=dead, **kw)
+        before = tann.ivf_topk.calls
+        got = tann.ivf_topk(x_i8.to(cuda_device), _to(state, cuda_device), q.to(cuda_device),
+                            x_scales=xs.to(cuda_device), deleted=dead.to(cuda_device), **kw)
+        assert tann.ivf_topk.calls > before and got.scores.device.type == "cuda"
+        assert torch.equal(got.scores.cpu(), want.scores)
+        for i in range(b):
+            tie_aware_equal(got.indices[i].cpu().numpy(), got.scores[i].cpu().numpy(),
+                            want.indices[i].numpy(), want.scores[i].numpy(), atol=0.0)
+        return
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = tann.ivf_topk(x.to(tdt), state, q, deleted=dead, **kw)
+    got = tann.ivf_topk(x.to(tdt).to(cuda_device), _to(state, cuda_device), q.to(cuda_device),
+                        deleted=dead.to(cuda_device), **kw)
+    for i in range(b):
+        tie_aware_equal(got.indices[i].cpu().numpy(), got.scores[i].cpu().numpy(),
+                        want.indices[i].numpy(), want.scores[i].numpy())
+
+
+def _assert_same_build(a, b, x, ties_allowed):
+    torch.testing.assert_close(a.centroids.cpu(), b.centroids.cpu(), atol=1e-5, rtol=0)
+    assert torch.equal(a.tail_ids.cpu(), b.tail_ids.cpu()) and a.tail_count == b.tail_count
+    ba, bb = a.bucket_ids.cpu(), b.bucket_ids.cpu()
+    if not ties_allowed:
+        assert torch.equal(ba, bb)
+        return
+    cent = a.centroids.cpu().double()
+    for c in torch.nonzero((ba != bb).any(dim=1)).reshape(-1).tolist():
+        diff = ba[c] != bb[c]
+        sa = torch.sort(x[ba[c][diff].long()].double() @ cent[c]).values
+        sb = torch.sort(x[bb[c][diff].long()].double() @ cent[c]).values
+        torch.testing.assert_close(sa, sb, atol=1e-6, rtol=0)
+    assert int((ba != bb).sum()) <= 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_build_ivf_on_card_twice_is_bit_equal(cuda_device, dtype):
+    x = _clustered(200_000, 96, seed=3, clusters=256).to(cuda_device)
+    kw = {}
+    if dtype == "int8":
+        x, xs = tq.symmetric_int8(x, dim=-1)
+        kw["x_scales"] = xs[:, 0].contiguous()
+    a, ra = tann.build_ivf(x, nlist=512, kmeans_iters=4, seed=2, **kw)
+    b, rb = tann.build_ivf(x, nlist=512, kmeans_iters=4, seed=2, **kw)
+    assert ra == rb and a.tail_count == b.tail_count
+    for t_a, t_b in zip((a.centroids, a.bucket_ids, a.tail_ids),
+                        (b.centroids, b.bucket_ids, b.tail_ids)):
+        assert torch.equal(t_a, t_b)
+
+
+def test_build_ivf_on_card_matches_cpu(cuda_device):
+    x = _clustered(4096, 64, seed=7)
+    cpu, rc = tann.build_ivf(x, nlist=64, kmeans_iters=6)
+    card, rg = tann.build_ivf(x.to(cuda_device), nlist=64, kmeans_iters=6)
+    assert rc == rg
+    _assert_same_build(card, cpu, x, ties_allowed=True)
+    bucket = card.bucket_ids.cpu()
+    ids = torch.cat([bucket[bucket >= 0], card.tail_ids.cpu()[:card.tail_count]])
+    assert torch.equal(torch.sort(ids).values, torch.arange(4096, dtype=ids.dtype))
+
+
+def test_ivf_scores_are_full_f32_on_card(cuda_device, ivf_cpu):
+    """TF32 stays off (the port never turns it on), so the float rescore is
+    full f32: within 1e-6 of a float64 product of the same rows."""
+    x, q, _, _, state = ivf_cpu
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    got = tann.ivf_topk(x.to(cuda_device), _to(state, cuda_device), q.to(cuda_device), 10,
+                        nprobe=8)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    ids = got.indices.cpu()
+    want = torch.einsum("bd,bkd->bk", q.double(), x[ids].double())
+    torch.testing.assert_close(got.scores.cpu().double(), want, atol=1e-6, rtol=0)
+
+
+def test_ivf_union_searcher_b16_at_1m_rows(cuda_device):
+    n, d = 1_000_000, 768
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    centres = torch.nn.functional.normalize(torch.randn(4096, d, generator=gen,
+                                                        device=cuda_device), dim=1)
+    x = torch.empty(n, d, dtype=torch.bfloat16, device=cuda_device)
+    for s in range(0, n, 131_072):
+        e = min(s + 131_072, n)
+        blk = centres[torch.randint(0, 4096, (e - s,), generator=gen, device=cuda_device)]
+        blk = blk + (0.35 / d**0.5) * torch.randn(e - s, d, generator=gen, device=cuda_device)
+        x[s:e] = torch.nn.functional.normalize(blk, dim=1)
+    state, report = tann.build_ivf(x, kmeans_iters=4)
+    assert report.nlist == 4096 and report.bucket_cap == 384
+    assert tann._max_program_b(4096, 384, d, 64, 2) == 16
+    q = torch.nn.functional.normalize(torch.randn(16, d, generator=gen, device=cuda_device),
+                                      dim=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tann.ivf_topk(x, state, q, 20, nprobe=64)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= tann._GATHER_BUDGET
+    for i in range(16):
+        one = tann.ivf_topk(x, state, q[i:i + 1], 20, nprobe=64)
+        assert set(got.indices[i].tolist()) == set(one.indices[0].tolist())
+        torch.testing.assert_close(torch.sort(got.scores[i]).values,
+                                   torch.sort(one.scores[0]).values, atol=1e-5, rtol=0)
+
+
+def test_symmetric_int8_on_card_is_the_cpu_bits(cuda_device):
+    """The query scale is a true division on the card as on the CPU (CUDA
+    turns a division by a Python scalar into a multiply by its reciprocal)."""
+    x = torch.randn(20_000, 768, generator=torch.Generator().manual_seed(4))
+    q_cpu, s_cpu = tq.symmetric_int8(x, dim=-1)
+    q_card, s_card = tq.symmetric_int8(x.to(cuda_device), dim=-1)
+    assert torch.equal(s_card.cpu(), s_cpu) and torch.equal(q_card.cpu(), q_cpu)

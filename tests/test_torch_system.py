@@ -447,21 +447,24 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
     assert cli.main(["stats", str(tmp_path / "st.rvdb"), "--device", "cpu"]) == 0
     stats = json.loads(capsys.readouterr().out)
     assert stats["ntotal"] == N and stats["container"]["dtype"] == "int8"
-    with pytest.raises(NotImplementedError):
-        cli.main(["evaluate", str(tmp_path / "st.rvdb"), "--search", "ann",
-                  "--device", "cpu"])
+    assert cli.main(["evaluate", str(tmp_path / "st.rvdb"), "--search", "ann",
+                     "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["search"] == "ann" and out["ann"]["nlist"] >= 64 and out["dtype"] == "int8"
 
 
 def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
-    for call in (lambda: system.chat("hi"),
+    for call in (lambda: system.enable_llm(),
                  lambda: system.start_server(), lambda: system.index_videos([]),
                  lambda: CLIPEmbedder(compute_dtype="int8", device="cpu"),
-                 lambda: EnhancedRetrievalSystem(device="cpu", mesh=object()),
-                 lambda: create_system(torch_device="cpu",
-                                       index={"index_type": "IndexIVFFlat"})._index_config()):
+                 lambda: EnhancedRetrievalSystem(device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
             call()
+    # ported: chat answers a greeting; the IVF index types configure the ANN mode
+    assert system.chat("hi")["method"] == "greeting"
+    assert create_system(torch_device="cpu",
+                         index={"index_type": "IndexIVFFlat"})._index_config().ann
     with pytest.raises(RuntimeError):     # ported: it needs a loaded index
         system.export_portable_index(tmp_path)
 
