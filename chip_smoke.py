@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, IVF and index-build paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, IVF, index-build and ingest paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -71,7 +71,31 @@ non-zero):
             >= 0.99), 8 text requests equal to the exact reference; then
             1,024 frames built with ``index.dtype="int8"`` and served equal
             to ``int8_reference`` (atol 0).
-7. bench    the port's bench (``bench.main(["--probes"])``) in this process
+7. ingest   keyframe ingest. First whether cv2 imports (the route is
+            printed: video decode and stage 1's JPEG writes need it). B3 at
+            DINO ViT-S/16's shape (B = 128, T = 197, D = 384, 6 heads) and B5
+            at (128, 224, 224, 3) f32 -> bf16 with DINO's mean/std, each
+            against its plain version and timed; ``dino_embedder()`` (seeded,
+            bf16) on a batch of 128 frames: 12 B3 launches and one B5, cosine
+            >= 0.999 against the same tower with every attention on its plain
+            route and against the f32 tower, ms per batch. Stage 1 (the
+            launch counts start here): where cv2 imports, two seeded MJPG
+            videos of 1280 x 720, 750 frames at 25 fps in 6 static scenes
+            through ``extract_frames_batch`` with the pixel embedder and with
+            DINO (``dedup_resize=224``), each sequentially and with
+            ``workers=2`` (the same files byte for byte), one keyframe per
+            scene for the pixel embedder, every keep mask equal to
+            ``sequential_dedup_carry`` on the CPU over the card's own
+            embeddings, the map CSV schema; without cv2, the same scenes made
+            at 224 x 224 with numpy through the same fused device step. Stage
+            2: ``apply_filters`` over 8 folders x 256 JPEG keyframes of 256 x
+            256 written with PIL, in copy mode and in clustering mode, whose
+            per-folder reports equal a run on the CPU but where a score or a
+            similarity lies within 1e-5 of its threshold (printed). Then
+            ``index_videos`` over the two videos with the seeded ViT-L/14
+            towers: every keyframe found first by its own image. Frames/s of
+            each run.
+8. bench    the port's bench (``bench.main(["--probes"])``) in this process
             at full size, with its three hooks: the headline text query over
             1,000,000 bf16 rows (every answer tie-aware equal to the exact
             f32 reference over the same rows), the ViT-B/32 image tower at
@@ -80,7 +104,7 @@ non-zero):
             10,000,000 rows (every single-query answer and the first batch of
             128 and of 32 equal to ``int8_reference``, atol 0); its JSON line
             is printed as it is.
-8. probes   inside the same bench run, what its probes (``bench/probes.py``)
+9. probes   inside the same bench run, what its probes (``bench/probes.py``)
             returned, held against their plain versions on the same inputs:
             P1 (int8 tensor-core sweep) and P2 (rows widened to bf16) over
             2,097,152 x 768 int8 rows with 2,000,000 live, at 128, 256 and
@@ -92,12 +116,12 @@ non-zero):
             versions' and the library calls', and the stream rate is set
             beside the published 3.35 TB/s. The hook's launches are taken off
             the counts.
-9. open     the int8 facade over the 1,000,000 rows opened twice from a
+10. open    the int8 facade over the 1,000,000 rows opened twice from a
             stand-in container that has a path: record by record (which
             writes the ``.meta.npz`` and ``.flat8`` sidecars), then through
             the sidecars (columnar metadata); seconds of each, the same hits
             from both.
-10. ann     the IVF mode through the facade: ``index_type="IndexIVFFlat"``
+11. ann     the IVF mode through the facade: ``index_type="IndexIVFFlat"``
             over 1,000,000 x 768 bf16 rows around 4,096 seeded centres (the
             slice's rows as noise) in a writable in-memory stand-in; nlist
             4,096, bucket_cap 384; asserts ``ann_active``, builds again
@@ -112,14 +136,15 @@ non-zero):
             never returned; ``measure_ann_crossover`` over B in {1, ..., 64};
             a reopen with a default config restores ``ann_active``, nprobe
             and ``ann_max_batch``. TF32 must be off.
-11. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
+12. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
             of both serving slices, images/s of the build, kernel vs plain
             vs library-call times (CUDA events) beside each kernel's bound.
 
 Each slice sets every launch count to 0 just before it runs and reads the
 counts just after; the kernels' JSON line reports B1 and B3 from the bf16
 slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
-bench (whose own B1, B2, B3 and B5 launches are printed beside them). The
+bench (whose own B1, B2, B3 and B5 launches are printed beside them); B3 and
+B5 carry the ingest path's launches and their DINO shapes beside. The
 IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -127,7 +152,9 @@ The line before the last is the kernels' JSON record; the last line is
 
 ``--profile`` runs phases 1-2, then a build of 2,048 keyframes (one JSON
 line: where its wall time goes on the host and which kernels fill its
-device time), then serves the same 1M rows in bf16 and in
+device time), then DINO extraction of one 750-frame video (one JSON line:
+wall, device busy, idle share, device ops per batch, B3 and B5 seconds),
+then serves the same 1M rows in bf16 and in
 int8 and prints one JSON line per query phase (search, encode, search_vectors
 at B=1 and 32, search_batch at B=32): wall p50/p95 of 20 warm calls, each
 ended by a synchronize, then a ``torch.profiler`` trace of 20 more calls
@@ -239,6 +266,49 @@ class Timer:
         return start.elapsed_time(end) / per
 
 
+def sdpa(q, k, v, h):
+    """The library yardstick of B3 (timed only; the port never calls it)."""
+    import torch
+
+    b_, t_, d_ = q.shape
+    return torch.nn.functional.scaled_dot_product_attention(
+        *(y.view(b_, t_, h, d_ // h).transpose(1, 2) for y in (q, k, v)))
+
+
+def check_mha(device, gen, timer: Timer, b: int, t: int, d: int, h: int, timed: bool) -> dict:
+    """B3 at one shape against its plain version (atol = rtol = TOL_MHA); with
+    ``timed`` the kernel, the plain version and SDPA by CUDA-graph replay
+    beside the byte bound."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
+
+    on_card = device.type == "cuda"
+    q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    got = attention.fused_mha(q, k, v, h)
+    ref = attention._einsum_attention(q, k, v, h)
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
+        raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: max abs err {err} beyond "
+                             f"atol=rtol={TOL_MHA}")
+    plan = attention.mha_plan(t, d // h)
+    log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16 ({plan['variant']}, "
+        f"{plan['frags']} fragments): max_abs_err={err:.3e} vs plain (atol=rtol={TOL_MHA})")
+    out = {"shape": [b, t, d, h], "max_abs_err": err}
+    if timed:
+        out.update(
+            ms=timer(lambda: attention.fused_mha(q, k, v, h), iters=20, graph=on_card),
+            plain_ms=timer(lambda: attention._einsum_attention(q, k, v, h), iters=10,
+                           graph=on_card),
+            library_ms=timer(lambda: sdpa(q, k, v, h), iters=20, graph=on_card),
+            **bound(4 * b * t * d * 2, 4.0 * b * t * t * d, "bf16"))
+        log("numbers", f"B3 B={b} T={t} D={d}: kernel {out['ms']:.4f} ms, plain "
+            f"{out['plain_ms']:.4f} ms, library scaled_dot_product_attention "
+            f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -308,36 +378,8 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
 
     # B3: the towers' attention shapes, timed (CUDA-graph replay: the kernel is
     # shorter than a launch gap), then the ragged shapes of both variants
-
-    def sdpa(q, k, v, h):
-        b_, t_, d_ = q.shape
-        return torch.nn.functional.scaled_dot_product_attention(
-            *(y.view(b_, t_, h, d_ // h).transpose(1, 2) for y in (q, k, v)))
-
     def mha_case(b, t, d, h, timed):
-        q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
-                   for _ in range(3))
-        got = attention.fused_mha(q, k, v, h)
-        ref = attention._einsum_attention(q, k, v, h)
-        err = float((got.float() - ref.float()).abs().max())
-        if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
-            raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: max abs err {err} beyond "
-                                 f"atol=rtol={TOL_MHA}")
-        plan = attention.mha_plan(t, d // h)
-        log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16 ({plan['variant']}, "
-            f"{plan['frags']} fragments): max_abs_err={err:.3e} vs plain (atol=rtol={TOL_MHA})")
-        out = {"shape": [b, t, d, h], "max_abs_err": err}
-        if timed:
-            out.update(
-                ms=timer(lambda: attention.fused_mha(q, k, v, h), iters=20, graph=on_card),
-                plain_ms=timer(lambda: attention._einsum_attention(q, k, v, h), iters=10,
-                               graph=on_card),
-                library_ms=timer(lambda: sdpa(q, k, v, h), iters=20, graph=on_card),
-                **bound(4 * b * t * d * 2, 4.0 * b * t * t * d, "bf16"))
-            log("numbers", f"B3 B={b} T={t} D={d}: kernel {out['ms']:.4f} ms, plain "
-                f"{out['plain_ms']:.4f} ms, library scaled_dot_product_attention "
-                f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
-        return out
+        return check_mha(device, gen, timer, b, t, d, h, timed)
 
     narrow = dim < DIM   # CPU rehearsal: small widths, few images
     t_l, d_l, h_l = (257, 1024, 16) if not narrow else (17, 64, 4)
@@ -964,6 +1006,47 @@ def run_int8_slice(device, bits: np.ndarray, require_kernels: bool, config=None)
 # ---------------------------------------------------------------------------
 
 
+def pixels_for_b5(device, gen, batch: int, size: int, in_dtype):
+    """(batch, size, size, 3) pixels in [0, 255]: uint8, or float32 off the
+    integers (the resize path's values)."""
+    import torch
+
+    img = torch.randint(0, 256, (batch, size, size, 3), generator=gen, device=device,
+                        dtype=torch.uint8)
+    if in_dtype == torch.float32:
+        img = img.float() + torch.rand(img.shape, generator=gen, device=device) - 0.5
+    return img
+
+
+def check_normalize(img, out_dtype, mean: tuple, std: tuple, timer: Timer) -> dict:
+    """B5 on ``img`` against its plain version (``torch.equal``), then the
+    kernel's and the plain version's times beside the byte bound."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import preprocess
+
+    got = preprocess.normalize_images(img, mean=mean, std=std, dtype=out_dtype)
+    ref = preprocess.normalize_images_reference(img, mean, std, out_dtype)
+    if img.device.type == "cuda":
+        torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    name = f"{tuple(img.shape)} {img.dtype}->{out_dtype}"
+    if not torch.equal(got, ref):
+        raise AssertionError(f"B5 {name}: differs from the plain version by {err} (must be "
+                             "torch.equal)")
+    ms = timer(lambda: preprocess.normalize_images(img, mean=mean, std=std, dtype=out_dtype),
+               iters=20)
+    plain = timer(lambda: preprocess.normalize_images_reference(img, mean, std, out_dtype),
+                  iters=10)
+    bd = bound(img.numel() * (img.element_size() + got.element_size()), 3.0 * img.numel(),
+               "f32")
+    log("kernels", f"B5 normalize_images {name}: torch.equal to the plain version")
+    log("numbers", f"B5 {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); no single library call computes it")
+    return {"shape": list(img.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": None, **bd}
+
+
 def check_build_kernels(device, timer: Timer, require_kernels: bool, config=None):
     """B5 (normalize) and B4 (LN+MLP half-block) at the shapes the build
     path gives them, each against its plain version; times, bounds and the
@@ -982,32 +1065,12 @@ def check_build_kernels(device, timer: Timer, require_kernels: bool, config=None
     b5 = {"max_abs_err": 0.0}
     for batch, in_dtype, out_dtype in ((big, torch.uint8, torch.bfloat16),
                                        (8, torch.float32, torch.float32)):
-        img = torch.randint(0, 256, (batch, size, size, 3), generator=gen, device=device,
-                            dtype=torch.uint8)
-        if in_dtype == torch.float32:
-            img = img.float() + torch.rand(img.shape, generator=gen, device=device) - 0.5
-        got = preprocess.normalize_images(img, dtype=out_dtype)
-        ref = preprocess.normalize_images_reference(
-            img, preprocess.CLIP_IMAGE_MEAN, preprocess.CLIP_IMAGE_STD, out_dtype)
-        if on_card:
-            torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"B5 {tuple(img.shape)} {in_dtype}->{out_dtype}: differs from "
-                                 f"the plain version by {err} (must be torch.equal)")
-        ms = timer(lambda: preprocess.normalize_images(img, dtype=out_dtype), iters=20)
-        plain = timer(lambda: preprocess.normalize_images_reference(
-            img, preprocess.CLIP_IMAGE_MEAN, preprocess.CLIP_IMAGE_STD, out_dtype), iters=10)
-        bd = bound(img.numel() * (img.element_size() + got.element_size()),
-                   3.0 * img.numel(), "f32")
-        log("kernels", f"B5 normalize_images {tuple(img.shape)} {in_dtype} -> {out_dtype}: "
-            "torch.equal to the plain version")
-        log("numbers", f"B5 {tuple(img.shape)} {in_dtype}->{out_dtype}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); no single "
-            "library call computes it")
+        img = pixels_for_b5(device, gen, batch, size, in_dtype)
+        case = check_normalize(img, out_dtype, preprocess.CLIP_IMAGE_MEAN,
+                               preprocess.CLIP_IMAGE_STD, timer)
         if in_dtype == torch.uint8:
-            b5.update(ms=ms, plain_ms=plain, library_ms=None, **bd)
-        del img, got, ref
+            b5.update({k: v for k, v in case.items() if k != "shape"})
+        del img
 
     # B4: both towers' shapes in bf16, one f32 case
     if config is None:
@@ -1525,7 +1588,606 @@ def run_build_slice(device, require_kernels: bool, config=None, n_frames: int = 
 
 
 # ---------------------------------------------------------------------------
-# phases 7 and 8: the bench in this process, every answer and probe checked
+# phase 7: keyframe ingest (the DINO tower, stage 1 and 2, index_videos)
+# ---------------------------------------------------------------------------
+
+INGEST_VIDEOS = 2
+INGEST_FRAMES = 750      # per video: 30 s at 25 fps
+INGEST_SCENES = 6
+INGEST_SIZE = (720, 1280)
+STAGE2_FOLDERS = 8
+STAGE2_PER_FOLDER = 256
+COS_DINO = 0.999         # DINO through B3 against the plain attention route / f32
+NEAR = 1e-5              # stage 2: a score or similarity this close to its threshold
+
+
+def probe_cv2():
+    """(the cv2 module or None, the route line): video decode and the JPEG
+    writes of stage 1 need OpenCV."""
+    import importlib.util
+
+    if importlib.util.find_spec("cv2") is None:
+        return None, "cv2 is not installed"
+    try:
+        import cv2
+    except ImportError as exc:
+        return None, f"cv2 is installed but does not import ({exc})"
+    return cv2, f"cv2 {cv2.__version__} imports"
+
+
+def scene_frames(seed: int, n: int, scenes: int, height: int, width: int,
+                 cell: int) -> np.ndarray:
+    """``n`` frames of ``scenes`` static scenes (a board of seeded colours in
+    ``cell``-pixel squares) with per-frame noise of 0-2 levels."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((n, height, width, 3), np.uint8)
+    per = -(-n // scenes)
+    noise = rng.integers(0, 3, (4, height, width, 3), dtype=np.uint8)
+    for s in range(scenes):
+        board = rng.integers(0, 200, (-(-height // cell), -(-width // cell), 3), dtype=np.uint8)
+        base = np.kron(board, np.ones((cell, cell, 1), np.uint8))[:height, :width]
+        for i in range(s * per, min(n, (s + 1) * per)):
+            out[i] = base + noise[i % 4]
+    return out
+
+
+def write_scene_videos(cv2, root: Path, n_videos: int, n_frames: int, scenes: int,
+                       size: tuple[int, int]) -> list[Path]:
+    """Seeded MJPG ``.avi`` videos at 25 fps (OpenCV encodes MJPG itself,
+    without ffmpeg)."""
+    import concurrent.futures as cf
+
+    root.mkdir(parents=True, exist_ok=True)
+    h, w = size
+
+    def write(v: int) -> Path:
+        path = root / f"video_{v}.avi"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (w, h))
+        if not writer.isOpened():
+            raise AssertionError(f"cv2.VideoWriter cannot write MJPG to {path}")
+        for frame in scene_frames(100 + v, n_frames, scenes, h, w, 80):
+            writer.write(frame[..., ::-1])
+        writer.release()
+        return path
+
+    with cf.ThreadPoolExecutor(max_workers=n_videos) as pool:
+        return list(pool.map(write, range(n_videos)))
+
+
+def tree_digest(root: Path) -> dict[str, str]:
+    """Relative path -> sha256 of every file under ``root``."""
+    import hashlib
+
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def check_masks_on_cpu(steps: list, threshold: float, where: str) -> int:
+    """Each recorded device step's keep mask against ``sequential_dedup_carry``
+    run on the CPU over the card's own embeddings, from the card's own carry.
+    Where the two differ, every decision of the card is replayed in f64: one
+    whose cosine lies within NEAR of the threshold may go either way (it is
+    printed), any other must be the card's. Returns the steps checked."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import dedup
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.normalize import (
+        l2_normalize,
+    )
+
+    carry = None
+    for new_video, emb, active, keep in steps:
+        emb = l2_normalize(emb.float().cpu())
+        if new_video:
+            carry = torch.zeros(emb.shape[1])
+        if active is None:
+            want, _ = dedup.sequential_dedup_carry(emb, carry, threshold)
+        else:
+            want, _ = dedup.sequential_dedup_carry_masked(emb, carry, torch.from_numpy(active),
+                                                          threshold)
+        if not np.array_equal(keep, want.numpy()):
+            last = carry.double().numpy()
+            for i, e in enumerate(emb.double().numpy()):
+                if active is not None and not active[i]:
+                    continue
+                sim = float(last @ e)
+                if bool(keep[i]) != (sim < threshold):
+                    if abs(sim - threshold) > NEAR:
+                        raise AssertionError(f"{where}: the card's keep mask differs from the "
+                                             f"CPU scan at row {i} (cosine {sim} vs threshold "
+                                             f"{threshold})")
+                    log("ingest", f"{where}: row {i} decided apart from the CPU scan at cosine "
+                        f"{sim:.9f} (within {NEAR} of {threshold})")
+                if keep[i]:
+                    last = e
+        kept = np.nonzero(keep)[0]
+        if len(kept):
+            carry = emb[kept[-1]]
+    return len(steps)
+
+
+def recording(ff) -> list:
+    """Wrap ``ff.dedup_step`` and its embedder's ``device_fn`` so that each
+    step's (new video, card embeddings, active, keep) is kept; the embeddings
+    stay on the card until the run ends."""
+    steps, seen = [], {}
+    device_fn = ff.embed_fn.device_fn
+    step = ff.dedup_step
+
+    def embed(batch):
+        seen["emb"] = device_fn(batch)
+        return seen["emb"]
+
+    def dedup_step(batch, carry, active=None):
+        keep, new_carry = step(batch, carry, active)
+        steps.append((carry is None, seen.pop("emb"), active, keep))
+        return keep, new_carry
+
+    ff.embed_fn.device_fn = embed
+    ff.dedup_step = dedup_step
+    return steps
+
+
+def write_stage2_keyframes(root: Path, n_folders: int, per_folder: int, size: int = 256) -> None:
+    """``root/video_XX/N.jpg`` (PIL, quality 95): runs of 1-6 near-duplicate
+    frames (jitter of 0-3 levels) of seeded boards with 8-64 pixel cells,
+    every fifth run blurred (a box filter), so that both stages of
+    ``apply_filters`` have work."""
+    import concurrent.futures as cf
+
+    from PIL import Image
+
+    def folder_frames(f: int) -> list[np.ndarray]:
+        rng = np.random.default_rng([7, f])
+        frames, run = [], 0
+        while len(frames) < per_folder:
+            cell = int(rng.choice([8, 16, 32, 64]))
+            board = rng.integers(0, 256, (size // cell, size // cell, 3), dtype=np.uint8)
+            base = np.kron(board, np.ones((cell, cell, 1), np.uint8)).astype(np.int16)
+            if run % 5 == 4:
+                k = 9
+                pad = np.pad(base, ((k // 2, k // 2), (k // 2, k // 2), (0, 0)), mode="edge")
+                base = sum(pad[i:i + size, j:j + size]
+                           for i in range(k) for j in range(k)) // (k * k)
+            for _ in range(int(rng.integers(1, 7))):
+                jitter = rng.integers(0, 4, base.shape, dtype=np.int16)
+                frames.append(np.clip(base + jitter, 0, 255).astype(np.uint8))
+            run += 1
+        return frames[:per_folder]
+
+    def write(f: int) -> None:
+        out = root / f"video_{f:02d}"
+        out.mkdir(parents=True, exist_ok=True)
+        for n, frame in enumerate(folder_frames(f)):
+            Image.fromarray(frame).save(out / f"{n}.jpg", format="JPEG", quality=95)
+
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, range(n_folders)))
+
+
+def near_threshold_cases(ff, keyframes: Path, folder: str, images: list[str]) -> list[str]:
+    """What could let a card's stage 2 decide a folder apart from the CPU's:
+    scores within NEAR (relative) of their percentile thresholds, and
+    similarities within NEAR of the dedup, clustering or scene thresholds
+    (CPU values; every pair of the folder, a superset of the scans')."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quality
+
+    cfg = ff.config
+    pixels = ff._load_uniform([keyframes / folder / img for img in images])
+    metrics = quality.quality_metrics(torch.from_numpy(pixels))
+    cases = []
+    for key, p in (("blur", cfg.blur_drop_percentile), ("edges", cfg.edge_drop_percentile)):
+        scores = metrics[key].numpy().astype(np.float64)
+        thr = float(np.percentile(scores, p))
+        for i in np.nonzero((np.abs(scores - thr) <= NEAR * abs(thr)) & (scores != thr))[0]:
+            cases.append(f"{folder}/{images[i]} {key} {scores[i]:.9g} vs threshold {thr:.9g}")
+    emb = ff.embed_fn(pixels).astype(np.float64)
+    unit = emb / np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
+    sims = unit @ unit.T
+    for name, thr in (("in-scene similarity", cfg.in_scene_similarity),
+                      ("cluster distance", 1.0 - cfg.cluster_eps),
+                      ("scene cut", cfg.scene_threshold)):
+        for i, j in zip(*np.nonzero(np.triu(np.abs(sims - thr) <= NEAR, k=1))):
+            cases.append(f"{folder}/{images[i]} ~ {images[j]} {name}: cosine {sims[i, j]:.9f} "
+                         f"vs {thr}")
+    return cases
+
+
+def run_ingest_phase(device, require_kernels: bool, timer: Timer, clip_config=None,
+                     n_videos: int = INGEST_VIDEOS, n_frames: int = INGEST_FRAMES,
+                     scenes: int = INGEST_SCENES, size: tuple[int, int] = INGEST_SIZE,
+                     frame_batch: int = 128, stage2_folders: int = STAGE2_FOLDERS,
+                     stage2_per_folder: int = STAGE2_PER_FOLDER,
+                     workdir: Path | None = None) -> dict:
+    """Keyframe ingest on the card: the DINO ViT-S/16 tower against its plain
+    attention route and its f32 twin, B3 and B5 at DINO's shapes, stage 1
+    (``extract_frames_batch`` over seeded videos, sequential and with two
+    decode workers, with the pixel embedder and with DINO; or, without cv2,
+    the same fused device step over frames made with numpy), stage 2
+    (``apply_filters`` against a CPU run over the same JPEGs) and
+    ``index_videos``. Every check is fatal."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ingest import (
+        FrameFilter,
+        FrameFilterConfig,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ingest.frames import (
+        dino_embedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import (
+        MultiHeadAttention,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.dino import (
+        DINO_IMAGE_MEAN,
+        DINO_IMAGE_STD,
+        DINOConfig,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import (
+        attention,
+        preprocess,
+    )
+
+    t_phase = time.perf_counter()
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "ingest"
+    shutil.rmtree(workdir, ignore_errors=True)
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(8)
+    cv2, route = probe_cv2()
+    log("ingest", f"route: {route}: " + (
+        "videos are decoded, shrunk and keyframes written by cv2" if cv2 else
+        "video decode and the JPEG writes of stage 1 do not run on this machine; the "
+        "fused device step of extract_frames runs over frames made with numpy"))
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    # DINO at full width, one batch of frame_batch frames: B3 and B5 at its
+    # shapes, then the tower against its plain attention route and in f32
+    cfg = DINOConfig.vit_s_16()
+    t = cfg.num_patches + 1
+    b3 = check_mha(device, gen, timer, frame_batch, t, cfg.hidden_size, cfg.num_heads,
+                   timed=True)
+    b5 = check_normalize(pixels_for_b5(device, gen, frame_batch, cfg.image_size,
+                                       torch.float32),
+                         torch.bfloat16, DINO_IMAGE_MEAN, DINO_IMAGE_STD, timer)
+    t0 = time.perf_counter()
+    dino = dino_embedder(device=device)
+    dino32 = dino_embedder(dtype="float32", device=device)
+    log("ingest", f"DINO ViT-S/16 towers (bf16 and f32, seeded) built in "
+        f"{time.perf_counter() - t0:.1f} s: {cfg.num_layers} x {cfg.hidden_size}, "
+        f"{cfg.num_heads} heads, {t} tokens")
+    # frames as stage 1 hands them to DINO (shrunk to its input size on the host)
+    frames = torch.from_numpy(scene_frames(3, frame_batch, 8, cfg.image_size,
+                                           cfg.image_size, 16)).to(device)
+    counts = (attention.fused_mha.launches, preprocess.normalize_images.launches)
+    got = dino.device_fn(frames)
+    sync()
+    launched = (attention.fused_mha.launches - counts[0],
+                preprocess.normalize_images.launches - counts[1])
+    if require_kernels and launched != (cfg.num_layers, 1):
+        raise AssertionError(f"one DINO batch launched B3 {launched[0]} and B5 {launched[1]} "
+                             f"times, expected {cfg.num_layers} and 1")
+    plain_layers = [m for tower in (dino.tower, dino32.tower) for m in tower.modules()
+                    if isinstance(m, MultiHeadAttention)]
+    for m in plain_layers:
+        m.fused_attn = False
+    try:
+        plain = dino.device_fn(frames)
+        full = dino32.device_fn(frames)
+    finally:
+        for m in plain_layers:
+            m.fused_attn = True
+    if got.shape != (frame_batch, cfg.hidden_size) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"DINO embeddings {tuple(got.shape)} or not finite")
+    cos_plain = float(torch.nn.functional.cosine_similarity(got, plain, dim=-1).min())
+    cos_f32 = float(torch.nn.functional.cosine_similarity(got, full, dim=-1).min())
+    if min(cos_plain, cos_f32) < COS_DINO:
+        raise AssertionError(f"DINO through B3: min cosine {cos_plain} against the plain "
+                             f"attention route, {cos_f32} against f32 (< {COS_DINO})")
+    log("ingest", f"DINO bf16 B={frame_batch}: launches B3 {launched[0]}, B5 {launched[1]}; "
+        f"min cosine {cos_plain:.6f} against the plain attention route, {cos_f32:.6f} "
+        f"against the f32 tower (>= {COS_DINO})")
+
+    def per_batch_ms(batch) -> float:
+        dino.device_fn(batch)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dino.device_fn(batch)
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / 5
+
+    # frames of another size go through the bicubic resize, whose
+    # interpolation matrices resize_bilinear builds on the host at every call
+    dino_ms = per_batch_ms(frames)
+    resized_ms = per_batch_ms(torch.nn.functional.pad(frames, (0, 0, 0, 32, 0, 32)))
+    log("numbers", f"DINO ViT-S/16 bf16: {dino_ms:.2f} ms per batch of {frame_batch} "
+        f"({frame_batch / dino_ms * 1e3:.0f} frames/s; device_fn on {cfg.image_size}x"
+        f"{cfg.image_size} frames, the stage-1 input); {resized_ms:.2f} ms on "
+        f"{cfg.image_size + 32}x{cfg.image_size + 32} frames (with the resize)")
+    del frames, got, plain, full, dino32
+
+    pixel_cfg = FrameFilterConfig(frame_batch=frame_batch)
+    dino_cfg = FrameFilterConfig(frame_batch=frame_batch, dedup_resize=cfg.image_size)
+    out = {"route": route, "dino_ms_per_batch": dino_ms,
+           "dino_resized_ms_per_batch": resized_ms, "cos_plain": cos_plain,
+           "cos_f32": cos_f32, "b3": b3, "b5": b5, "stage1": {}}
+
+    # stage 1; the ingest path's launch counts start here
+    attention.fused_mha.launches = 0
+    preprocess.normalize_images.launches = 0
+    videos = None
+    if cv2 is not None:
+        t0 = time.perf_counter()
+        videos = write_scene_videos(cv2, workdir / "videos", n_videos, n_frames, scenes, size)
+        log("ingest", f"{n_videos} videos of {size[1]}x{size[0]}, {n_frames} frames at 25 fps, "
+            f"{scenes} static scenes each, MJPG, written in {time.perf_counter() - t0:.1f} s")
+        batches = n_videos * -(-n_frames // frame_batch)
+        for name, fcfg, embed in (("pixel", pixel_cfg, None), ("dino", dino_cfg, dino)):
+            ff = FrameFilter(fcfg, embed_fn=embed, device=device)
+            steps = recording(ff)
+            runs = {}
+            for mode, workers in (("sequential", 0), ("workers=2", 2)):
+                root = workdir / name / mode.replace("=", "")
+                before = attention.fused_mha.launches, preprocess.normalize_images.launches
+                t0 = time.perf_counter()
+                reps = ff.extract_frames_batch(videos, root / "kf", root / "map",
+                                               workers=workers)
+                sync()
+                wall = time.perf_counter() - t0
+                seen = sum(r.frames_seen for r in reps)
+                runs[mode] = (root, reps, wall)
+                b3_n = attention.fused_mha.launches - before[0]
+                b5_n = preprocess.normalize_images.launches - before[1]
+                if require_kernels and name == "dino" and (b3_n, b5_n) != (
+                        batches * cfg.num_layers, batches):
+                    raise AssertionError(f"DINO extraction ({mode}) launched B3 {b3_n} and B5 "
+                                         f"{b5_n} times for {batches} batches")
+                log("numbers", f"stage 1 {name} {mode}: {seen} frames of {size[1]}x{size[0]} "
+                    f"in {wall:.2f} s ({seen / wall:.1f} frames/s), kept "
+                    f"{[r.frames_kept for r in reps]}; launches B3 {b3_n}, B5 {b5_n}")
+                out["stage1"][f"{name} {mode}"] = {"frames": seen, "wall_s": wall,
+                                                   "frames_per_s": seen / wall,
+                                                   "kept": [r.frames_kept for r in reps]}
+            (seq_root, seq, _), (par_root, par, _) = runs["sequential"], runs["workers=2"]
+            if [(r.video, r.frames_seen, r.frames_kept) for r in par] != \
+                    [(r.video, r.frames_seen, r.frames_kept) for r in seq]:
+                raise AssertionError(f"stage 1 {name}: the workers' reports differ")
+            digest_seq, digest_par = tree_digest(seq_root), tree_digest(par_root)
+            if digest_par != digest_seq:
+                raise AssertionError(f"stage 1 {name}: keyframes or maps of workers=2 differ "
+                                     "from the sequential run's")
+            n_checked = check_masks_on_cpu(steps[:batches], fcfg.dedup_threshold,
+                                           f"stage 1 {name}")
+            if any(r.frames_seen != n_frames for r in seq):
+                raise AssertionError(f"stage 1 {name}: frames seen {[r.frames_seen for r in seq]}")
+            if name == "pixel" and [r.frames_kept for r in seq] != [scenes] * n_videos:
+                raise AssertionError(f"stage 1 pixel: kept {[r.frames_kept for r in seq]}, one "
+                                     f"keyframe per scene expected ({scenes})")
+            for r in seq:
+                lines = (seq_root / "map" / f"{r.video}.csv").read_text().splitlines()
+                if lines[0] != "n,pts_time,fps,frame_idx" or len(lines) != r.frames_kept + 1:
+                    raise AssertionError(f"map of {r.video}: {lines[:3]}")
+                n_, pts, fps, idx = lines[1].split(",")
+                if (int(n_), float(fps)) != (0, 25.0) or float(pts) != int(idx) / 25.0:
+                    raise AssertionError(f"map of {r.video}: row {lines[1]}")
+            log("ingest", f"stage 1 {name}: workers=2 wrote the sequential run's "
+                f"{len(digest_seq)} files byte for byte; {n_checked} keep masks equal "
+                "sequential_dedup_carry on the CPU over the card's embeddings; map schema "
+                "n,pts_time,fps,frame_idx")
+    else:
+        for name, fcfg, embed in (("pixel", pixel_cfg, None), ("dino", dino_cfg, dino)):
+            ff = FrameFilter(fcfg, embed_fn=embed, device=device)
+            steps = recording(ff)
+            before = attention.fused_mha.launches, preprocess.normalize_images.launches
+            t0, kept = time.perf_counter(), []
+            for v in range(n_videos):
+                video = scene_frames(100 + v, n_frames, scenes, cfg.image_size,
+                                     cfg.image_size, 32)
+                carry, k = None, 0
+                for s in range(0, n_frames, frame_batch):
+                    batch = video[s:s + frame_batch]
+                    b = len(batch)
+                    if b < frame_batch:
+                        batch = np.concatenate([batch, np.repeat(batch[-1:], frame_batch - b, 0)])
+                    keep, carry = ff.dedup_step(batch, carry)
+                    k += int(keep[:b].sum())
+                kept.append(k)
+            sync()
+            wall = time.perf_counter() - t0
+            b3_n = attention.fused_mha.launches - before[0]
+            b5_n = preprocess.normalize_images.launches - before[1]
+            batches = len(steps)
+            if require_kernels and name == "dino" and (b3_n, b5_n) != (
+                    batches * cfg.num_layers, batches):
+                raise AssertionError(f"DINO fused step launched B3 {b3_n} and B5 {b5_n} times "
+                                     f"for {batches} batches")
+            check_masks_on_cpu(steps, fcfg.dedup_threshold, f"stage 1 {name}")
+            if name == "pixel" and kept != [scenes] * n_videos:
+                raise AssertionError(f"fused step, pixel embedder: kept {kept}")
+            seen = n_videos * n_frames
+            log("numbers", f"stage 1 {name} (fused device step only): {seen} frames of "
+                f"{cfg.image_size}x{cfg.image_size} in {wall:.2f} s ({seen / wall:.1f} frames/s), "
+                f"kept {kept}; launches B3 {b3_n}, B5 {b5_n}; keep masks equal "
+                "sequential_dedup_carry on the CPU over the card's embeddings")
+            out["stage1"][name] = {"frames": seen, "wall_s": wall, "frames_per_s": seen / wall,
+                                   "kept": kept}
+    out["launches"] = {"b3": attention.fused_mha.launches,
+                       "b5": preprocess.normalize_images.launches}
+
+    # stage 2: apply_filters on the card against the same run on the CPU
+    keyframes = workdir / "stage2" / "keyframes"
+    t0 = time.perf_counter()
+    write_stage2_keyframes(keyframes, stage2_folders, stage2_per_folder)
+    n2 = stage2_folders * stage2_per_folder
+    log("ingest", f"stage 2: {n2} JPEG keyframes of 256x256 in {stage2_folders} folders "
+        f"written with PIL in {time.perf_counter() - t0:.1f} s")
+    out["stage2"] = {}
+    for mode, fcfg in (("copy", FrameFilterConfig()),
+                       ("cluster", FrameFilterConfig(use_clustering=True))):
+        reps = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            ff = FrameFilter(fcfg, device=dev)
+            t0 = time.perf_counter()
+            reps[where] = ff.apply_filters(
+                keyframes, output_dir=workdir / "stage2" / f"{mode}_{where}").as_dict()
+            sync()
+            reps[where + "_s"] = time.perf_counter() - t0
+        differ = [f for f in reps["card"]["per_folder"]
+                  if reps["card"]["per_folder"][f] != reps["cpu"]["per_folder"][f]]
+        ff = FrameFilter(fcfg, device="cpu")
+        scanned = ff.fm.scan_keyframes(keyframes)
+        for folder in differ:
+            cases = near_threshold_cases(ff, keyframes, folder, scanned[folder])
+            if not cases:
+                raise AssertionError(f"stage 2 {mode}: {folder} card "
+                                     f"{reps['card']['per_folder'][folder]} vs CPU "
+                                     f"{reps['cpu']['per_folder'][folder]}, and no score or "
+                                     f"similarity within {NEAR} of its threshold")
+            for case in cases:
+                log("ingest", f"stage 2 {mode}: {folder} decided apart near a threshold: {case}")
+        rep = reps["card"]
+        if rep["frames_in"] != n2 or not 0 < rep["frames_out"] < n2 or \
+                rep["dropped_quality"] == 0 or rep["dropped_similarity"] == 0:
+            raise AssertionError(f"stage 2 {mode}: report {rep}")
+        log("ingest", f"stage 2 {mode}: {n2} -> {rep['frames_out']} frames (quality "
+            f"-{rep['dropped_quality']}, similarity -{rep['dropped_similarity']}); "
+            f"{len(differ)} of {stage2_folders} folders differ from the CPU run")
+        log("numbers", f"stage 2 {mode}: apply_filters {n2 / reps['card_s']:.1f} frames/s on "
+            f"the card ({reps['card_s']:.2f} s), {n2 / reps['cpu_s']:.1f} on the CPU")
+        out["stage2"][mode] = {"frames": n2, "wall_s": reps["card_s"],
+                               "frames_per_s": n2 / reps["card_s"],
+                               "cpu_frames_per_s": n2 / reps["cpu_s"],
+                               "frames_out": rep["frames_out"], "folders_apart": len(differ)}
+
+    # index_videos: videos -> keyframes -> the seeded ViT-L/14 build -> each
+    # keyframe found first by its own image
+    if videos is not None:
+        from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+            CLIPEmbedder,
+        )
+        from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+            EnhancedRetrievalSystem,
+            SearchOptions,
+        )
+        from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
+
+        have_pil = importlib.util.find_spec("PIL") is not None
+        have_h5py = importlib.util.find_spec("h5py") is not None
+        base = workdir / "index_videos"
+        system = EnhancedRetrievalSystem(
+            Config(config_file=None, base_dir=base,
+                   overrides={"ingest": {"frame_batch": frame_batch}}),
+            embedder=CLIPEmbedder(config=clip_config, device=device), device=device)
+        system.builder_class = smoke_builder_class(have_pil, have_h5py)
+        t0 = time.perf_counter()
+        res = system.index_videos(videos, output_path=base / "index" / "videos.rvdb")
+        sync()
+        wall = time.perf_counter() - t0
+        kept = [r["frames_kept"] for r in res["extract"]]
+        if res["report"]["processed"] != sum(kept) or res["report"]["failed"] or \
+                system.index.ntotal != sum(kept):
+            raise AssertionError(f"index_videos: extract {kept}, build {res['report']}")
+        builder = system._make_builder()
+        kf = system.config.path("keyframes_dir")
+        worst = 1.0
+        for path in sorted(kf.rglob("*.jpg")):
+            hits = system.search_by_image(builder._decode_one(path)[0], SearchOptions(limit=2))
+            top = hits[0]
+            if (top["folder"], top["image"]) != (path.parent.name, path.name) or \
+                    top["similarity_score"] < 0.99:
+                raise AssertionError(f"index_videos: {path.parent.name}/{path.name} finds "
+                                     f"{top['folder']}/{top['image']} at "
+                                     f"{top['similarity_score']}")
+            worst = min(worst, top["similarity_score"])
+        log("ingest", f"index_videos: {len(videos)} videos -> {sum(kept)} keyframes -> a "
+            f"{system.embedder.config.vision.num_layers}-layer ViT build in {wall:.1f} s; "
+            f"every keyframe found first by its own image (lowest score {worst:.6f})")
+        system.cleanup()
+        out["index_videos_s"] = wall
+    log("ingest", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def profile_ingest(device, n_frames: int = INGEST_FRAMES, scenes: int = INGEST_SCENES,
+                   size: tuple[int, int] = INGEST_SIZE, frame_batch: int = 128) -> dict:
+    """Where DINO extraction's time goes: one seeded video through
+    ``extract_frames`` with ``--dino``'s configuration (or, without cv2, the
+    same frames at 224 x 224 through its fused device step) under a
+    ``torch.profiler`` trace: wall, device busy, idle share, device ops per
+    batch and the seconds of B3 and B5."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ingest import (
+        FrameFilter,
+        FrameFilterConfig,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ingest.frames import (
+        dino_embedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.dino import DINOConfig
+
+    on_card = device.type == "cuda"
+    workdir = ROOT / "build" / "chip_smoke" / "profile_ingest"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    cv2, route = probe_cv2()
+    edge = DINOConfig.vit_s_16().image_size
+    ff = FrameFilter(FrameFilterConfig(frame_batch=frame_batch, dedup_resize=edge),
+                     embed_fn=dino_embedder(device=device), device=device)
+    if cv2 is not None:
+        video = write_scene_videos(cv2, workdir / "videos", 1, n_frames, scenes, size)[0]
+
+        def run() -> None:
+            ff.extract_frames(video, workdir / "kf", workdir / "map")
+    else:
+        frames = scene_frames(100, n_frames, scenes, edge, edge, 32)
+
+        def run() -> None:
+            carry = None
+            for s in range(0, n_frames, frame_batch):
+                batch = frames[s:s + frame_batch]
+                if len(batch) < frame_batch:
+                    batch = np.concatenate([batch, np.repeat(batch[-1:],
+                                                             frame_batch - len(batch), 0)])
+                _, carry = ff.dedup_step(batch, carry)
+    run()   # warm
+    if on_card:
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]
+                 ) as prof:
+        t0 = time.perf_counter()
+        run()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = workdir / "trace_ingest.json"
+    prof.export_chrome_trace(str(path))
+    busy, ops, per_kernel = device_time(json.loads(path.read_text()))
+    path.unlink()
+    batches = -(-n_frames // frame_batch)
+    row = {"phase": "ingest_dino", "route": route, "frames": n_frames, "batches": batches,
+           "wall_s": wall, "frames_per_s": n_frames / wall, "device_busy_s": busy / 1e3,
+           "idle_share": 1.0 - busy / 1e3 / wall, "device_ops": ops,
+           "ops_per_batch": ops / batches, "b3_s": per_kernel["b3"] / 1e3,
+           "b5_s": per_kernel["b5"] / 1e3,
+           "other_device_s": (busy - per_kernel["b3"] - per_kernel["b5"]) / 1e3}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the bench in this process, every answer and probe checked
 # ---------------------------------------------------------------------------
 
 TOL_P2 = 1e-5   # x max |score|: bf16 products summed in f32 in another order
@@ -1831,7 +2493,7 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the int8 facade opened record by record, then through its sidecars
+# phase 10: the int8 facade opened record by record, then through its sidecars
 # ---------------------------------------------------------------------------
 
 
@@ -1894,7 +2556,7 @@ def run_open_phase(device, bits: np.ndarray, config=None, workdir: Path | None =
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the IVF approximate mode
+# phase 11: the IVF approximate mode
 # ---------------------------------------------------------------------------
 
 ANN_CENTRES = 4096   # clusters of the 1M-row corpus (on uniform rows the recall
@@ -2556,6 +3218,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.profile:
         profile_build(device)
         torch.cuda.empty_cache()
+        profile_ingest(device)
+        torch.cuda.empty_cache()
         bits = make_rows(N_ROWS)
         run_profile(device, bits)
         torch.cuda.empty_cache()
@@ -2590,6 +3254,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     built = run_build_slice(device, require_kernels=True)
     torch.cuda.empty_cache()
+    ingested = run_ingest_phase(device, require_kernels=True, timer=timer)
+    torch.cuda.empty_cache()
     benched = run_bench_phase(device, require_kernels=True, argv=["--probes"], timer=timer)
     p1, p2, p3 = benched["probes"]
 
@@ -2605,7 +3271,8 @@ def main(argv: list[str] | None = None) -> int:
         {"name": "fused_mha (B3)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/mha.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
-         "launches": result["launches"]["b3"], **b3},
+         "launches": result["launches"]["b3"], **b3, "dino_vit_s_16": ingested["b3"],
+         "ingest_launches": ingested["launches"]["b3"]},
         {"name": "fused_ln_mlp (B4)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/block.py:78",
@@ -2613,7 +3280,8 @@ def main(argv: list[str] | None = None) -> int:
         {"name": "normalize_images (B5)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/normalize.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py:127",
-         "launches": built["launches"]["b5"], **b5},
+         "launches": built["launches"]["b5"], **b5, "dino_f32": ingested["b5"],
+         "ingest_launches": ingested["launches"]["b5"]},
         {"name": "probe_int8_mma_sweep (P1)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
          "replaces": "benchmarks/exp_int8.py:37",
@@ -2628,6 +3296,7 @@ def main(argv: list[str] | None = None) -> int:
          "launches": benched["launches"]["p3"], **p3},
     ]}
     log("build", f"launches on the build path: {built['launches']}")
+    log("ingest", f"launches on the ingest path: {ingested['launches']}")
     log("open", f"1M-row int8 facade open: {opened}")
     log("ann", f"1M bf16 facade: build {ann1['build_s']:.2f} s, nprobe {ann1['nprobe']}, "
         f"ann_max_batch {ann1['max_batch']}, launches {ann1['launches']}; 10M int8: build "

@@ -1,5 +1,18 @@
 """Command-line interface of the PyTorch port.
 
+``extract`` — videos into deduplicated keyframes and map CSVs:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch extract \
+        a.mp4 b.mp4 --keyframes-dir keyframes/ --map-dir map/ [--dino] \
+        [--phash] [--workers 2] [--device cuda]
+
+``filter`` — refine extracted keyframes (quality percentiles, in-scene
+dedup or ``--cluster``; presets ``--gentle``, ``--ultra-gentle``,
+``--similarity-only``), in place or into ``--output-dir``:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch filter \
+        keyframes/ [--output-dir refined/] [--map-dir map/ --output-map-dir map2/]
+
 ``build`` — a ``keyframes/<video>/<n>.jpg`` tree into one ``.rvdb`` index
 (chunked and resumable; every keyframe through the vision tower):
 
@@ -34,8 +47,8 @@ them: nprobe to a recall target, then the IVF/dense crossover batch:
     python -m intelligent_video_analysis_retrieval_system_tpu_torch bench \
         [--device cuda] [--rows N] [--full] [--probes] [--skip-10m]
 
-The other commands of the JAX package's CLI (extract, filter, serve, ...)
-are ported with their subsystems in later changes.
+The other commands of the JAX package's CLI (serve, share, doctor,
+validate, parity) are ported with their subsystems in later changes.
 """
 
 from __future__ import annotations
@@ -54,6 +67,48 @@ def _build_parser() -> argparse.ArgumentParser:
         description="Intelligent video analysis & retrieval on PyTorch + CUDA",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    ex = sub.add_parser("extract", help="extract keyframes from videos")
+    ex.add_argument("videos", nargs="+", help="video files")
+    ex.add_argument("--keyframes-dir", default="keyframes")
+    ex.add_argument("--map-dir", default="map")
+    ex.add_argument("--dedup-threshold", type=float, default=0.98)
+    ex.add_argument("--sample-every", type=int, default=1)
+    ex.add_argument("--batch", type=int, default=128)
+    ex.add_argument("--phash", action="store_true",
+                    help="enable perceptual-hash prefilter")
+    ex.add_argument("--dedup-resize", type=int, default=64,
+                    help="host-side shrink edge for dedup embeddings "
+                         "(0 disables; use 224 with a DINO embedder)")
+    ex.add_argument("--dino", action="store_true",
+                    help="use the DINO ViT-S/16 dedup tower (reference parity; slower)")
+    ex.add_argument("--workers", type=int, default=0,
+                    help="decode worker processes (>=2 enables the multi-process "
+                         "ingest pipeline; 0 = sequential)")
+    ex.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "versions of the kernels)")
+
+    fl = sub.add_parser("filter", help="refine extracted keyframes")
+    fl.add_argument("keyframes_dir")
+    fl.add_argument("--output-dir", default=None,
+                    help="copy survivors here (default: filter in place)")
+    fl.add_argument("--map-dir", default=None)
+    fl.add_argument("--output-map-dir", default=None)
+    fl.add_argument("--blur-percentile", type=float, default=10.0)
+    fl.add_argument("--edge-percentile", type=float, default=10.0)
+    fl.add_argument("--similarity", type=float, default=0.95)
+    fl.add_argument("--window", type=int, default=5)
+    fl.add_argument("--cluster", action="store_true",
+                    help="density-cluster scenes and keep centroid-nearest "
+                         "representatives (filter_research_update parity)")
+    preset = fl.add_mutually_exclusive_group()
+    preset.add_argument("--gentle", action="store_true")
+    preset.add_argument("--ultra-gentle", action="store_true")
+    preset.add_argument("--similarity-only", action="store_true")
+    fl.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "versions of the kernels)")
+
     b = sub.add_parser("build", help="build the index from keyframes")
     b.add_argument("keyframes_dir")
     b.add_argument("--output", default="index/index.rvdb")
@@ -138,6 +193,65 @@ def _build_parser() -> argparse.ArgumentParser:
                          "evaluating (implies --search ann; prints the tested ladder)")
     ev.add_argument("--device", default="cuda")
     return p
+
+
+def cmd_extract(args) -> int:
+    from .ingest import FrameFilter, FrameFilterConfig
+
+    cfg = FrameFilterConfig(
+        dedup_threshold=args.dedup_threshold,
+        frame_batch=args.batch,
+        sample_every=args.sample_every,
+        use_phash_prefilter=args.phash,
+        dedup_resize=args.dedup_resize if not args.dino else max(args.dedup_resize, 224),
+    )
+    embed_fn = None
+    if args.dino:
+        from .ingest.frames import dino_embedder
+
+        embed_fn = dino_embedder(device=args.device)
+    ff = FrameFilter(cfg, embed_fn=embed_fn, device=args.device)
+    reports = ff.extract_frames_batch(
+        args.videos, args.keyframes_dir, args.map_dir, workers=args.workers
+    )
+    for report in reports:
+        print(
+            f"{report.video}: kept {report.frames_kept}/{report.frames_seen} "
+            f"frames ({report.frames_per_s:.0f} fps decode+dedup)"
+        )
+    return 0
+
+
+def cmd_filter(args) -> int:
+    from .ingest import FrameFilter, FrameFilterConfig
+
+    if args.gentle:
+        cfg = FrameFilterConfig.gentle()
+    elif args.ultra_gentle:
+        cfg = FrameFilterConfig.ultra_gentle()
+    elif args.similarity_only:
+        cfg = FrameFilterConfig.similarity_only()
+    else:
+        cfg = FrameFilterConfig(
+            blur_drop_percentile=args.blur_percentile,
+            edge_drop_percentile=args.edge_percentile,
+            in_scene_similarity=args.similarity,
+            dedup_window=args.window,
+            use_clustering=args.cluster,
+        )
+    ff = FrameFilter(cfg, device=args.device)
+    report = ff.apply_filters(
+        args.keyframes_dir,
+        output_dir=args.output_dir,
+        map_dir=args.map_dir,
+        output_map_dir=args.output_map_dir,
+    )
+    print(
+        f"{report.folders} folders: {report.frames_in} -> {report.frames_out} "
+        f"frames (quality -{report.dropped_quality}, "
+        f"similarity -{report.dropped_similarity})"
+    )
+    return 0
 
 
 def cmd_build(args) -> int:
@@ -360,8 +474,9 @@ def cmd_evaluate(args) -> int:
         index.close()
 
 
-_COMMANDS = {"build": cmd_build, "search": cmd_search, "stats": cmd_stats,
-             "evaluate": cmd_evaluate, "compact": cmd_compact, "tune": cmd_tune}
+_COMMANDS = {"extract": cmd_extract, "filter": cmd_filter, "build": cmd_build,
+             "search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate,
+             "compact": cmd_compact, "tune": cmd_tune}
 
 
 def main(argv: list[str] | None = None) -> int:

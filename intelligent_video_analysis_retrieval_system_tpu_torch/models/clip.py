@@ -335,12 +335,14 @@ class Transformer(nn.Module):
 class _PatchEmbed(nn.Module):
     """Stride == kernel patch conv as reshape + one GEMM (the reference's
     ``_PatchEmbedMatmul``), holding HF's conv weight ``(D, 3, p, p)``. A
-    matmul also keeps cuDNN's TF32 convolutions out of the f32 mode."""
+    matmul also keeps cuDNN's TF32 convolutions out of the f32 mode.
+    ``bias``: HF ViT's projection has one (DINO), CLIP's has none."""
 
-    def __init__(self, hidden: int, patch: int) -> None:
+    def __init__(self, hidden: int, patch: int, bias: bool = False) -> None:
         super().__init__()
         self.patch = patch
         self.weight = nn.Parameter(torch.empty(hidden, 3, patch, patch))
+        self.bias = nn.Parameter(torch.empty(hidden)) if bias else None
         self._cast = _CastCache()
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
@@ -350,7 +352,10 @@ class _PatchEmbed(nn.Module):
         x = x.reshape(b, (h // p) * (w // p), p * p * c)
         # (D, c, p, p) -> (p, p, c, D): the (p_h, p_w, c) order of the patch
         wt = self._cast.get("weight", self.weight, pixels.dtype)
-        return x @ wt.permute(2, 3, 1, 0).reshape(p * p * c, -1)
+        x = x @ wt.permute(2, 3, 1, 0).reshape(p * p * c, -1)
+        if self.bias is None:
+            return x
+        return x + self._cast.get("bias", self.bias, pixels.dtype)
 
 
 class _VisionEmbeddings(nn.Module):

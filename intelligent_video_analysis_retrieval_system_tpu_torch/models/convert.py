@@ -13,6 +13,11 @@ Conventions: Flax Dense kernels are ``(in, out)``, torch Linear weights
 weight ``(D, 3, p, p)``; the towers' ``proj`` matrices become the
 ``text_projection`` / ``visual_projection`` weights (transposed); Flax
 LayerNorm ``scale`` is torch ``weight``.
+
+The DINO tower (:mod:`models.dino`) carries HF ``ViTModel`` names:
+:func:`from_jax_dino_params` turns the JAX ``DINOTower`` tree into its state
+dict, the JAX package's ``convert_hf_vit_params`` is its exact inverse, and
+:func:`load_dino` loads a local checkpoint or seeds the tower.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import numpy as np
 import torch
 
 from .clip import CLIPConfig, CLIPModel, CLIPTextConfig, CLIPVisionConfig
+from .dino import DINOConfig, DINOTower, hf_name
 
-__all__ = ["from_jax_params", "hf_config_to_ours", "load_clip", "empty_model"]
+__all__ = ["from_jax_params", "hf_config_to_ours", "load_clip", "empty_model",
+           "from_jax_dino_params", "load_dino"]
 
 
 def _tensor(x: Any, transpose: bool = False) -> torch.Tensor:
@@ -181,3 +188,76 @@ def load_clip(
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
     _seeded_init(model, gen)
     return cfg, model.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# DINO ViT-S/16
+# ---------------------------------------------------------------------------
+
+
+def from_jax_dino_params(params: Mapping[str, Any],
+                         config: DINOConfig) -> dict[str, torch.Tensor]:
+    """JAX ``DINOTower`` params (numpy leaves) -> a state dict in HF
+    ``ViTModel`` names for :class:`models.dino.DINOTower`."""
+    sd: dict[str, torch.Tensor] = {
+        "embeddings.cls_token": _tensor(params["cls_token"]).reshape(1, 1, -1),
+        "embeddings.position_embeddings": _tensor(params["positional_embedding"])[None],
+        "embeddings.patch_embeddings.projection.weight": torch.from_numpy(
+            np.array(np.transpose(np.asarray(params["patch_embed"]["kernel"], np.float32),
+                                  (3, 2, 0, 1)), order="C")),
+        "embeddings.patch_embeddings.projection.bias": _tensor(params["patch_embed"]["bias"]),
+        "layernorm.weight": _tensor(params["ln_final"]["scale"]),
+        "layernorm.bias": _tensor(params["ln_final"]["bias"]),
+    }
+    for i in range(config.num_layers):
+        block = _block(params["transformer"][f"layer_{i}"], f"encoder.layers.{i}")
+        sd.update({hf_name(k): v for k, v in block.items()})
+    return sd
+
+
+@torch.no_grad()
+def _seeded_dino_init(tower: DINOTower, generator: torch.Generator) -> None:
+    """The reference's Flax initializers: the patch projection and Linear
+    weights lecun-normal, biases zero, LayerNorm ones/zeros, the CLS token
+    and positions N(0, 0.02)."""
+    for name, p in tower.named_parameters():
+        if "layer_norm" in name or name.startswith("layernorm"):
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        elif name.endswith(("cls_token", "position_embeddings")):
+            p.normal_(0.0, 0.02, generator=generator)
+        else:  # Linear (out, in) and the patch projection (D, 3, p, p): fan_in
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+
+
+def load_dino(
+    model_path: str | Path | None = None,
+    config: DINOConfig | None = None,
+    seed: int = 0,
+    device: torch.device | str = "cpu",
+) -> tuple[DINOConfig, dict[str, torch.Tensor]]:
+    """(config, state dict on ``device``) of the DINO tower.
+
+    A local HF ``ViTModel`` checkpoint directory loads when ``transformers``
+    imports (``local_files_only``: nothing is downloaded); otherwise, or
+    without a path, the tower is initialized at the config's width from
+    ``torch.Generator(device).manual_seed(seed)``."""
+    cfg = config or DINOConfig.vit_s_16()
+    if model_path is not None:
+        try:
+            import transformers
+
+            hf = transformers.ViTModel.from_pretrained(
+                str(model_path), local_files_only=True, add_pooling_layer=False)
+            return cfg, {k: v.detach().float().to(device)
+                         for k, v in hf.state_dict().items()}
+        except (ImportError, OSError, ValueError) as exc:
+            logging.getLogger(__name__).warning(
+                "could not load HF ViT checkpoint from %r (%s: %s) — using a "
+                "randomly-initialized DINO tower", str(model_path), type(exc).__name__, exc)
+    with torch.device("meta"):
+        tower = DINOTower(cfg)
+    tower = tower.to_empty(device=device)
+    _seeded_dino_init(tower, torch.Generator(device=torch.device(device)).manual_seed(seed))
+    return cfg, tower.state_dict()

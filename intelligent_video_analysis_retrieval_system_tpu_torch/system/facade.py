@@ -8,19 +8,20 @@ check, with ``build_progress`` events), ``load_system`` -> ``search`` /
 the device rows -> post processing -> cache), ``search_by_image`` over pixel
 arrays and image files, ``export_portable_index`` / ``load_portable_index``,
 ``chat`` (the greeting, then ``chat_search``), ``export_data``,
-``optimize``, ``get_system_stats`` and ``cleanup``. The index types are the reference's
-names: ``flat``/``exact``/``IndexFlatIP``/``IndexFlatL2`` serve the exact
-sweep, ``ivf``/``ann``/``IndexIVFFlat``/``IndexHNSW``/``IndexLSH`` the IVF
-approximate mode, self-tuned to ``index.ann_target_recall`` after every
+``optimize``, ``get_system_stats``, ``cleanup`` and ``index_videos`` (videos
+-> keyframes through ``ingest.FrameFilter`` -> ``build_system``). The index
+types are the reference's names: ``flat``/``exact``/``IndexFlatIP``/
+``IndexFlatL2`` serve the exact sweep, ``ivf``/``ann``/``IndexIVFFlat``/
+``IndexHNSW``/``IndexLSH`` the IVF approximate mode, self-tuned to ``index.ann_target_recall`` after every
 build and load.
 
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
-kernels' plain versions); the embedder and the index share it. Not ported
-yet, each raising ``NotImplementedError`` that names the later change:
-``index_videos`` (video ingest), the LLM processor (``enable_llm``) and the
-REST server (``start_server``); P2P fan-in over remote indexes comes with
-the REST server.
+kernels' plain versions); the embedder, the index and video ingest share
+it. Not ported yet, each raising ``NotImplementedError`` that names the later
+change: the LLM processor (``enable_llm``) and the REST server
+(``start_server``); P2P fan-in over remote indexes comes with the REST
+server.
 """
 
 from __future__ import annotations
@@ -52,9 +53,6 @@ from .health import SystemHealthMonitor
 __all__ = ["SearchOptions", "EnhancedRetrievalSystem", "create_system", "quick_search"]
 
 VALID_MODES = ("clip_only", "llm_enhanced", "hybrid")
-
-_LATER_INGEST = ("video ingest (FrameFilter, the DINO tower) is ported in a later "
-                 "change; extract keyframes with the JAX package, then build_system")
 
 
 @dataclass(slots=True)
@@ -536,10 +534,43 @@ class EnhancedRetrievalSystem:
         self._adopt_index(PortableIndex().load_package(
             package_dir, config=self._index_config(), device=self.device))
 
-    # -- not ported yet -------------------------------------------------------
+    def index_videos(
+        self,
+        videos: Sequence[str | Path],
+        output_path: str | Path | None = None,
+        filter_config: Any | None = None,
+        resume: bool = True,
+    ) -> dict[str, Any]:
+        """One-shot pipeline: videos -> keyframes -> searchable index.
 
-    def index_videos(self, *args: Any, **kwargs: Any) -> dict[str, Any]:
-        raise NotImplementedError(_LATER_INGEST)
+        Composes ``FrameFilter.extract_frames`` (batched decode + streaming
+        dedup on this system's device) with :meth:`build_system`; keyframes
+        and map CSVs land in the configured paths so later incremental runs
+        resume."""
+        from ..ingest import FrameFilter, FrameFilterConfig
+
+        keyframes_dir = self.config.path("keyframes_dir")
+        map_dir = self.config.path("map_dir")
+        ingest_cfg = filter_config
+        if ingest_cfg is None:
+            sec = self.config.section("ingest")
+            ingest_cfg = FrameFilterConfig(
+                dedup_threshold=sec.get("dedup_threshold", 0.98),
+                frame_batch=sec.get("frame_batch", 128),
+            )
+        ff = FrameFilter(ingest_cfg, device=self.device)
+        extract_reports = []
+        with self.perf.timer("index_videos_extract"):
+            for video in videos:
+                extract_reports.append(
+                    ff.extract_frames(video, keyframes_dir, map_dir).as_dict()
+                )
+        build = self.build_system(
+            keyframes_dir, map_dir=map_dir, output_path=output_path, resume=resume,
+        )
+        return {"extract": extract_reports, **build}
+
+    # -- not ported yet -------------------------------------------------------
 
     def enable_llm(self, *args: Any, **kwargs: Any) -> Any:
         raise NotImplementedError("the LLM processor is ported with the agents in a later "

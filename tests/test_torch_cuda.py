@@ -30,6 +30,13 @@ float tie-aware; two card builds bit for bit; a card build against a CPU
 build (centroids within 1e-5, the same bucket table but for rows that
 near-tie in similarity); full-f32 scores (TF32 off); the batched union
 searcher at B=16 over 1M rows, within its gather budget.
+
+Ingest (``ops/{quality,phash,dedup}.py``, torch operations around B3 and
+B5) on the card against the same calls on the CPU: quality scores ``rtol``
+1e-5, the quality mask, phash bits and every dedup mask equal; the DINO
+tower launches B3 once per layer and B5 once per batch and keeps cosine >=
+0.999 against the f32 tower on the CPU; ``FrameFilter.dedup_step`` keeps
+the CPU's frames.
 """
 
 import pytest
@@ -792,3 +799,111 @@ def test_symmetric_int8_on_card_is_the_cpu_bits(cuda_device):
     q_cpu, s_cpu = tq.symmetric_int8(x, dim=-1)
     q_card, s_card = tq.symmetric_int8(x.to(cuda_device), dim=-1)
     assert torch.equal(s_card.cpu(), s_cpu) and torch.equal(q_card.cpu(), q_cpu)
+
+
+# ---------------------------------------------------------------------------
+# ingest (torch operations around B3 and B5): the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _ingest_images(n=8, h=48, w=40, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    amps = torch.linspace(30.0, 127.0, n)[:, None, None, None]
+    x = 128.0 + amps * (2 * torch.rand(n, h, w, 3, generator=gen) - 1)
+    return x.round().clamp(0, 255).to(torch.uint8)
+
+
+def test_quality_scores_on_card_match_cpu(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quality as tqual
+
+    img = _ingest_images()
+    cpu = tqual.quality_metrics(img)
+    card = tqual.quality_metrics(img.to(cuda_device))
+    for key in ("blur", "edges"):
+        torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=1e-5, atol=0)
+    mask = tqual.adaptive_quality_mask(cpu["blur"].to(cuda_device),
+                                       cpu["edges"].to(cuda_device), 10.0, 25.0)
+    assert torch.equal(mask.cpu(), tqual.adaptive_quality_mask(cpu["blur"], cpu["edges"],
+                                                               10.0, 25.0))
+
+
+def test_perceptual_hash_on_card_matches_cpu(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import phash as tph
+
+    img = _ingest_images(seed=12)
+    cpu = tph.perceptual_hash(img)
+    card = tph.perceptual_hash(img.to(cuda_device))
+    assert card.dtype == torch.uint8 and torch.equal(card.cpu(), cpu)
+    assert torch.equal(tph.hamming_distance(card, card[:3]).cpu(),
+                       tph.hamming_distance(cpu, cpu[:3]))
+
+
+def _runs(n=96, d=32, noise=0.05, seed=13):
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    while len(rows) < n:
+        base = torch.randn(d, generator=gen)
+        for _ in range(int(torch.randint(3, 9, (1,), generator=gen))):
+            rows.append(base + noise * torch.randn(d, generator=gen))
+    return torch.stack(rows[:n])
+
+
+def test_dedup_scans_on_card_match_cpu(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import dedup as tdd
+
+    emb = _runs()
+    active = torch.rand(96, generator=torch.Generator().manual_seed(14)) < 0.8
+    assert torch.equal(tdd.sequential_dedup(emb.to(cuda_device)).cpu(), tdd.sequential_dedup(emb))
+    kc, cc = tdd.sequential_dedup_carry(emb, torch.zeros(32))
+    kg, cg = tdd.sequential_dedup_carry(emb.to(cuda_device), torch.zeros(32, device=cuda_device))
+    assert kg.device.type == "cuda" and torch.equal(kg.cpu(), kc)
+    torch.testing.assert_close(cg.cpu(), cc, atol=1e-6, rtol=0)
+    kc, _ = tdd.sequential_dedup_carry_masked(emb, torch.zeros(32), active)
+    kg, _ = tdd.sequential_dedup_carry_masked(emb.to(cuda_device),
+                                              torch.zeros(32, device=cuda_device),
+                                              active.to(cuda_device))
+    assert torch.equal(kg.cpu(), kc)
+    assert torch.equal(tdd.windowed_dedup_mask(emb.to(cuda_device), 0.95, 5).cpu(),
+                       tdd.windowed_dedup_mask(emb, 0.95, 5))
+    assert (tdd.cluster_representatives_mask(emb.to(cuda_device), eps=0.05) ==
+            tdd.cluster_representatives_mask(emb, eps=0.05)).all()
+
+
+def test_dino_tower_on_card_launches_b3_per_layer_and_b5_per_batch(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ingest import frames as tfr
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.dino import DINOConfig
+
+    frames = torch.randint(0, 256, (16, 64, 48, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(15))
+    embed = tfr.dino_embedder(device=cuda_device)
+    # the same weights in f32 on the CPU (a generator on the card draws other
+    # numbers than one on the CPU, so each side's seeded tower differs)
+    cpu = tfr.dino_embedder(dtype="float32", device="cpu")
+    cpu.tower.load_state_dict({k: v.cpu() for k, v in embed.tower.state_dict().items()})
+    want = cpu(frames.numpy())
+    b3, b5 = tatt.fused_mha.launches, tpre.normalize_images.launches
+    got = embed.device_fn(frames.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tatt.fused_mha.launches - b3 == DINOConfig.vit_s_16().num_layers
+    assert tpre.normalize_images.launches - b5 == 1
+    cos = torch.nn.functional.cosine_similarity(got.cpu(), torch.from_numpy(want), dim=-1)
+    assert float(cos.min()) >= 0.999
+    # the host entry pads to batch_pad rows and slices
+    assert embed(frames[:3].numpy()).shape == (3, 384)
+
+
+def test_frame_filter_dedup_step_on_card_matches_cpu(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ingest import (
+        FrameFilter,
+        FrameFilterConfig,
+    )
+
+    gen = torch.Generator().manual_seed(16)
+    scenes = torch.randint(0, 200, (4, 1, 64, 64, 3), generator=gen)
+    batch = (scenes + torch.randint(0, 3, (4, 12, 64, 64, 3), generator=gen)).reshape(
+        48, 64, 64, 3).to(torch.uint8).numpy()
+    cfg = FrameFilterConfig(frame_batch=48)
+    keep_cpu, _ = FrameFilter(cfg, device="cpu").dedup_step(batch, None)
+    keep_card, carry = FrameFilter(cfg, device=cuda_device).dedup_step(batch, None)
+    assert carry.device.type == "cuda"
+    assert (keep_card == keep_cpu).all() and keep_card.sum() == 4

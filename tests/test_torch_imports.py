@@ -71,7 +71,7 @@ def test_no_source_line_imports_them(path):
 COPIES = ["utils/__init__.py", "utils/cache.py", "utils/config.py", "utils/dataproc.py",
           "utils/files.py", "utils/logging.py", "utils/paths.py", "utils/perf.py",
           "native/__init__.py", "native/ivars_native.cpp", "serve/batching.py",
-          "serve/handlers.py", "index/metacols.py", "index/portable.py"]
+          "serve/handlers.py", "index/metacols.py", "index/portable.py", "ingest/video.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -92,7 +92,9 @@ def test_the_bench_and_the_index_open_modules_are_walked():
     assert {"bench/__init__.py", "bench/__main__.py", "bench/timing.py", "bench/data.py",
             "bench/headline.py", "bench/probes.py", "index/metacols.py",
             "index/fastloader.py", "index/portable.py", "ops/ann.py",
-            "retrieval/temporal.py"} <= names
+            "retrieval/temporal.py", "ingest/__init__.py", "ingest/frames.py",
+            "ingest/pipeline.py", "ingest/video.py", "ops/quality.py", "ops/phash.py",
+            "ops/dedup.py", "models/dino.py"} <= names
 
 
 def test_native_copy_builds_into_its_own_cache_directory():

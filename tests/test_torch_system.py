@@ -455,13 +455,13 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
 
 def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
-    for call in (lambda: system.enable_llm(),
-                 lambda: system.start_server(), lambda: system.index_videos([]),
+    for call in (lambda: system.enable_llm(), lambda: system.start_server(),
                  lambda: CLIPEmbedder(compute_dtype="int8", device="cpu"),
                  lambda: EnhancedRetrievalSystem(device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
             call()
-    # ported: chat answers a greeting; the IVF index types configure the ANN mode
+    # ported: index_videos (tests/test_torch_ingest.py); chat answers a greeting;
+    # the IVF index types configure the ANN mode
     assert system.chat("hi")["method"] == "greeting"
     assert create_system(torch_device="cpu",
                          index={"index_type": "IndexIVFFlat"})._index_config().ann
