@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, IVF, index-build and ingest paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build and ingest paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -39,6 +39,25 @@ non-zero):
             one ``search_batch`` of 8 and 8 concurrent requests through
             QueryBatcher, every answer checked against the exact reference
             over the same device rows.
+4b. serve   the same system behind ``start_server`` (the port's
+            ``RetrievalServer`` on the standard library, batcher on: window
+            8 ms, at most 64 a batch), driven over HTTP with
+            ``http.client`` and over ``/ws`` with the port's own
+            WebSocket client: ``/api/health``; 32 searches at concurrency 1
+            (exactly one B1 launch each), 256 at 16 and 256 at 64, then 256
+            at 16 under ``torch.profiler`` (the card's idle share against the
+            untraced round), every answer tie-aware equal to the exact f32
+            reference for the vector the server searched; ``search_batch``
+            of the 32 (one B1 launch, each list equal to its single answer);
+            ``image_search`` with a 224 x 224 JPEG (B5 once, B3 once per
+            vision layer, B1 once; checked); ``similar``, ``metadata``,
+            ``stats``; the admin gate (401 without the token, 200 with it);
+            a ``/ws`` ping and a ``/ws`` search equal to the REST answer;
+            ``/api/build`` over 256 seeded JPEG keyframes (401 without the
+            token) with every ``build_progress`` event and ``build_done``
+            received on the socket, then a search over the built rows.
+            Prints served p50/p95, QPS at concurrency 1, 16 and 64,
+            ``served_avg_batch`` and the idle share.
 5. int8     the int8 capacity mode: the same 1,000,000 rows quantized by
             ``quantize_rows_int8`` behind an int8 index (``load_system`` on a
             real int8 ``.rvdb`` with the bf16 copy where h5py imports, else
@@ -102,8 +121,12 @@ non-zero):
             B=256 (the timed batch again with every attention layer on its
             plain route: cosine >= 0.999), the int8 capacity mode over
             10,000,000 rows (every single-query answer and the first batch of
-            128 and of 32 equal to ``int8_reference``, atol 0); its JSON line
-            is printed as it is.
+            128 and of 32 equal to ``int8_reference``, atol 0), the served
+            sections through the REST server (``served_qps`` over 1,000,000
+            fresh bf16 rows, ``served_10M`` over the IVF section's int8 rows
+            with its structure attached and dense: every timed answer against
+            the reference of the route its batch took, the scores rounded as
+            the server rounds them); its JSON line is printed as it is.
 9. probes   inside the same bench run, what its probes (``bench/probes.py``)
             returned, held against their plain versions on the same inputs:
             P1 (int8 tensor-core sweep) and P2 (rows widened to bf16) over
@@ -144,7 +167,8 @@ Each slice sets every launch count to 0 just before it runs and reads the
 counts just after; the kernels' JSON line reports B1 and B3 from the bf16
 slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
 bench (whose own B1, B2, B3 and B5 launches are printed beside them); B3 and
-B5 carry the ingest path's launches and their DINO shapes beside. The
+B5 carry the ingest path's launches and their DINO shapes beside, and B1,
+B3 and B5 the serve phase's (``serve_launches``). The
 IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -716,9 +740,322 @@ def run_slice(device, n_rows: int, require_kernels: bool, config=None,
     if require_kernels and (launches["b1"] == 0 or launches["b3"] == 0):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     stats = system.get_system_stats()
-    system.cleanup()
+    # the serve phase takes the system on (and cleans it up)
     return {"launches": launches, "p50_ms": p50, "p95_ms": p95,
-            "ntotal": stats["index"]["ntotal"]}
+            "ntotal": stats["index"]["ntotal"], "system": system}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the slice's system behind the REST server
+# ---------------------------------------------------------------------------
+
+SERVE_SERIAL = 32     # requests at concurrency 1 (and the search_batch of as many)
+SERVE_TIMED = 256     # requests per round at concurrency 16 and 64
+SERVE_FRAMES = 256    # keyframes the build wizard indexes
+ADMIN_TOKEN = "smoke-admin-token"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(conn, method: str, path: str, payload=None, headers: dict | None = None):
+    """(status, body): the body parsed where the answer is JSON, else bytes."""
+    body = None if payload is None else json.dumps(payload).encode()
+    conn.request(method, path, body, {"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    data = resp.read()
+    if resp.getheader("Content-Type", "").startswith("application/json"):
+        return resp.status, json.loads(data)
+    return resp.status, data
+
+
+def check_served(system, results: list[list[dict]], qvecs: list[np.ndarray],
+                 limit: int) -> None:
+    """Served hits (standard detail) against the exact f32 reference over the
+    index's device rows: ``limit`` hits each, tie-aware equal; 64 queries
+    per reference product."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import (
+        topk_exact_reference,
+    )
+
+    index = system.index
+    x = index._dev_x[:index.ntotal]
+    for s in range(0, len(results), 64):
+        q = np.stack([v / max(float(np.linalg.norm(v)), 1e-12) for v in qvecs[s:s + 64]])
+        ref = topk_exact_reference(x, torch.from_numpy(q.astype(np.float32)).to(
+            index.device, x.dtype), limit)
+        ref_ids, ref_scores = ref.indices.cpu().numpy(), ref.scores.cpu().numpy()
+        for j, hits in enumerate(results[s:s + 64]):
+            if len(hits) != limit:
+                raise AssertionError(f"{len(hits)} served hits, expected {limit}")
+            rows = [index.row_for(h["folder"], h["image"]) for h in hits]
+            if None in rows:
+                raise AssertionError("a served hit names no indexed keyframe")
+            tie_aware_equal(np.array(rows), np.array([h["similarity_score"] for h in hits]),
+                            ref_ids[j], ref_scores[j])
+
+
+def run_serve_phase(device, system, require_kernels: bool, workdir: Path | None = None,
+                    timed: int = SERVE_TIMED, n_frames: int = SERVE_FRAMES) -> dict:
+    """The slice's facade behind ``start_server`` (the port's
+    ``RetrievalServer``, batching on), driven over HTTP and ``/ws`` by the
+    standard library; every answer is checked. Cleans the system up."""
+    import base64
+    import http.client
+    import importlib.util
+    import io
+    import shutil
+
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench import served
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import (
+        attention, preprocess, quant, topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import (
+        topk_exact_reference,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve.websocket import (
+        WebSocketClient,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.testing import ATOL_TOPK
+
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "serve_phase"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    on_card = device.type == "cuda"
+    phase_t0 = time.perf_counter()
+    for key, value in (("api.batching", True), ("api.batching_max_batch", 64),
+                       ("api.batching_window_ms", 8.0), ("api.rate_limit_per_minute", 10**9),
+                       ("api.admin_token", ADMIN_TOKEN),
+                       ("paths.index_dir", str(workdir / "index")),
+                       ("paths.map_dir", str(workdir / "map"))):
+        system.config.set(key, value)
+    recorder = served.Recorder(system.embedder)
+    n_layers = system.embedder.config.vision.num_layers
+    ntotal = system.index.ntotal
+
+    def vector(text: str, which: int = -1) -> np.ndarray:
+        return recorder.vectors[system._clip_prompt(text, SearchOptions())[0]][which]
+
+    def checked_round(texts: list[str], concurrency: int) -> tuple[float, list[float]]:
+        elapsed, lat, bodies = served.fire(port, texts, concurrency)
+        check_served(system, [b["results"] for b in bodies], [vector(t) for t in texts], 10)
+        return elapsed, lat
+
+    # the serve path starts here: every launch count from zero
+    counters = {"b1": topk.chunk_max_sweep, "b2": quant.int8_chunk_max_sweep,
+                "b3": attention.fused_mha, "b5": preprocess.normalize_images}
+    for fn in counters.values():
+        fn.launches = 0
+    port = free_port()
+    server = system.start_server(host="127.0.0.1", port=port, block=False)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        status, health = http_call(conn, "GET", "/api/health")
+        if status != 200 or not health["success"] or not health["index_loaded"]:
+            raise AssertionError(f"/api/health answered {status}: {health}")
+
+        # concurrency 1: one batch, one B1 launch per request (exact counts)
+        serial = [f"serve serial {i}: a red car at night past neon signs"
+                  for i in range(SERVE_SERIAL)]
+        before = topk.chunk_max_sweep.launches
+        elapsed1, lat1 = checked_round(serial, 1)
+        if require_kernels and topk.chunk_max_sweep.launches - before != SERVE_SERIAL:
+            raise AssertionError(f"{SERVE_SERIAL} serial searches launched B1 "
+                                 f"{topk.chunk_max_sweep.launches - before} times")
+        stats = server.batcher.stats
+        requests0, batches0 = stats.requests, stats.batches
+        elapsed16, lat16 = checked_round(
+            [f"serve c16 {i}: people walking on a beach at sunset" for i in range(timed)], 16)
+        avg_batch = (stats.requests - requests0) / max(stats.batches - batches0, 1)
+        elapsed64, _ = checked_round(
+            [f"serve c64 {i}: a dog catching a frisbee" for i in range(timed)], 64)
+        trace_path = workdir / "trace_serve.json"
+        with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]
+                     ) as prof:
+            traced_s, _ = checked_round(
+                [f"serve traced {i}: a crowded market street in the rain"
+                 for i in range(timed)], 16)
+        prof.export_chrome_trace(str(trace_path))
+        busy_ms, ops, _ = device_time(json.loads(trace_path.read_text()))
+        trace_path.unlink()
+        idle = 1.0 - busy_ms / (elapsed16 * 1e3)
+        p50, p95 = float(np.percentile(lat16, 50)) * 1e3, float(np.percentile(lat16, 95)) * 1e3
+        qps = {1: SERVE_SERIAL / elapsed1, 16: timed / elapsed16, 64: timed / elapsed64}
+        log("serve", f"{SERVE_SERIAL} + 3 x {timed} searches over {ntotal} rows through "
+            f"RetrievalServer, every answer tie-aware equal to the exact f32 reference")
+        log("numbers", f"served p50 {p50:.3f} ms, p95 {p95:.3f} ms at concurrency 16 "
+            f"({timed} requests, limit 10); serial p50 {np.percentile(lat1, 50) * 1e3:.3f} ms")
+        log("numbers", "served QPS at concurrency 1 / 16 / 64: "
+            f"{qps[1]:.1f} / {qps[16]:.1f} / {qps[64]:.1f}; served_avg_batch "
+            f"{avg_batch:.2f} at concurrency 16")
+        log("numbers", f"served idle share of the card at concurrency 16: {idle:.4f} (device "
+            f"busy {busy_ms:.1f} ms in a traced round of {traced_s * 1e3:.1f} ms against "
+            f"{elapsed16 * 1e3:.1f} ms untraced; {ops / timed:.1f} device ops a request)")
+
+        # search_batch of the serial queries: one B1 launch, the single answers
+        before = topk.chunk_max_sweep.launches
+        status, out = http_call(conn, "POST", "/api/search_batch",
+                                {"queries": serial, "limit": 10})
+        if status != 200 or len(out["results"]) != SERVE_SERIAL:
+            raise AssertionError(f"/api/search_batch answered {status}")
+        if require_kernels and topk.chunk_max_sweep.launches - before != 1:
+            raise AssertionError("a search_batch of 32 did not launch B1 exactly once")
+        check_served(system, out["results"], [vector(t) for t in serial], 10)
+        _, _, singles = served.fire(port, serial, 1)
+        for text, got, single in zip(serial, out["results"], singles):
+            gap = float(np.linalg.norm(vector(text, 0) - vector(text)))
+            rows = {(h["folder"], h["image"]): i for i, h in
+                    enumerate(got + single["results"])}
+            tie_aware_equal([rows[h["folder"], h["image"]] for h in got],
+                            [h["similarity_score"] for h in got],
+                            [rows[h["folder"], h["image"]] for h in single["results"]],
+                            [h["similarity_score"] for h in single["results"]],
+                            atol=ATOL_TOPK + gap)
+        log("serve", f"search_batch of {SERVE_SERIAL}: one B1 launch, each list tie-aware "
+            "equal to its single answer and to the exact reference")
+
+        # image_search: one B5 launch and one B3 per vision layer (serial)
+        size = system.embedder.input_size
+        buf = io.BytesIO()
+        Image.fromarray(np.random.default_rng(3).integers(0, 256, (size, size, 3),
+                                                          dtype=np.uint8)).save(buf, "JPEG")
+        before = {k: fn.launches for k, fn in counters.items()}
+        status, out = http_call(conn, "POST", "/api/image_search", {
+            "image_base64": base64.b64encode(buf.getvalue()).decode(), "limit": 10})
+        moved = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if status != 200:
+            raise AssertionError(f"/api/image_search answered {status}: {out}")
+        if require_kernels and (moved["b5"], moved["b3"], moved["b1"]) != (1, n_layers, 1):
+            raise AssertionError(f"an image query launched {moved}, expected B5 once, B3 "
+                                 f"{n_layers} times, B1 once")
+        saved = {k: fn.launches for k, fn in counters.items()}
+        pixels = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+        qvec = system.embedder.encode_images(pixels[None])[0]
+        for k, fn in counters.items():   # the check's own encode is not the served path
+            fn.launches = saved[k]
+        check_served(system, [out["results"]], [qvec], 10)
+
+        # similar, metadata, stats
+        row = 12_345 % ntotal
+        meta = system.index.get_metadata(row)
+        status, out = http_call(conn, "GET", f"/api/similar/{meta.folder}/{meta.image}?limit=10")
+        if status != 200 or out["count"] != 10:
+            raise AssertionError(f"/api/similar answered {status}: {out}")
+        index = system.index
+        qrow = index._container.read_embeddings(row, row + 1, as_float32=True)[0]
+        q = torch.from_numpy(qrow / max(float(np.linalg.norm(qrow)), 1e-12)).to(
+            index.device, index._dev_x.dtype)[None]
+        ref = topk_exact_reference(index._dev_x[:ntotal], q, 11)
+        keep = ref.indices[0].cpu().numpy() != row
+        ref_ids = ref.indices[0].cpu().numpy()[keep][:10]
+        ref_scores = ref.scores[0].cpu().numpy()[keep][:10]
+        tie_aware_equal(np.array([index.row_for(h["folder"], h["image"]) for h in out["results"]]),
+                        np.array([h["similarity_score"] for h in out["results"]]),
+                        ref_ids, ref_scores)
+        status, out = http_call(conn, "GET", f"/api/metadata/{meta.folder}/{meta.image}")
+        want = synthetic_record(row)
+        if status != 200 or any(out["metadata"][k] != want[k] for k in
+                                ("folder", "image", "frame_id", "row_id")):
+            raise AssertionError(f"/api/metadata answered {status}: {out}")
+        status, out = http_call(conn, "GET", "/api/stats")
+        if status != 200 or out["stats"]["index"]["ntotal"] != ntotal:
+            raise AssertionError(f"/api/stats answered {status}")
+
+        # the admin gate
+        status, _ = http_call(conn, "POST", "/api/maintenance", {"action": "clear_cache"})
+        status_ok, out = http_call(conn, "POST", "/api/maintenance", {"action": "clear_cache"},
+                                   headers={"X-Admin-Token": ADMIN_TOKEN})
+        if (status, status_ok) != (401, 200) or not out["report"]["cleared"]:
+            raise AssertionError(f"admin gate: {status} without the token, {status_ok} with it")
+        log("serve", f"image_search (launches {moved}), similar, metadata and stats checked; "
+            "/api/maintenance 401 without the admin token, 200 with it")
+
+        with WebSocketClient("127.0.0.1", port, timeout=300) as ws:
+            ws.send_json({"event": "ping", "request_id": "p1"})
+            pong = ws.receive_json()
+            if pong.get("event") != "pong" or pong.get("request_id") != "p1":
+                raise AssertionError(f"/ws ping answered {pong}")
+            text = "serve ws: a goal celebration in a stadium"
+            ws.send_json({"event": "search", "data": {"query": text, "limit": 10},
+                          "request_id": "s1"})
+            got = ws.receive_json()
+            status, rest = http_call(conn, "POST", "/api/search", {"query": text, "limit": 10})
+            if got.get("event") != "result" or got.get("request_id") != "s1" or status != 200:
+                raise AssertionError(f"/ws search answered {got.get('event')}")
+            check_served(system, [got["results"], rest["results"]],
+                         [vector(text, 0), vector(text)], 10)
+            rows = {(h["folder"], h["image"]): i for i, h in
+                    enumerate(got["results"] + rest["results"])}
+            tie_aware_equal([rows[h["folder"], h["image"]] for h in got["results"]],
+                            [h["similarity_score"] for h in got["results"]],
+                            [rows[h["folder"], h["image"]] for h in rest["results"]],
+                            [h["similarity_score"] for h in rest["results"]],
+                            atol=ATOL_TOPK + float(np.linalg.norm(vector(text, 0)
+                                                                  - vector(text))))
+
+            # the build wizard over a seeded JPEG tree, its progress on this socket
+            have_pil = importlib.util.find_spec("PIL") is not None
+            have_h5py = importlib.util.find_spec("h5py") is not None
+            keyframes = workdir / "keyframes"
+            write_keyframes(keyframes, 4, n_frames // 4, size, have_pil)
+            system.builder_class = smoke_builder_class(have_pil, have_h5py)
+            denied, _ = http_call(conn, "POST", "/api/build",
+                                  {"keyframes_dir": str(keyframes)})
+            before = {k: fn.launches for k, fn in counters.items()}
+            t0 = time.perf_counter()
+            status, out = http_call(conn, "POST", "/api/build",
+                                    {"keyframes_dir": str(keyframes)},
+                                    headers={"X-Admin-Token": ADMIN_TOKEN})
+            if (denied, status) != (401, 200):
+                raise AssertionError(f"/api/build answered {denied} without the token and "
+                                     f"{status} with it")
+            events = []
+            while not events or events[-1]["event"] == "build_progress":
+                events.append(ws.receive_json())
+            build_s = time.perf_counter() - t0
+        status, state = http_call(conn, "GET", "/api/build/status")
+        moved = {k: fn.launches - before[k] for k, fn in counters.items()}
+        stages = [e.get("stage") for e in events[:-1]]
+        if events[-1]["event"] != "build_done" or events[-1]["processed"] != n_frames or \
+                state.get("status") != "done" or stages[0] != "validate" or \
+                stages[-2:] != ["index", "done"]:
+            raise AssertionError(f"build wizard: events {[e['event'] for e in events]}, "
+                                 f"stages {stages}, status {state}")
+        if require_kernels and (moved["b5"] < 1 or moved["b3"] != n_layers * moved["b5"]):
+            raise AssertionError(f"the build wizard launched {moved}")
+        text = "serve built: a red car at night"
+        status, out = http_call(conn, "POST", "/api/search", {"query": text, "limit": 10})
+        if status != 200 or system.index.ntotal != n_frames:
+            raise AssertionError(f"search after the build answered {status}")
+        check_served(system, [out["results"]], [vector(text)], 10)
+        log("serve", f"/api/build of {n_frames} keyframes in {build_s:.1f} s: "
+            f"{len(events) - 1} build_progress events on /ws ({' '.join(stages)}), then "
+            f"build_done; launches {moved}; a search over the built rows checked")
+    finally:
+        conn.close()
+        recorder.close()
+        system.cleanup()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    seconds = time.perf_counter() - phase_t0
+    log("serve", f"phase in {seconds:.1f} s; launches on the serve path {launches}")
+    if require_kernels and any(launches[k] == 0 for k in ("b1", "b3", "b5")):
+        raise AssertionError(f"a kernel of the serve path never launched: {launches}")
+    return {"launches": launches, "p50_ms": p50, "p95_ms": p95, "qps": qps,
+            "avg_batch": avg_batch, "idle_share": idle, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -2360,6 +2697,7 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     import torch
 
     from intelligent_video_analysis_retrieval_system_tpu_torch import bench
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench import served
     from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import (
         MultiHeadAttention,
     )
@@ -2371,7 +2709,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
         ivf_candidate_reference,
     )
 
-    checked = {"headline_1M": 0, "int8_10M": 0, "ivf_10M": 0, "image_tower": 0}
+    checked = {"headline_1M": 0, "int8_10M": 0, "ivf_10M": 0, "image_tower": 0,
+               "served_1M": 0, "served_10M_int8_ann": 0, "served_10M_int8_dense": 0}
 
     def verify_tower(model, pixels, got) -> None:
         """The timed batch again, from the bench's own normalized pixels, with
@@ -2402,13 +2741,22 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
             if fn.launches != counters[k]:
                 raise AssertionError(f"the plain attention route launched kernel {k}")
 
-    def verify(section, x, scales, n_valid, queries, result, ivf=None) -> None:
+    def rounded(ref_scores: np.ndarray, decimals: int | None) -> np.ndarray:
+        """A reference's scores as a served answer carries them (``round``)."""
+        if decimals is None:
+            return ref_scores
+        return np.array([[round(float(v), decimals) for v in row] for row in ref_scores],
+                        np.float32)
+
+    def verify(section, x, scales, n_valid, queries, result, ivf=None,
+               decimals=None) -> None:
         counters = {k: fn.launches for k, fn in bench_counters().items()}
         ids, scores = result.indices.cpu().numpy(), result.scores.cpu().numpy()
         if ivf is not None:   # the IVF answers: bit for bit the candidate-set reference
             state, nprobe = ivf
             ref_s, ref_i = ivf_candidate_reference(x, state, queries, ids.shape[1], nprobe,
                                                    n_valid, x_scales=scales)
+            ref_s = rounded(ref_s, decimals)
             for i in range(len(queries)):
                 if not np.array_equal(scores[i], ref_s[i]):
                     raise AssertionError(f"{section} nprobe={nprobe}: scores differ from the "
@@ -2422,7 +2770,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
                 ref, atol = topk_exact_reference(x[:n_valid], q, ids.shape[1]), 5e-4
             else:
                 ref, atol = int8_reference(x[:n_valid], scales[:n_valid], q, ids.shape[1]), 0.0
-            ref_ids, ref_scores = ref.indices.cpu().numpy(), ref.scores.cpu().numpy()
+            ref_ids = ref.indices.cpu().numpy()
+            ref_scores = rounded(ref.scores.cpu().numpy(), decimals)
             for i in range(len(q)):
                 tie_aware_equal(ids[s + i], scores[s + i], ref_ids[i], ref_scores[i], atol=atol)
         checked[section] += len(queries)
@@ -2454,13 +2803,19 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     extra = result["extra"]
     want = ["metric", "value", "p95", "queries", "vs_baseline"]
     want_extra = ["gpu", "image_tower_fps", "facade_search_p50_ms", "search_batch_b32_ms",
+                  "served_qps_1M", "served_p50_ms", "served_p95_ms", "served_avg_batch",
                   "not_ported"]
+    served_10m = ["served_10M_int8_ann", "served_10M_int8_dense"]
     if "--skip-10m" not in argv:
         want_extra += ["latency_10M_int8_1chip_p50_ms", "latency_10M_int8_1chip_p95_ms",
                        "queries_10M", "qps_10M_int8_1chip_b128", "qps_10M_int8_1chip_b32",
                        "latency_2M5_int8_1chip_p50_ms", "latency_5M_int8_1chip_p50_ms",
                        "ivf_build_10M_s", "latency_10M_int8_ivf_np16_p50_ms",
                        "latency_10M_int8_ivf_np64_p50_ms"]
+        for name in served_10m:
+            suffix = name[len("served_"):]
+            want_extra += [f"served_qps_{suffix}", f"served_p50_{suffix}_ms",
+                           f"served_p95_{suffix}_ms", f"served_avg_batch_{suffix}"]
     if "--probes" in argv:
         want_extra.append("probes")
     missing = [k for k in want if result.get(k) is None] + \
@@ -2471,15 +2826,21 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
         f"{result['value']} ms, p95 {result['p95']} ms; {checked['headline_1M']} headline "
         f"answers tie-aware equal to the exact f32 reference, {checked['int8_10M']} int8 "
         f"answers equal to int8_reference (atol 0), {checked['ivf_10M']} IVF answers bit for "
-        f"bit the candidate-set reference; launches {launches}")
+        f"bit the candidate-set reference; served answers checked: "
+        f"{ {k: v for k, v in checked.items() if k.startswith('served')} }; "
+        f"launches {launches}")
     if checked["headline_1M"] < result["queries"]:
         raise AssertionError("the bench timed headline answers that were not checked")
     if checked["image_tower"] != extra["image_tower_batch"]:
         raise AssertionError("the bench's image tower batch was not checked")
     if "--skip-10m" not in argv and checked["ivf_10M"] < 2 * result["queries"]:
         raise AssertionError("the bench timed IVF answers that were not checked")
-    if "ivf_10M" in extra["not_ported"]:
-        raise AssertionError("the bench still lists ivf_10M as not ported")
+    if {"ivf_10M", "served_qps", "served_10M"} & set(extra["not_ported"]):
+        raise AssertionError(f"the bench still lists {extra['not_ported']} as not ported")
+    served_sections = ["served_1M"] + (served_10m if "--skip-10m" not in argv else [])
+    short = {k: checked[k] for k in served_sections if checked[k] != served.TIMED}
+    if short:
+        raise AssertionError(f"served sections checked {short} of {served.TIMED} answers")
     if require_kernels:
         idle = [k for k, n in launches.items() if n == 0
                 and not (k == "b2" and "--skip-10m" in argv)
@@ -3237,6 +3598,7 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     bits = make_rows(N_ROWS)
     result = run_slice(device, N_ROWS, require_kernels=True, bits=bits)
+    serve = run_serve_phase(device, result.pop("system"), require_kernels=True)
     torch.cuda.empty_cache()
     result8 = run_int8_slice(device, bits, require_kernels=True)
     torch.cuda.empty_cache()
@@ -3263,7 +3625,8 @@ def main(argv: list[str] | None = None) -> int:
         {"name": "chunk_max_sweep (B1)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/chunk_max.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/topk.py:134",
-         "launches": result["launches"]["b1"], **b1},
+         "launches": result["launches"]["b1"], **b1,
+         "serve_launches": serve["launches"]["b1"]},
         {"name": "int8_chunk_max_sweep (B2)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/int8_sweep.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/quant.py:167",
@@ -3272,7 +3635,8 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/mha.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
          "launches": result["launches"]["b3"], **b3, "dino_vit_s_16": ingested["b3"],
-         "ingest_launches": ingested["launches"]["b3"]},
+         "ingest_launches": ingested["launches"]["b3"],
+         "serve_launches": serve["launches"]["b3"]},
         {"name": "fused_ln_mlp (B4)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/block.py:78",
@@ -3281,7 +3645,8 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/normalize.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py:127",
          "launches": built["launches"]["b5"], **b5, "dino_f32": ingested["b5"],
-         "ingest_launches": ingested["launches"]["b5"]},
+         "ingest_launches": ingested["launches"]["b5"],
+         "serve_launches": serve["launches"]["b5"]},
         {"name": "probe_int8_mma_sweep (P1)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
          "replaces": "benchmarks/exp_int8.py:37",
@@ -3295,6 +3660,9 @@ def main(argv: list[str] | None = None) -> int:
          "replaces": "benchmarks/exp_stream_bw.py:32",
          "launches": benched["launches"]["p3"], **p3},
     ]}
+    log("serve", f"launches on the serve path: {serve['launches']}; p50 {serve['p50_ms']:.3f} "
+        f"ms, p95 {serve['p95_ms']:.3f} ms, QPS {serve['qps']}, avg batch "
+        f"{serve['avg_batch']:.2f}, idle share {serve['idle_share']:.4f}")
     log("build", f"launches on the build path: {built['launches']}")
     log("ingest", f"launches on the ingest path: {ingested['launches']}")
     log("open", f"1M-row int8 facade open: {opened}")

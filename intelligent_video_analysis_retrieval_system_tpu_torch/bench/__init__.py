@@ -8,8 +8,11 @@ Counterpart of the JAX package's root ``bench.py`` and of its
 sections of :mod:`.headline` (the headline text query over ``--rows`` bf16
 rows, 1,000,000 by default; the image tower, ViT-B/32 or with ``--full``
 ViT-L/14; the int8 capacity mode over ten times ``--rows`` and the IVF
-approximate mode over the same rows, unless ``--skip-10m``) and with
-``--probes`` the kernels of :mod:`.probes`, logs to stderr, and prints one
+approximate mode over the same rows, unless ``--skip-10m``), the served
+sections of :mod:`.served` (the REST server with the batcher on over
+``--rows`` fresh bf16 rows; unless ``--skip-10m``, over the IVF section's
+int8 rows with its structure attached and dense) and with ``--probes`` the
+kernels of :mod:`.probes`, logs to stderr, and prints one
 JSON line on stdout with the JAX bench's key names
 (``metric``, ``value``, ``unit``, ``vs_baseline``, ``p95``, ``queries``,
 ``extra``). ``extra`` starts with the card's name and power limit as
@@ -33,7 +36,7 @@ import torch
 
 from ..index.unified import resolve_device
 from ..system.embedder import CLIPEmbedder
-from . import headline
+from . import headline, served
 from .headline import log
 from .probes import ProbeCheck, run_probes
 
@@ -70,10 +73,17 @@ def run_bench(device: torch.device | str = "cuda", rows: int | None = None,
     result: dict = {**head, "unit": "ms", "extra": extra}
     gc.collect()
     extra.update(headline.image_tower(device, full, verify_tower))
+    kept: dict = {}
     if not skip_10m:
         # the 1M bf16 rows are gone by now (headline_1M frees them)
         extra.update(headline.int8_10M(device, embedder, 10 * rows, verify))
-        extra.update(headline.ivf_10M(device, embedder, 10 * rows, verify))
+        extra.update(headline.ivf_10M(device, embedder, 10 * rows, verify, keep=kept))
+    # the served sections run last, as in the JAX bench; the 10M one over the
+    # IVF section's rows and structure
+    extra.update(served.served_qps(device, embedder, rows, verify))
+    if not skip_10m:
+        extra.update(served.served_10M(device, embedder, 10 * rows, kept, verify))
+    kept.clear()
     if probes:
         del embedder
         gc.collect()
@@ -102,7 +112,7 @@ def main(argv: list[str] | None = None, verify: headline.Verify | None = None,
     parser.add_argument("--probes", action="store_true",
                         help="also time the int8 sweep probes and the memory-stream probe")
     parser.add_argument("--skip-10m", action="store_true",
-                        help="leave out the int8 capacity and IVF sections")
+                        help="leave out the int8 capacity, IVF and served 10M sections")
     args = parser.parse_args(argv)
     result = run_bench(args.device, args.rows, args.full, args.probes, args.skip_10m,
                        verify=verify, verify_tower=verify_tower, check_probes=check_probes)

@@ -15,7 +15,9 @@ the section searched and every answer it got (``verify(section, x, scales,
 n_valid, queries, result)``: ``scales`` None for bf16 rows, ``queries`` as
 they went into the search, ``result`` a ``TopKResult`` of all of them; the
 IVF section adds ``ivf=(state, nprobe)``, the structure and probe count the
-answers came from): the chip smoke holds them against the references.
+answers came from): the chip smoke holds them against the references. The
+served sections (``bench/served.py``) hand it their answers the same way,
+with ``decimals=6``: the scores as the server rounds them.
 ``verify_tower``, when given to :func:`image_tower`, gets the model, the
 normalized pixels of the timed batch and the embeddings the timed route gave
 for them.
@@ -53,8 +55,7 @@ BASELINE_MS = 39.0
 PROMPT = "a photo of a scene"
 # sections of the JAX bench whose modules the port does not have yet; a later
 # change removes a name when it ports the section
-NOT_PORTED = ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static", "served_qps",
-              "served_10M"]
+NOT_PORTED = ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static"]
 
 Verify = Callable[..., None]
 VerifyTower = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], None]
@@ -283,13 +284,15 @@ def int8_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
 
 
 def ivf_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
-            verify: Verify | None = None) -> dict:
+            verify: Verify | None = None, keep: dict | None = None) -> dict:
     """``build_ivf`` over ``rows`` x D int8 rows (the int8 section's, made
     again from its seed) with the JAX bench's parameters (nlist 8192, or
     ``default_nlist`` where that is smaller; 48 sample rows per list; 6
     k-means iterations), timed; then one text query + ``ivf_topk`` at B=1,
     nprobe 16 and 64. The key names are the JAX bench's and say 10M
-    whatever ``rows`` is."""
+    whatever ``rows`` is. ``keep``, when given, receives the rows, their
+    scales and the structure (``x``, ``scales``, ``state``) for the served
+    section that follows."""
     tq = TextQuery(embedder)
     n_pad = _ceil_to(rows, TILE_N)
     log(f"IVF section: generating {rows} x {tq.dim} int8 rows on {device}...")
@@ -323,6 +326,8 @@ def ivf_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
             verify("ivf_10M", x10, s10, rows, torch.cat(asked), _stack(answers),
                    ivf=(state, nprobe))
         out[f"latency_10M_int8_ivf_np{nprobe}_p50_ms"] = round(t["p50_ms"], 3)
+    if keep is not None:
+        keep.update(x=x10, scales=s10, state=state)
     del x10, s10, state
     gc.collect()
     return out

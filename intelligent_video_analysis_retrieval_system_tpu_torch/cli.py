@@ -47,8 +47,14 @@ them: nprobe to a recall target, then the IVF/dense crossover batch:
     python -m intelligent_video_analysis_retrieval_system_tpu_torch bench \
         [--device cuda] [--rows N] [--full] [--probes] [--skip-10m]
 
-The other commands of the JAX package's CLI (serve, share, doctor,
-validate, parity) are ported with their subsystems in later changes.
+``serve`` — the REST/WebSocket server over an index (the console at ``/``),
+until interrupted:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch serve \
+        [index.rvdb] [--host 0.0.0.0] [--port 5000] [--device cuda]
+
+The other commands of the JAX package's CLI (share, doctor, validate,
+parity) are ported with their subsystems in later changes.
 """
 
 from __future__ import annotations
@@ -162,6 +168,19 @@ def _build_parser() -> argparse.ArgumentParser:
     tu.add_argument("--build", action="store_true",
                     help="build the IVF structure first if absent")
     tu.add_argument("--device", default="cuda")
+
+    sv = sub.add_parser("serve", help="start the REST/WebSocket server (console at /)")
+    sv.add_argument("index_path", nargs="?", default=None)
+    sv.add_argument("--host", default="0.0.0.0")
+    sv.add_argument("--port", type=int, default=5000)
+    sv.add_argument("--model-path", default=None,
+                    help="local HF CLIP checkpoint directory")
+    sv.add_argument("--mesh", action="store_true",
+                    help="shard the index over all visible devices (multi-device search "
+                         "is ported in a later change: raises)")
+    sv.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "versions of the kernels)")
 
     # the bench parses its own flags (bench.main)
     sub.add_parser("bench", help="end-to-end bench: one JSON line on stdout",
@@ -474,9 +493,26 @@ def cmd_evaluate(args) -> int:
         index.close()
 
 
+def cmd_serve(args) -> int:
+    from .system.facade import EnhancedRetrievalSystem
+    from .utils.config import Config
+
+    overrides = {"model": {"path": args.model_path}} if args.model_path else None
+    system = EnhancedRetrievalSystem(Config(config_file="config.json", overrides=overrides),
+                                     device=args.device, mesh=args.mesh or None)
+    try:
+        if args.index_path:
+            system.load_system(args.index_path)
+        print(f"serving on http://{args.host}:{args.port} (console at /)", flush=True)
+        system.start_server(host=args.host, port=args.port, block=True)
+    finally:
+        system.cleanup()
+    return 0
+
+
 _COMMANDS = {"extract": cmd_extract, "filter": cmd_filter, "build": cmd_build,
              "search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate,
-             "compact": cmd_compact, "tune": cmd_tune}
+             "compact": cmd_compact, "tune": cmd_tune, "serve": cmd_serve}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -18,10 +18,11 @@ build and load.
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
 kernels' plain versions); the embedder, the index and video ingest share
-it. Not ported yet, each raising ``NotImplementedError`` that names the later
-change: the LLM processor (``enable_llm``) and the REST server
-(``start_server``); P2P fan-in over remote indexes comes with the REST
-server.
+it. ``start_server`` serves the system over REST and WebSocket
+(``serve/rest.py``, on the standard library), ``start_gui`` the web console
+the same way, and ``cleanup`` stops the server. Not ported yet, raising
+``NotImplementedError`` that names the later change: the LLM processor
+(``enable_llm``); P2P fan-in over remote indexes comes with the P2P layer.
 """
 
 from __future__ import annotations
@@ -132,6 +133,7 @@ class EnhancedRetrievalSystem:
         self.health = SystemHealthMonitor(self)
         self._callbacks: dict[str, list[Callable[..., None]]] = {}
         self._lock = threading.RLock()
+        self._server = None
         self.is_built = False
 
     # -- events ---------------------------------------------------------------
@@ -576,10 +578,28 @@ class EnhancedRetrievalSystem:
         raise NotImplementedError("the LLM processor is ported with the agents in a later "
                                   "change")
 
-    def start_server(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "the REST/WebSocket server is ported in a later change; serve "
-            "through serve.handlers.RequestHandler and serve.batching.QueryBatcher")
+    # -- serving / gui ----------------------------------------------------------
+
+    def start_server(self, host: str | None = None, port: int | None = None,
+                     block: bool = True):
+        """REST + WebSocket server over this system (``serve/rest.py``) on
+        ``host:port`` (default ``api.host`` / ``api.port``); ``block`` serves
+        in this thread until the server is stopped. Returns the server."""
+        from ..serve.rest import RetrievalServer
+
+        server = RetrievalServer(
+            self,
+            host=host or self.config.get("api.host", "0.0.0.0"),
+            port=port or self.config.get("api.port", 5000),
+        )
+        self._server = server
+        server.run(block=block)
+        return server
+
+    def start_gui(self) -> None:
+        """The desktop GUI of the reference is replaced by the web console
+        served at the server's root."""
+        self.start_server(block=True)
 
     # -- chat (no LLM processor yet: the greeting, then chat_search) -----------
 
@@ -650,6 +670,8 @@ class EnhancedRetrievalSystem:
             if self.index is not None:
                 self.index.close()
                 self.index = None
+            if self._server is not None:
+                self._server.stop()
             self.is_built = False
 
     def get_system_stats(self) -> dict[str, Any]:

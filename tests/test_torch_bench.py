@@ -27,10 +27,18 @@ import torch
 from intelligent_video_analysis_retrieval_system_tpu.ops import quant as jq
 from intelligent_video_analysis_retrieval_system_tpu.ops import topk as jtopk
 from intelligent_video_analysis_retrieval_system_tpu_torch import bench, cli
-from intelligent_video_analysis_retrieval_system_tpu_torch.bench import data, headline, timing
+from intelligent_video_analysis_retrieval_system_tpu_torch.bench import (
+    data,
+    headline,
+    served,
+    timing,
+)
 from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
 from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import CLIPEmbedder
-from intelligent_video_analysis_retrieval_system_tpu_torch.testing import tie_aware_equal
+from intelligent_video_analysis_retrieval_system_tpu_torch.testing import (
+    ivf_candidate_reference,
+    tie_aware_equal,
+)
 
 torch.set_num_threads(2)
 
@@ -58,14 +66,15 @@ def test_bench_prints_one_json_line_with_the_jax_key_names(narrow_towers, capsys
     extra = result["extra"]
     assert list(extra)[0] == "gpu" and extra["gpu"] is None and extra["device"] == "cpu"
     assert list(extra)[-1] == "not_ported"
-    assert extra["not_ported"] == ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static",
-                                   "served_qps", "served_10M"]
+    assert extra["not_ported"] == ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static"]
     assert extra["tokenizer_kind"] == "hash_fallback"
     assert extra["image_tower"] == "ViT-B/32" and extra["image_tower_fps"] > 0
     assert extra["image_tower_batch"] == 8
     for key in ("facade_search_p50_ms", "facade_search_p95_ms", "search_batch_b32_ms"):
         assert extra[key] > 0
     assert extra["headline_device_p50_ms"] is None        # no device time on the CPU
+    for key in ("served_qps_1M", "served_p50_ms", "served_p95_ms", "served_avg_batch"):
+        assert extra[key] > 0                             # served_qps runs with --skip-10m
     assert not any("10M" in key for key in extra)         # --skip-10m
 
 
@@ -129,6 +138,72 @@ def test_int8_section_equals_jax_topk_search_int8_bit_for_bit(narrow_towers):
         np.testing.assert_array_equal(result.indices.numpy(), order)
         np.testing.assert_array_equal(result.scores.numpy(),
                                       np.take_along_axis(spec, order, axis=1))
+
+
+def test_served_qps_answers_equal_jax_topk_search(narrow_towers):
+    """The REST server with the batcher over 4,096 bf16 rows: the JAX key
+    names, and every timed answer (handed to ``verify`` with the vector the
+    server searched) equal to the JAX ``topk_search`` (tie-aware)."""
+    seen = []
+    out = served.served_qps(CPU, CLIPEmbedder(device=CPU), 4096,
+                            verify=lambda *args, **kw: seen.append((args, kw)))
+    assert set(out) == {"served_qps_1M", "served_p50_ms", "served_p95_ms", "served_avg_batch"}
+    assert out["served_qps_1M"] > 0 and 0 < out["served_p50_ms"] <= out["served_p95_ms"]
+    assert 1.0 <= out["served_avg_batch"] <= served.CONCURRENCY
+    ((section, x, scales, n_valid, q, result), kw), = seen
+    assert section == "served_1M" and scales is None and n_valid == 4096
+    assert kw == {"decimals": served.SCORE_DECIMALS}
+    assert q.shape == (served.TIMED, 32) and q.dtype == torch.bfloat16
+    assert result.indices.shape == (served.TIMED, headline.K)
+    jres = jtopk.topk_search(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                             jnp.asarray(q.float().numpy(), jnp.bfloat16), headline.K,
+                             n_valid=n_valid, use_pallas=False)
+    jids, jscores = np.asarray(jres.indices), np.asarray(jres.scores)
+    for i in range(served.TIMED):
+        tie_aware_equal(result.indices[i].numpy(), result.scores[i].numpy(), jids[i],
+                        jscores[i])
+
+
+def test_served_10M_answers_equal_jax_int8_and_the_ivf_reference(narrow_towers):
+    """The IVF section's int8 rows served with its structure attached, then
+    dense: batches of at most ``ann_max_batch`` probe (the candidate-set
+    reference), larger ones sweep (the JAX ``topk_search_int8`` run eagerly):
+    the same ids, and the scores bit for bit as the server rounds them."""
+    embedder = CLIPEmbedder(device=CPU)
+    kept: dict = {}
+    headline.ivf_10M(CPU, embedder, 4096, keep=kept)
+    assert set(kept) == {"x", "scales", "state"}
+    seen = []
+    out = served.served_10M(CPU, embedder, 4096, kept,
+                            verify=lambda *args, **kw: seen.append((args, kw)))
+    for suffix in ("10M_int8_ann", "10M_int8_dense"):
+        assert out[f"served_qps_{suffix}"] > 0 and out[f"served_avg_batch_{suffix}"] >= 1
+        assert 0 < out[f"served_p50_{suffix}_ms"] <= out[f"served_p95_{suffix}_ms"]
+    def rounded(ref):       # the scores as a served answer carries them
+        return np.array([[round(float(v), served.SCORE_DECIMALS) for v in row]
+                         for row in np.asarray(ref)], np.float32)
+
+    answered = {"served_10M_int8_ann": 0, "served_10M_int8_dense": 0}
+    for (section, x, scales, n_valid, q, result), kw in seen:
+        assert x is kept["x"] and scales is kept["scales"] and n_valid == 4096
+        assert kw.pop("decimals") == served.SCORE_DECIMALS
+        answered[section] += len(q)
+        ids, scores = result.indices.numpy(), result.scores.numpy()
+        if kw:                                 # probed: the candidate-set reference
+            assert section == "served_10M_int8_ann" and kw["ivf"][0] is kept["state"]
+            ref_s, ref_i = ivf_candidate_reference(x, kw["ivf"][0], q, headline.K,
+                                                   kw["ivf"][1], n_valid, x_scales=scales)
+            np.testing.assert_array_equal(scores, rounded(ref_s))
+            for i in range(len(q)):
+                tie_aware_equal(ids[i], scores[i], ref_i[i], rounded(ref_s)[i], atol=0.0)
+            continue
+        with jax.disable_jit():
+            eager = jq.topk_search_int8(jnp.asarray(x.numpy()), jnp.asarray(scales.numpy()),
+                                        jnp.asarray(q.numpy()), headline.K, n_valid=n_valid)
+        np.testing.assert_array_equal(ids, np.asarray(eager.indices))
+        np.testing.assert_array_equal(scores, rounded(eager.scores))
+    assert answered == {"served_10M_int8_ann": served.TIMED,
+                        "served_10M_int8_dense": served.TIMED}
 
 
 def test_generated_rows():

@@ -31,6 +31,13 @@ build (centroids within 1e-5, the same bucket table but for rows that
 near-tie in similarity); full-f32 scores (TF32 off); the batched union
 searcher at B=16 over 1M rows, within its gather budget.
 
+The REST server (``serve/rest.py``) over a facade on the card: a served
+``/api/search`` launches B1 once, ``/api/image_search`` B5 once and B3 once
+per vision layer, and 64 concurrent searches through the batcher answer
+what the same searches answer one at a time (tie-aware, 5e-4 plus the
+distance between the two query vectors the tower gave in the two batch
+sizes), each against the exact reference.
+
 Ingest (``ops/{quality,phash,dedup}.py``, torch operations around B3 and
 B5) on the card against the same calls on the CPU: quality scores ``rtol``
 1e-5, the quality mask, phash bits and every dedup mask equal; the DINO
@@ -907,3 +914,150 @@ def test_frame_filter_dedup_step_on_card_matches_cpu(cuda_device):
     keep_card, carry = FrameFilter(cfg, device=cuda_device).dedup_step(batch, None)
     assert carry.device.type == "cuda"
     assert (keep_card == keep_cpu).all() and keep_card.sum() == 4
+
+
+def _served_on_card(device, tmp_path, **api):
+    """A port facade on the card (tiny towers, bf16) over 4,096 seeded rows,
+    behind its REST server on a loopback port."""
+    import socket
+
+    import numpy as np
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench.data import (
+        MemoryContainer,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        CLIPEmbedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        EnhancedRetrievalSystem,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
+
+    rows = torch.from_numpy(np.random.default_rng(0).standard_normal((4096, 32),
+                                                                     dtype=np.float32))
+    bits = rows.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    system = EnhancedRetrievalSystem(
+        Config(config_file=None, base_dir=tmp_path,
+               overrides={"api": api, "logging": {"file": False}}),
+        embedder=CLIPEmbedder(config=CLIPConfig.tiny_test(), device=device), device=device)
+    index = UnifiedIndex(system._index_config(), device=device)
+    index.attach_container(MemoryContainer(bits))
+    system.attach_index(index)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    system.start_server(host="127.0.0.1", port=port, block=False)
+    return system, port
+
+
+def _post(port, path, payload):
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, json.dumps(payload).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _check_hits(system, hits, qvec, k):
+    import numpy as np
+
+    index = system.index
+    q = torch.from_numpy(qvec / max(float(np.linalg.norm(qvec)), 1e-12)).to(
+        index.device, index._dev_x.dtype)[None]
+    ref = ttopk.topk_exact_reference(index._dev_x[:index.ntotal], q, k)
+    rows = [index.row_for(h["folder"], h["image"]) for h in hits]
+    assert len(hits) == k and None not in rows
+    tie_aware_equal(rows, [h["similarity_score"] for h in hits], ref.indices[0].cpu().numpy(),
+                    ref.scores[0].cpu().numpy())
+
+
+def test_served_search_on_the_card_launches_b1(cuda_device, tmp_path):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+    )
+
+    system, port = _served_on_card(cuda_device, tmp_path)
+    try:
+        for i in range(3):
+            text = f"a red car at night {i}"
+            before = ttopk.chunk_max_sweep.launches
+            status, body = _post(port, "/api/search", {"query": text, "limit": 10})
+            assert status == 200 and body["count"] == 10
+            assert ttopk.chunk_max_sweep.launches == before + 1
+            prompt = system._clip_prompt(text, SearchOptions())[0]
+            _check_hits(system, body["results"], system.embedder.encode_text([prompt])[0], 10)
+    finally:
+        system.cleanup()
+
+
+def test_served_image_search_on_the_card_launches_b5_and_b3(cuda_device, tmp_path):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    system, port = _served_on_card(cuda_device, tmp_path)
+    try:
+        system.embedder.ensure_loaded()
+        size = system.embedder.input_size
+        buf = io.BytesIO()
+        Image.fromarray(np.random.default_rng(4).integers(0, 256, (size, size, 3),
+                                                          dtype=np.uint8)).save(buf, "JPEG")
+        before = (tpre.normalize_images.launches, tatt.fused_mha.launches,
+                  ttopk.chunk_max_sweep.launches)
+        status, body = _post(port, "/api/image_search", {
+            "image_base64": base64.b64encode(buf.getvalue()).decode(), "limit": 10})
+        assert status == 200 and body["count"] == 10
+        layers = system.embedder.config.vision.num_layers
+        assert (tpre.normalize_images.launches - before[0], tatt.fused_mha.launches - before[1],
+                ttopk.chunk_max_sweep.launches - before[2]) == (1, layers, 1)
+        pixels = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+        _check_hits(system, body["results"], system.embedder.encode_images(pixels[None])[0], 10)
+    finally:
+        system.cleanup()
+
+
+def test_64_concurrent_served_searches_equal_their_serial_answers(cuda_device, tmp_path):
+    import numpy as np
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench import served
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.testing import ATOL_TOPK
+
+    system, port = _served_on_card(cuda_device, tmp_path, batching=True,
+                                   batching_max_batch=64, batching_window_ms=20.0,
+                                   rate_limit_per_minute=10**9)
+    recorder = served.Recorder(system.embedder)
+    try:
+        texts = [f"concurrent {i}: people on a beach" for i in range(64)]
+        _, _, together = served.fire(port, texts, concurrency=64)
+        assert system._server.batcher.stats.max_batch_seen > 1
+        _, _, alone = served.fire(port, texts, concurrency=1)
+        for text, a, b in zip(texts, together, alone):
+            first, second = recorder.vectors[system._clip_prompt(text, SearchOptions())[0]]
+            _check_hits(system, a["results"], first, 10)
+            _check_hits(system, b["results"], second, 10)
+            key = {k: i for i, k in enumerate({(h["folder"], h["image"])
+                                               for h in a["results"] + b["results"]})}
+            tie_aware_equal([key[h["folder"], h["image"]] for h in a["results"]],
+                            [h["similarity_score"] for h in a["results"]],
+                            [key[h["folder"], h["image"]] for h in b["results"]],
+                            [h["similarity_score"] for h in b["results"]],
+                            atol=ATOL_TOPK + float(np.linalg.norm(first - second)))
+    finally:
+        recorder.close()
+        system.cleanup()

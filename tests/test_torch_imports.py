@@ -1,15 +1,16 @@
 """The port stands on its own: it imports neither JAX nor anything of the
-JAX package.
+JAX package, nor the server libraries the card's machine lacks.
 
-- In a fresh interpreter with ``jax``, ``jaxlib``, ``flax`` and
-  ``intelligent_video_analysis_retrieval_system_tpu`` blocked (``None`` in
-  ``sys.modules``, so any import of them raises), every module of the port
-  and ``chip_smoke`` imports.
+- In a fresh interpreter with ``jax``, ``jaxlib``, ``flax``,
+  ``intelligent_video_analysis_retrieval_system_tpu``, ``aiohttp`` and
+  ``websockets`` blocked (``None`` in ``sys.modules``, so any import of them
+  raises), every module of the port and ``chip_smoke`` imports.
 - No source line of the port or of ``chip_smoke.py`` is an import of them
   (comments and strings that name the originals of copies, or the TPU
   kernels a CUDA kernel replaces, are fine).
 - The copies the port keeps of the JAX package's framework-free modules
-  name their originals and have not drifted from them.
+  name their originals and have not drifted from them; the REST server's
+  console page is the JAX server's, byte for byte.
 """
 
 import ast
@@ -23,7 +24,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "intelligent_video_analysis_retrieval_system_tpu_torch"
 JAX_PKG = ROOT / "intelligent_video_analysis_retrieval_system_tpu"
-BLOCKED = ("jax", "jaxlib", "flax", "intelligent_video_analysis_retrieval_system_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "intelligent_video_analysis_retrieval_system_tpu",
+           "aiohttp", "websockets")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -94,7 +96,15 @@ def test_the_bench_and_the_index_open_modules_are_walked():
             "index/fastloader.py", "index/portable.py", "ops/ann.py",
             "retrieval/temporal.py", "ingest/__init__.py", "ingest/frames.py",
             "ingest/pipeline.py", "ingest/video.py", "ops/quality.py", "ops/phash.py",
-            "ops/dedup.py", "models/dino.py"} <= names
+            "ops/dedup.py", "models/dino.py", "serve/rest.py", "serve/websocket.py",
+            "bench/served.py"} <= names
+
+
+def test_the_console_page_is_the_jax_servers():
+    from intelligent_video_analysis_retrieval_system_tpu.serve import rest as jax_rest
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve import rest
+
+    assert rest._CONSOLE_HTML.encode() == jax_rest._CONSOLE_HTML.encode()
 
 
 def test_native_copy_builds_into_its_own_cache_directory():

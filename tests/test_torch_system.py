@@ -455,13 +455,14 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
 
 def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
-    for call in (lambda: system.enable_llm(), lambda: system.start_server(),
+    for call in (lambda: system.enable_llm(),
                  lambda: CLIPEmbedder(compute_dtype="int8", device="cpu"),
                  lambda: EnhancedRetrievalSystem(device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
             call()
-    # ported: index_videos (tests/test_torch_ingest.py); chat answers a greeting;
-    # the IVF index types configure the ANN mode
+    # ported: index_videos (tests/test_torch_ingest.py), start_server
+    # (tests/test_torch_rest.py); chat answers a greeting; the IVF index types
+    # configure the ANN mode
     assert system.chat("hi")["method"] == "greeting"
     assert create_system(torch_device="cpu",
                          index={"index_type": "IndexIVFFlat"})._index_config().ann
