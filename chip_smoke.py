@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build and ingest paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build, W8A8 and ingest paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -90,6 +90,32 @@ non-zero):
             >= 0.99), 8 text requests equal to the exact reference; then
             1,024 frames built with ``index.dtype="int8"`` and served equal
             to ``int8_reference`` (atol 0).
+6b. w8a8   the W8A8 tower modes (``torch._int_mm`` products; the quant and
+            dequant passes are torch operations). ``w8a8_dense`` on the card
+            ``torch.equal`` to the same op on the CPU, dynamic and static
+            scales, at the vision shapes (8 x 257 and 256 x 257 tokens; for
+            the latter the first and last 1,024 rows; 1024->1024, 1024->4096,
+            4096->1024) and the text shapes (8 x 77 tokens; 768->768,
+            768->3072, 3072->768), timed beside ``_int_mm`` alone and
+            ``F.linear`` in bf16; int8 attention at (8, 257, 1024, 16 heads)
+            against the CPU (cosine >= 0.9999 on the same q, k, v; >= 0.999
+            for the layer with its bf16 projections), timed beside B3. The
+            embedder at ViT-L/14 width in bf16, ``int8`` and ``int8_static``:
+            4 image batches of 256 and 4 text batches calibrate the static
+            one (``self_test`` not counted), its static text tower against
+            the same weights and scales on the CPU (cosine >= 0.999), cosines
+            against bf16 printed, ``encode_images`` ms per batch of 256 and
+            ``encode_text`` B=1 p50 in each mode. Then a facade with
+            ``device.compute_dtype = "int8_static"`` builds 1,024 JPEG
+            keyframes (the vision tower calibrates on the build's 4 batches)
+            and keeps ``<index>.act_scales.json``, which 4 text requests
+            complete; a second facade loads the index (``load_system`` where
+            h5py imports, else ``attach_index`` over the stand-in) and is
+            static at once, health without the calibrating warning, 8 text
+            requests and 2 image queries equal to the exact reference over
+            the built rows (tie-aware). Counted: B5 once per image batch, B3
+            once per vision layer and forward, B1 once per query, six
+            ``_int_mm`` a layer and forward.
 7. ingest   keyframe ingest. First whether cv2 imports (the route is
             printed: video decode and stage 1's JPEG writes need it). B3 at
             DINO ViT-S/16's shape (B = 128, T = 197, D = 384, 6 heads) and B5
@@ -126,7 +152,9 @@ non-zero):
             fresh bf16 rows, ``served_10M`` over the IVF section's int8 rows
             with its structure attached and dense: every timed answer against
             the reference of the route its batch took, the scores rounded as
-            the server rounds them); its JSON line is printed as it is.
+            the server rounds them), the W8A8-static image tower (the timed
+            model's first 8 embeddings against the same weights and scales on
+            the CPU: cosine >= 0.999); its JSON line is printed as it is.
 9. probes   inside the same bench run, what its probes (``bench/probes.py``)
             returned, held against their plain versions on the same inputs:
             P1 (int8 tensor-core sweep) and P2 (rows widened to bf16) over
@@ -168,7 +196,8 @@ counts just after; the kernels' JSON line reports B1 and B3 from the bf16
 slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
 bench (whose own B1, B2, B3 and B5 launches are printed beside them); B3 and
 B5 carry the ingest path's launches and their DINO shapes beside, and B1,
-B3 and B5 the serve phase's (``serve_launches``). The
+B3 and B5 the serve phase's (``serve_launches``) and the int8_static
+facade's (``w8a8_launches``). The
 IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -1925,6 +1954,379 @@ def run_build_slice(device, require_kernels: bool, config=None, n_frames: int = 
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the W8A8 tower modes (torch._int_mm products around B1, B3, B5)
+# ---------------------------------------------------------------------------
+
+W8A8_FRAMES = 1024        # keyframes the int8_static facade builds
+W8A8_ROWS = 1024          # rows from each end of a large product held against the CPU
+COS_INT8_ATTN = 0.9999    # int8 attention, card vs CPU, same q, k, v: exact integer products
+COS_W8A8 = 0.999          # a W8A8 layer or tower, card vs CPU: bf16 rounds apart
+
+
+def w8a8_shapes(config) -> list[tuple[str, int, int, int]]:
+    """(name, tokens, in, out) of the towers' dense layers: the vision
+    tower at B = 8 and 256, the text tower at B = 8."""
+    v, t = config.vision, config.text
+    out = []
+    for tower, b, tokens, d, ratio in (("vision", 8, v.num_patches + 1, v.hidden_size,
+                                        v.mlp_ratio),
+                                       ("vision", 256, v.num_patches + 1, v.hidden_size,
+                                        v.mlp_ratio),
+                                       ("text", 8, t.max_length, t.hidden_size, t.mlp_ratio)):
+        for layer, k, n in (("qkvo", d, d), ("fc1", d, d * ratio), ("fc2", d * ratio, d)):
+            out.append((f"{tower} B={b} {layer} {k}->{n}", b * tokens, k, n))
+    return out
+
+
+def check_w8a8_ops(device, timer: Timer, config=None) -> dict:
+    """``w8a8_dense`` on the card against the same op on CPU copies of its
+    inputs, ``torch.equal``, dynamic and static (a scale that saturates the
+    largest activations), at the towers' shapes (for B = 256 the first and
+    last ``W8A8_ROWS`` rows: every row is computed on its own), timed beside
+    ``_int_mm`` alone and ``F.linear`` in bf16; int8 attention at (8, 257,
+    1024, 16 heads) against the CPU, timed beside B3 on the same q, k, v."""
+    import torch
+    import torch.nn.functional as F
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import (
+        CLIPConfig,
+        MultiHeadAttention,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention, quant
+
+    config = config or CLIPConfig.vit_l_14()
+    gen = torch.Generator(device=device).manual_seed(10)
+    times = {}
+    for name, m, k, n in w8a8_shapes(config):
+        x = (torch.randn(m, k, generator=gen, device=device) * 2).bfloat16()
+        w = torch.randn(n, k, generator=gen, device=device) * k ** -0.5
+        b = torch.randn(n, generator=gen, device=device) * 0.02
+        a_scale = (x.float().abs().amax() * 0.7 / 127.0).reshape(())
+        rows = torch.arange(m) if m <= 2 * W8A8_ROWS else \
+            torch.cat([torch.arange(W8A8_ROWS), torch.arange(m - W8A8_ROWS, m)])
+        xc, wc, bc = x[rows.to(device)].cpu(), w.cpu(), b.cpu()
+        for a in (None, a_scale):
+            got = quant.w8a8_dense(x, w, b, a_scale=a)[rows.to(device)].cpu()
+            want = quant.w8a8_dense(xc, wc, bc, a_scale=None if a is None else a.cpu())
+            if not torch.equal(got, want):
+                raise AssertionError(f"w8a8_dense {name} {'static' if a is not None else 'dynamic'}:"
+                                     f" the card differs from the CPU by "
+                                     f"{(got.float() - want.float()).abs().max().item()}")
+        qw = quant.quantize_weight_int8(w)
+        x8 = quant.symmetric_int8(x.float(), dim=-1)[0]
+        wb = w.bfloat16()
+        bb = b.bfloat16()
+        t = {"dynamic_ms": timer(lambda: quant.w8a8_dense(x, w, b, qweight=qw)),
+             "static_ms": timer(lambda: quant.w8a8_dense(x, w, b, a_scale=a_scale, qweight=qw)),
+             "int_mm_ms": timer(lambda: quant._int_mm(x8, qw[0])),
+             "bf16_linear_ms": timer(lambda: F.linear(x, wb, bb))}
+        times[name] = t
+        log("w8a8", f"w8a8_dense {name} ({m} tokens): card torch.equal the CPU "
+            f"({len(rows)} rows), dynamic and static; dynamic {t['dynamic_ms']:.3f} ms, static "
+            f"{t['static_ms']:.3f} ms, _int_mm alone {t['int_mm_ms']:.3f} ms, F.linear bf16 "
+            f"{t['bf16_linear_ms']:.3f} ms")
+        del x, w, x8, qw, wb
+
+    v = config.vision
+    mha = MultiHeadAttention(v.hidden_size, v.num_heads, int8_attn=True)
+    cpu_gen = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for p in mha.parameters():
+            p.copy_(torch.randn(p.shape, generator=cpu_gen) * v.hidden_size ** -0.5)
+    x = torch.randn(8, v.num_patches + 1, v.hidden_size, generator=cpu_gen).bfloat16()
+
+    def cosine(a, b) -> float:
+        return float(F.cosine_similarity(a.float().cpu().reshape(-1, v.hidden_size),
+                                         b.float().reshape(-1, v.hidden_size)).min())
+
+    with torch.inference_mode():
+        qkv = [proj(x) for proj in (mha.q_proj, mha.k_proj, mha.v_proj)]
+        core_want = mha._int8_attention(*qkv)
+        want = mha(x)
+        mha = mha.to(device)
+        xd = x.to(device)
+        # the int8 attention itself on the same q, k, v
+        cos_core = cosine(mha._int8_attention(*(t.to(device) for t in qkv)), core_want)
+        # the whole layer: the bf16 projections round apart on the card and
+        # the CPU, and near-uniform weights over 257 keys sit at 0.49 of
+        # p8's 1/127 step, so a projection's last bit can move p8 by one
+        cos = cosine(mha(xd), want)
+        if cos_core < COS_INT8_ATTN or cos < COS_W8A8:
+            raise AssertionError(f"int8 attention, card vs CPU: cosine {cos_core} on the same "
+                                 f"q, k, v (>= {COS_INT8_ATTN}), {cos} for the layer (>= "
+                                 f"{COS_W8A8})")
+        q, k_, v_ = mha.q_proj(xd), mha.k_proj(xd), mha.v_proj(xd)
+        attn = {"int8_attention_ms": timer(lambda: mha._int8_attention(q, k_, v_)),
+                "b3_ms": timer(lambda: attention.fused_mha(q, k_, v_, v.num_heads))
+                if device.type == "cuda" else None}
+    log("w8a8", f"int8 attention at {tuple(x.shape)}, {v.num_heads} heads, card vs CPU: min "
+        f"cosine {cos_core:.7f} on the same q, k, v (>= {COS_INT8_ATTN}), {cos:.7f} for the "
+        f"layer with its bf16 projections (>= {COS_W8A8}); {attn['int8_attention_ms']:.3f} ms, "
+        f"B3 on the same q, k, v {attn['b3_ms']} ms")
+    return {"dense": times, "attention": {"cos_core": cos_core, "cos_layer": cos, **attn}}
+
+
+def _text_batch(i: int) -> list[str]:
+    return [f"w8a8 query {i}-{j}: a red car driving at night past neon signs" for j in range(8)]
+
+
+def run_w8a8_embedders(device, timer: Timer, config=None, batch: int = 256,
+                       n_latency: int = 20) -> dict:
+    """The embedder's modes at ViT-L/14 width with seeded towers: ``int8``,
+    then ``int8_static`` calibrated by 4 image batches of ``batch`` and 4
+    text batches (``self_test`` not counted), its static text tower against
+    the same model on the CPU, cosines against the bf16 embedder (printed),
+    ``encode_images`` ms per batch and ``encode_text`` B=1 p50 in each mode."""
+    import torch
+    import torch.nn.functional as F
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.calibrate import (
+        set_act_scales,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.convert import (
+        empty_model,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        _CAL_BATCHES,
+        CLIPEmbedder,
+    )
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    embs = {}
+    for mode in ("bfloat16", "int8", "int8_static"):
+        embs[mode] = CLIPEmbedder(config=config, compute_dtype=mode, device=device,
+                                  image_batch_size=batch)
+        embs[mode].ensure_loaded()
+    cfg = embs["int8"].config
+    w = [e.model.vision_model.encoder.layers[0].mlp.fc1.weight for e in embs.values()]
+    if not all(torch.equal(w[0], x) for x in w[1:]):
+        raise AssertionError("the three embedders' seeded weights differ")
+    static = embs["int8_static"]
+    if static.get_stats()["act_scales_calibrated"] or static._cal_seen != {"vision": 0,
+                                                                            "text": 0}:
+        raise AssertionError(f"self_test counted as calibration: {static._cal_seen}")
+    size = cfg.vision.image_size
+    images = [np.stack([frame_pixels(100 + i, n, size) for n in range(batch)])
+              for i in range(_CAL_BATCHES)]
+    t0 = time.perf_counter()
+    for i in range(_CAL_BATCHES):
+        static.encode_images(images[i])
+        static.encode_text(_text_batch(i))
+    sync()
+    cal_s = time.perf_counter() - t0
+    if static.get_stats()["act_scales_calibrated"] != ["text", "vision"]:
+        raise AssertionError(f"int8_static after {_CAL_BATCHES} batches: "
+                             f"{static.get_stats()['act_scales_calibrated']}")
+    emb = {m: (e.encode_images(images[0]), e.encode_text(_text_batch(0))) for m, e in embs.items()}
+    if static._cal_seen != {"vision": _CAL_BATCHES, "text": _CAL_BATCHES}:
+        raise AssertionError(f"static encodes still calibrate: {static._cal_seen}")
+    for m, (img, txt) in emb.items():
+        if not (np.isfinite(img).all() and np.isfinite(txt).all()):
+            raise AssertionError(f"{m} embeddings are not finite")
+
+    # the static text tower on the card against the same weights and scales on the CPU
+    cpu = empty_model(cfg, "cpu", dtype=torch.bfloat16, w8a8=True, w8a8_static=True)
+    cpu.load_state_dict({k: v.cpu() for k, v in static.model.state_dict().items()})
+    set_act_scales(cpu, static._act_scales)
+    tokens = static.tokenizer(_text_batch(0), cfg.text.max_length)
+    eot = static.tokenizer.eot_positions(tokens)
+    with torch.inference_mode():
+        ref = cpu.encode_text(torch.from_numpy(tokens), torch.from_numpy(eot)).float()
+    ref = F.normalize(ref, dim=-1).numpy()
+    cos_cpu = float(np.sum(emb["int8_static"][1] * ref, -1).min())
+    if cos_cpu < COS_W8A8:
+        raise AssertionError(f"static text tower: card vs CPU cosine {cos_cpu} < {COS_W8A8}")
+    del cpu
+    cos_bf16 = {m: (float(np.sum(emb[m][0] * emb["bfloat16"][0], -1).min()),
+                    float(np.sum(emb[m][1] * emb["bfloat16"][1], -1).min()))
+                for m in ("int8", "int8_static")}
+    log("w8a8", f"int8_static: {_CAL_BATCHES} image batches of {batch} and {_CAL_BATCHES} text "
+        f"batches calibrated both towers in {cal_s:.1f} s (self_test not counted); static "
+        f"encodes finite; static text tower card vs CPU min cosine {cos_cpu:.6f} (>= "
+        f"{COS_W8A8}); min cosine against the bf16 embedder (images, texts; random towers, "
+        f"not gated): {cos_bf16}")
+
+    numbers = {}
+    for m, e in embs.items():
+        e.encode_images(images[1])
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            e.encode_images(images[1])
+        sync()
+        per_batch = (time.perf_counter() - t0) * 1e3 / 2
+        walls = []
+        for i in range(n_latency + 2):
+            t0 = time.perf_counter()
+            e.encode_text([f"latency {m} {i}: people walking on a beach at sunset"])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        numbers[m] = {"encode_images_ms": per_batch,
+                      "encode_text_p50_ms": float(np.percentile(walls[2:], 50))}
+    log("numbers", "W8A8 embedders, " + "; ".join(
+        f"{m}: encode_images B={batch} {v['encode_images_ms']:.1f} ms per batch "
+        f"({batch / v['encode_images_ms'] * 1e3:.0f} images/s), encode_text B=1 p50 "
+        f"{v['encode_text_p50_ms']:.2f} ms" for m, v in numbers.items()))
+    del embs, static
+    return {"numbers": numbers, "cos_cpu": cos_cpu, "cos_bf16": cos_bf16, "cal_s": cal_s}
+
+
+def run_w8a8_facade(device, require_kernels: bool, config=None, n_frames: int = W8A8_FRAMES,
+                    batch_size: int = 256, n_queries: int = N_REQUESTS,
+                    workdir: Path | None = None) -> dict:
+    """A facade with ``device.compute_dtype = "int8_static"`` builds
+    ``n_frames`` keyframes (the build phase's JPEG route), calibrates its
+    text tower on 4 requests and keeps ``<index>.act_scales.json`` beside
+    the index; a second facade loads the index and is static at once (health
+    without the calibrating warning) and answers ``n_queries`` text requests
+    and two image queries equal to the exact reference over the built rows
+    (tie-aware). Launch counts: B5 once per image batch, B3 once per vision
+    layer and forward, B1 once per query, six ``_int_mm`` a layer and
+    forward."""
+    import importlib.util
+    import shutil
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import (
+        attention, preprocess, quant, topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        _CAL_BATCHES,
+        CLIPEmbedder,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        EnhancedRetrievalSystem,
+        SearchOptions,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.utils.config import Config
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "w8a8_phase"
+    shutil.rmtree(workdir, ignore_errors=True)
+    keyframes = workdir / "keyframes"
+    n_folders = 4
+    counters = {"b1": topk.chunk_max_sweep, "b3": attention.fused_mha,
+                "b5": preprocess.normalize_images}
+
+    def counts() -> dict:
+        return {**{k: fn.launches for k, fn in counters.items()},
+                "int_mm": quant.w8a8_dense.calls}
+
+    def facade(name: str) -> EnhancedRetrievalSystem:
+        over = {"device": {"compute_dtype": "int8_static"},
+                "model": {"image_batch_size": batch_size}, "index": {"chunk_size": 1024}}
+        # no embedder given: the config's compute_dtype makes it (ViT-L/14,
+        # seeded); a smaller config stands in on the CPU
+        emb = None if config is None else CLIPEmbedder(
+            config=config, compute_dtype="int8_static", device=device,
+            image_batch_size=batch_size)
+        system = EnhancedRetrievalSystem(
+            Config(config_file=None, base_dir=workdir / name, overrides=over),
+            embedder=emb, device=device)
+        system.builder_class = smoke_builder_class(have_pil, have_h5py)
+        return system
+
+    system = facade("first")
+    system.embedder.ensure_loaded()
+    cfg = system.embedder.config
+    size, vl, tl = cfg.vision.image_size, cfg.vision.num_layers, cfg.text.num_layers
+    write_keyframes(keyframes, n_folders, n_frames // n_folders, size, have_pil)
+    out_path = workdir / "index" / "w8a8.rvdb"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    sidecar = Path(f"{out_path}.act_scales.json")
+
+    # the int8_static path starts here: every count from zero
+    for fn in counters.values():
+        fn.launches = 0
+    quant.w8a8_dense.calls = 0
+    t0 = time.perf_counter()
+    out = system.build_system(keyframes, map_dir=workdir / "map", output_path=out_path)
+    build_s = time.perf_counter() - t0
+    batches = -(-n_frames // batch_size)
+    got = counts()
+    want = {"b5": batches, "b3": batches * vl, "int_mm": batches * vl * 6}
+    if out["report"]["processed"] != n_frames or got["int_mm"] != want["int_mm"] or (
+            require_kernels and {k: got[k] for k in ("b5", "b3")} != {"b5": want["b5"],
+                                                                     "b3": want["b3"]}):
+        raise AssertionError(f"int8_static build: report {out['report']}, counts {got}, "
+                             f"expected {want}")
+    frozen = json.loads(sidecar.read_text())["towers"] if sidecar.is_file() else {}
+    if list(frozen) != (["vision"] if batches >= _CAL_BATCHES else []):
+        raise AssertionError(f"after the build the sidecar holds {list(frozen)}")
+    log("w8a8", f"int8_static facade built {n_frames} keyframes in {build_s:.1f} s "
+        f"({n_frames / build_s:.1f} images/s, {batches} batches of {batch_size}, all calibrating"
+        f" the vision tower); counts {got}; {sidecar.name} holds {list(frozen)}")
+    for i in range(_CAL_BATCHES):
+        system.search(f"calibration request {i}: a busy street market",
+                      SearchOptions(limit=10, use_cache=False))
+    frozen = json.loads(sidecar.read_text())["towers"]
+    if sorted(frozen) != ["text", "vision"] or \
+            system.embedder.get_stats()["act_scales_calibrated"] != ["text", "vision"]:
+        raise AssertionError(f"after {_CAL_BATCHES} requests the sidecar holds {list(frozen)}")
+    built = system.index._container
+    system.cleanup()
+
+    # a second facade over the same index: static at once
+    second = facade("second")
+    if have_h5py:
+        second.load_system(out_path)
+        route = "load_system"
+    else:
+        index = UnifiedIndex(second._index_config(), device=device)
+        index.attach_container(built)
+        second.attach_index(index)
+        route = "attach_index over the in-memory stand-in"
+    if second.embedder.get_stats()["act_scales_calibrated"] != ["text", "vision"]:
+        raise AssertionError("the second facade did not import the scales")
+    second.embedder.ensure_loaded()
+    health = second.health.comprehensive_health_check()["components"]["embedder"]
+    if "calibrating" in str(health["detail"]):
+        raise AssertionError(f"health of the loaded int8_static facade: {health}")
+    for i in range(n_queries):
+        query = f"static request {i}: people walking on a beach at sunset"
+        opts = SearchOptions(limit=10, use_cache=False)
+        before = counts()
+        hits = second.search(query, opts)
+        after = counts()
+        step = {k: after[k] - before[k] for k in after}
+        want_step = {"b1": 1, "b3": 0, "b5": 0, "int_mm": tl * 6}
+        if step["int_mm"] != want_step["int_mm"] or (require_kernels and step != want_step):
+            raise AssertionError(f"one static request counted {step}, expected {want_step}")
+        prompt, _ = second._clip_prompt(query, opts)
+        check_hits(second, hits, second.embedder.encode_text([prompt])[0], opts.limit)
+    own = []
+    builder = second._make_builder()
+    for folder in (0, n_folders - 1):
+        path = keyframes / f"video_{folder:02d}" / f"{folder + 3:06d}.jpg"
+        pixels = builder._decode_one(path)[0]
+        before = counts()
+        hits = second.search_by_image(pixels, SearchOptions(limit=10))
+        after = counts()
+        step = {k: after[k] - before[k] for k in after}
+        want_step = {"b1": 1, "b3": vl, "b5": 1, "int_mm": vl * 6}
+        if step["int_mm"] != want_step["int_mm"] or (require_kernels and step != want_step):
+            raise AssertionError(f"one static image query counted {step}, expected {want_step}")
+        check_hits(second, hits, second.embedder.encode_images(pixels[None])[0], 10)
+        own.append(((hits[0]["folder"], hits[0]["image"]) == (path.parent.name, path.name),
+                    round(hits[0]["similarity_score"], 6)))
+    if second.embedder._cal_seen != {"vision": 0, "text": 0}:
+        raise AssertionError(f"the loaded facade calibrated again: {second.embedder._cal_seen}")
+    launches = counts()
+    log("w8a8", f"second facade ({route}): static at once, health {health['status']} without "
+        f"the calibrating warning; {n_queries} text requests and 2 image queries equal to the "
+        f"exact reference (tie-aware), each request one B1 and {tl * 6} _int_mm, each image "
+        f"query one B5, {vl} B3, {vl * 6} _int_mm; own frame first, top score: {own}; counts on "
+        f"the path {launches}")
+    second.cleanup()
+    return {"launches": launches, "build_s": build_s, "images_per_s": n_frames / build_s}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: keyframe ingest (the DINO tower, stage 1 and 2, index_videos)
 # ---------------------------------------------------------------------------
 
@@ -2710,7 +3112,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     )
 
     checked = {"headline_1M": 0, "int8_10M": 0, "ivf_10M": 0, "image_tower": 0,
-               "served_1M": 0, "served_10M_int8_ann": 0, "served_10M_int8_dense": 0}
+               "image_tower_int8_static": 0, "served_1M": 0, "served_10M_int8_ann": 0,
+               "served_10M_int8_dense": 0}
 
     def verify_tower(model, pixels, got) -> None:
         """The timed batch again, from the bench's own normalized pixels, with
@@ -2740,6 +3143,33 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
         for k, fn in bench_counters().items():
             if fn.launches != counters[k]:
                 raise AssertionError(f"the plain attention route launched kernel {k}")
+
+    def verify_static(model, scales, pixels, got) -> None:
+        """The timed W8A8-static tower's first rows again on the CPU, with the
+        same weights and scales."""
+        from intelligent_video_analysis_retrieval_system_tpu_torch.models.calibrate import (
+            set_act_scales,
+        )
+        from intelligent_video_analysis_retrieval_system_tpu_torch.models.convert import (
+            empty_model,
+        )
+
+        cpu = empty_model(model.config, "cpu", dtype=model.dtype, w8a8=True, w8a8_static=True)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        set_act_scales(cpu, scales)
+        with torch.inference_mode():
+            ref = cpu.encode_image(pixels.cpu())
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"static tower: embeddings {tuple(got.shape)} or not finite")
+        low = float(torch.nn.functional.cosine_similarity(got.float().cpu(), ref.float(),
+                                                          dim=-1).min())
+        if low < COS_TOWER:
+            raise AssertionError(f"W8A8-static image tower: card vs CPU cosine {low} < "
+                                 f"{COS_TOWER}")
+        checked["image_tower_int8_static"] += len(got)
+        log("bench", f"W8A8-static image tower: the timed model's first {len(got)} embeddings "
+            f"against the same weights and scales on the CPU, min cosine {low:.6f} "
+            f"(>= {COS_TOWER})")
 
     def rounded(ref_scores: np.ndarray, decimals: int | None) -> np.ndarray:
         """A reference's scores as a served answer carries them (``round``)."""
@@ -2790,7 +3220,7 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     try:
         with contextlib.redirect_stdout(stdout):
             rc = bench.main(argv, verify=verify, verify_tower=verify_tower,
-                            check_probes=probe_checks)
+                            check_probes=probe_checks, verify_static=verify_static)
     finally:
         _LOG_TO = None
     seconds = time.perf_counter() - t0
@@ -2802,7 +3232,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     result = json.loads(lines[0])
     extra = result["extra"]
     want = ["metric", "value", "p95", "queries", "vs_baseline"]
-    want_extra = ["gpu", "image_tower_fps", "facade_search_p50_ms", "search_batch_b32_ms",
+    want_extra = ["gpu", "image_tower_fps", "image_tower_fps_int8_static",
+                  "facade_search_p50_ms", "search_batch_b32_ms",
                   "served_qps_1M", "served_p50_ms", "served_p95_ms", "served_avg_batch",
                   "not_ported"]
     served_10m = ["served_10M_int8_ann", "served_10M_int8_dense"]
@@ -2833,6 +3264,14 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
         raise AssertionError("the bench timed headline answers that were not checked")
     if checked["image_tower"] != extra["image_tower_batch"]:
         raise AssertionError("the bench's image tower batch was not checked")
+    if checked["image_tower_int8_static"] != min(8, extra["image_tower_batch"]):
+        raise AssertionError("the bench's W8A8-static image tower was not checked")
+    if extra["not_ported"] != ["sharded_1M", "anchor_1M25"]:
+        raise AssertionError(f"the bench lists {extra['not_ported']} as not ported")
+    log("numbers", f"bench image tower ({extra['image_tower']}, B={extra['image_tower_batch']}):"
+        f" bf16 {extra['image_tower_fps']} frames/s ({extra['image_tower_ms_per_batch']} ms per "
+        f"batch), W8A8-static {extra['image_tower_fps_int8_static']} frames/s "
+        f"({extra['image_tower_int8_static_ms_per_batch']} ms per batch)")
     if "--skip-10m" not in argv and checked["ivf_10M"] < 2 * result["queries"]:
         raise AssertionError("the bench timed IVF answers that were not checked")
     if {"ivf_10M", "served_qps", "served_10M"} & set(extra["not_ported"]):
@@ -3616,6 +4055,12 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     built = run_build_slice(device, require_kernels=True)
     torch.cuda.empty_cache()
+    w8a8_ops = check_w8a8_ops(device, timer)
+    torch.cuda.empty_cache()
+    w8a8_emb = run_w8a8_embedders(device, timer)
+    torch.cuda.empty_cache()
+    w8a8 = run_w8a8_facade(device, require_kernels=True)
+    torch.cuda.empty_cache()
     ingested = run_ingest_phase(device, require_kernels=True, timer=timer)
     torch.cuda.empty_cache()
     benched = run_bench_phase(device, require_kernels=True, argv=["--probes"], timer=timer)
@@ -3626,7 +4071,7 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/chunk_max.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/topk.py:134",
          "launches": result["launches"]["b1"], **b1,
-         "serve_launches": serve["launches"]["b1"]},
+         "serve_launches": serve["launches"]["b1"], "w8a8_launches": w8a8["launches"]["b1"]},
         {"name": "int8_chunk_max_sweep (B2)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/int8_sweep.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/quant.py:167",
@@ -3636,7 +4081,7 @@ def main(argv: list[str] | None = None) -> int:
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
          "launches": result["launches"]["b3"], **b3, "dino_vit_s_16": ingested["b3"],
          "ingest_launches": ingested["launches"]["b3"],
-         "serve_launches": serve["launches"]["b3"]},
+         "serve_launches": serve["launches"]["b3"], "w8a8_launches": w8a8["launches"]["b3"]},
         {"name": "fused_ln_mlp (B4)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/block.py:78",
@@ -3646,7 +4091,7 @@ def main(argv: list[str] | None = None) -> int:
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py:127",
          "launches": built["launches"]["b5"], **b5, "dino_f32": ingested["b5"],
          "ingest_launches": ingested["launches"]["b5"],
-         "serve_launches": serve["launches"]["b5"]},
+         "serve_launches": serve["launches"]["b5"], "w8a8_launches": w8a8["launches"]["b5"]},
         {"name": "probe_int8_mma_sweep (P1)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
          "replaces": "benchmarks/exp_int8.py:37",
@@ -3664,6 +4109,9 @@ def main(argv: list[str] | None = None) -> int:
         f"ms, p95 {serve['p95_ms']:.3f} ms, QPS {serve['qps']}, avg batch "
         f"{serve['avg_batch']:.2f}, idle share {serve['idle_share']:.4f}")
     log("build", f"launches on the build path: {built['launches']}")
+    log("w8a8", f"launches on the int8_static facade path: {w8a8['launches']}; build "
+        f"{w8a8['images_per_s']:.1f} images/s; int8 attention {w8a8_ops['attention']}; "
+        f"embedders {w8a8_emb['numbers']}")
     log("ingest", f"launches on the ingest path: {ingested['launches']}")
     log("open", f"1M-row int8 facade open: {opened}")
     log("ann", f"1M bf16 facade: build {ann1['build_s']:.2f} s, nprobe {ann1['nprobe']}, "

@@ -7,8 +7,9 @@ Counterpart of the JAX package's root ``bench.py`` and of its
 ``benchmarks/exp_int8.py`` / ``exp_stream_bw.py`` experiments. It runs the
 sections of :mod:`.headline` (the headline text query over ``--rows`` bf16
 rows, 1,000,000 by default; the image tower, ViT-B/32 or with ``--full``
-ViT-L/14; the int8 capacity mode over ten times ``--rows`` and the IVF
-approximate mode over the same rows, unless ``--skip-10m``), the served
+ViT-L/14, in bf16 and in W8A8 with static scales; the int8 capacity mode
+over ten times ``--rows`` and the IVF approximate mode over the same rows,
+unless ``--skip-10m``), the served
 sections of :mod:`.served` (the REST server with the batcher on over
 ``--rows`` fresh bf16 rows; unless ``--skip-10m``, over the IVF section's
 int8 rows with its structure attached and dense) and with ``--probes`` the
@@ -55,9 +56,10 @@ def run_bench(device: torch.device | str = "cuda", rows: int | None = None,
               full: bool = False, probes: bool = False, skip_10m: bool = False,
               verify: headline.Verify | None = None,
               verify_tower: headline.VerifyTower | None = None,
-              check_probes: ProbeCheck | None = None) -> dict:
+              check_probes: ProbeCheck | None = None,
+              verify_static: headline.VerifyStatic | None = None) -> dict:
     """Run the sections and return the result (see the module docstring).
-    The three hooks let a caller hold what the sections computed against
+    The hooks let a caller hold what the sections computed against
     references of its own (``headline`` and ``probes`` say what each gets)."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -72,7 +74,7 @@ def run_bench(device: torch.device | str = "cuda", rows: int | None = None,
     extra.update(head.pop("extra"))
     result: dict = {**head, "unit": "ms", "extra": extra}
     gc.collect()
-    extra.update(headline.image_tower(device, full, verify_tower))
+    extra.update(headline.image_tower(device, full, verify_tower, verify_static))
     kept: dict = {}
     if not skip_10m:
         # the 1M bf16 rows are gone by now (headline_1M frees them)
@@ -98,7 +100,8 @@ def run_bench(device: torch.device | str = "cuda", rows: int | None = None,
 
 def main(argv: list[str] | None = None, verify: headline.Verify | None = None,
          verify_tower: headline.VerifyTower | None = None,
-         check_probes: ProbeCheck | None = None) -> int:
+         check_probes: ProbeCheck | None = None,
+         verify_static: headline.VerifyStatic | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m intelligent_video_analysis_retrieval_system_tpu_torch.bench",
         description="end-to-end bench of the PyTorch port: one JSON line on stdout")
@@ -115,7 +118,8 @@ def main(argv: list[str] | None = None, verify: headline.Verify | None = None,
                         help="leave out the int8 capacity, IVF and served 10M sections")
     args = parser.parse_args(argv)
     result = run_bench(args.device, args.rows, args.full, args.probes, args.skip_10m,
-                       verify=verify, verify_tower=verify_tower, check_probes=check_probes)
+                       verify=verify, verify_tower=verify_tower, check_probes=check_probes,
+                       verify_static=verify_static)
     log(f"bench done in {result['extra']['seconds']} s")
     print(json.dumps(result), flush=True)
     return 0

@@ -20,7 +20,9 @@ served sections (``bench/served.py``) hand it their answers the same way,
 with ``decimals=6``: the scores as the server rounds them.
 ``verify_tower``, when given to :func:`image_tower`, gets the model, the
 normalized pixels of the timed batch and the embeddings the timed route gave
-for them.
+for them; ``verify_static`` gets the timed W8A8-static model, its scale tree
+(``models.calibrate``), the first 8 of those pixels and what the timed model
+gave for them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ from typing import Callable
 import torch
 
 from ..index.unified import UnifiedIndex
+from ..models.calibrate import calibrate_act_scales, set_act_scales
 from ..models.clip import CLIPConfig
+from ..models.convert import empty_model
 from ..ops.ann import build_ivf, default_nlist, ivf_topk
 from ..ops.preprocess import normalize_images
 from ..ops.quant import topk_search_int8
@@ -55,10 +59,11 @@ BASELINE_MS = 39.0
 PROMPT = "a photo of a scene"
 # sections of the JAX bench whose modules the port does not have yet; a later
 # change removes a name when it ports the section
-NOT_PORTED = ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static"]
+NOT_PORTED = ["sharded_1M", "anchor_1M25"]
 
 Verify = Callable[..., None]
 VerifyTower = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], None]
+VerifyStatic = Callable[[torch.nn.Module, dict, torch.Tensor, torch.Tensor], None]
 
 
 def log(msg: str) -> None:
@@ -181,10 +186,15 @@ def headline_1M(device: torch.device, embedder: CLIPEmbedder, rows: int,
 
 
 def image_tower(device: torch.device, full: bool,
-                verify_tower: VerifyTower | None = None) -> dict:
+                verify_tower: VerifyTower | None = None,
+                verify_static: VerifyStatic | None = None) -> dict:
     """Frames per second of uint8 pixels -> ``normalize_images`` (kernel B5)
     -> vision tower (kernel B3) -> projection, in bf16: ViT-B/32 at B=256,
-    or with ``full`` ViT-L/14 at B=128 (8 on the CPU)."""
+    or with ``full`` ViT-L/14 at B=128 (8 on the CPU). Then the same with
+    the tower in W8A8 with static scales, calibrated on the timed batch
+    through the dynamic twin (the JAX bench's
+    ``image_tower_fps_int8_static``); both twins share the bf16 tower's
+    parameters."""
     name, cfg = ("ViT-L/14", CLIPConfig.vit_l_14()) if full else \
         ("ViT-B/32", CLIPConfig.vit_b_32())
     batch = 8 if device.type == "cpu" else (128 if full else 256)
@@ -207,8 +217,38 @@ def image_tower(device: torch.device, full: bool,
         with torch.inference_mode():
             pixels = normalize_images(px, dtype=embedder.model.dtype)
             verify_tower(embedder.model, pixels, embedder.model.encode_image(pixels))
-    return {"image_tower_fps": round(fps), "image_tower": name, "image_tower_batch": batch,
-            "image_tower_ms_per_batch": round(t["p50_ms"], 3)}
+    out = {"image_tower_fps": round(fps), "image_tower": name, "image_tower_batch": batch,
+           "image_tower_ms_per_batch": round(t["p50_ms"], 3)}
+
+    dtype = embedder.model.dtype
+    sd = embedder.model.state_dict()
+
+    def twin(static: bool) -> torch.nn.Module:
+        m = empty_model(cfg, "meta", dtype=dtype, w8a8=True, w8a8_static=static)
+        m.load_state_dict(sd, strict=True, assign=True)
+        return m.eval()
+
+    with torch.inference_mode():
+        pixels = normalize_images(px, dtype=dtype)
+    scales = calibrate_act_scales(twin(False), [(pixels,)], method="encode_image")["act_scales"]
+    static = twin(True)
+    set_act_scales(static, scales)
+
+    def embed_static(i: int) -> None:
+        with torch.inference_mode():
+            static.encode_image(normalize_images(px, dtype=dtype))
+
+    ts = percentile_wall(embed_static, CALLS, device)
+    sfps = batch / (ts["p50_ms"] / 1e3)
+    log(f"image embed: {sfps:.0f} frames/s ({name} W8A8-static B={batch}, "
+        f"{ts['p50_ms']:.3f} ms per batch)")
+    if verify_static is not None:
+        with torch.inference_mode():
+            first = static.encode_image(pixels)[:8]
+        verify_static(static, scales, pixels[:8], first)
+    out.update(image_tower_fps_int8_static=round(sfps),
+               image_tower_int8_static_ms_per_batch=round(ts["p50_ms"], 3))
+    return out
 
 
 # ---------------------------------------------------------------------------

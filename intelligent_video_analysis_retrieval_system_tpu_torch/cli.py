@@ -127,9 +127,9 @@ def _build_parser() -> argparse.ArgumentParser:
                    choices=("bfloat16", "float16", "float32", "int8"),
                    help="stored index row dtype; int8 = capacity mode")
     b.add_argument("--compute-dtype", default=None,
-                   choices=("bfloat16", "float32", "int8", "int8_static"),
-                   help="tower compute dtype (the W8A8 modes int8 and "
-                        "int8_static are not ported yet and raise)")
+                   choices=("bfloat16", "float16", "float32", "int8", "int8_static"),
+                   help="tower activation mode; int8/int8_static = W8A8 "
+                        "(int8 products; static: calibrated scales)")
     b.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
@@ -146,7 +146,9 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
     se.add_argument("--compute-dtype", default="bfloat16",
-                    choices=("bfloat16", "float32"))
+                    choices=("bfloat16", "float16", "float32", "int8", "int8_static"),
+                    help="tower activation mode (int8_static reads the scales "
+                         "the build saved beside the index)")
     se.add_argument("--json", action="store_true", dest="as_json")
 
     st = sub.add_parser("stats", help="index statistics")

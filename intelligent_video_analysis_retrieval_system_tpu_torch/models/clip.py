@@ -17,7 +17,18 @@ Flax modules:
   half of every block, ``x + fc2(act(fc1(LN(x))))``, through the fused
   kernel B4 (:func:`ops.block.fused_ln_mlp`) in throughput mode, where the
   shapes pass :func:`ops.block.supports_fused_ln_mlp`. The parameters are
-  the same modules either way, so one state dict serves both.
+  the same modules either way, so one state dict serves both;
+- ``w8a8=True`` runs every dense layer of the transformer blocks (q, k, v,
+  out and the two MLP layers) in int8 (:func:`ops.quant.w8a8_dense`), the
+  weights quantized per output channel from the f32 parameters, the
+  activations per token; ``w8a8_static=True`` reads one calibrated scale per
+  dense input instead (``models.calibrate``). A W8A8 block never takes
+  ``fused_mlp``, as in the reference. Each W8A8 layer can record the
+  ``max|x|`` of its input on the device (``models.calibrate`` turns it on),
+  the reference's ``act_stats`` collection;
+- ``int8_attn=True`` computes unmasked attention (the vision tower) with
+  int8 QK^T and PV products; masked attention (the text tower) keeps the
+  standard path, as in the reference.
 
 Module and parameter names follow HF ``transformers.CLIPModel``'s state
 dict, so ``models.convert`` maps between this port, HF checkpoints and the
@@ -25,9 +36,8 @@ Flax tree without renaming tables. The towers return the pooled hidden
 state; :class:`CLIPModel` applies the projections (``text_projection``,
 ``visual_projection``), as HF does.
 
-Left out for now (a later change ports them): W8A8 dense layers, int8
-attention and rematerialization. Asking for one raises
-``NotImplementedError``.
+Left out for now (a later change ports it): rematerialization. Asking for
+it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from torch import nn
 
 from ..ops.attention import fused_mha
 from ..ops.block import activation, fused_ln_mlp, supports_fused_ln_mlp
+from ..ops.quant import quantize_weight_int8, symmetric_int8, w8a8_dense
 
 __all__ = [
     "CLIPVisionConfig",
@@ -55,8 +66,6 @@ __all__ = [
 ]
 
 _LATER = {
-    "w8a8": "W8A8 dense layers are ported with the int8 tower modes in a later change",
-    "int8_attn": "int8 attention is ported with the W8A8 modes in a later change",
     "remat": "rematerialization is ported with training in a later change",
 }
 
@@ -171,13 +180,48 @@ class _CastCache:
 
 class Dense(nn.Linear):
     """``nn.Linear`` with f32 parameters and compute in the input's dtype
-    (Flax ``nn.Dense(dtype=...)`` semantics)."""
+    (Flax ``nn.Dense(dtype=...)`` semantics).
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    ``w8a8``: the layer runs :func:`ops.quant.w8a8_dense` instead, its int8
+    weight and scales quantized from the f32 parameter and cached by the
+    rule of :class:`_CastCache` (the parameter's version, pointer and
+    device; never from the compute-dtype copy). ``w8a8_static``: the input
+    is quantized with ``act_scale`` (a 0-d f32 tensor set by
+    ``models.calibrate.set_act_scales``; the reference's placeholder 1/127
+    until then). While ``recording`` (``models.calibrate.record_act_stats``)
+    every call folds ``max|x|`` in f32 into ``amax``, a 0-d tensor on the
+    device, with no sync to the host."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 w8a8: bool = False, w8a8_static: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self._cast = _CastCache()
+        self.w8a8 = w8a8
+        self.w8a8_static = w8a8_static
+        self.act_scale: torch.Tensor | None = None
+        self.recording = False
+        self.amax: torch.Tensor | None = None
+        self._q: tuple[tuple, tuple[torch.Tensor, torch.Tensor]] | None = None
+
+    def _qweight(self) -> tuple[torch.Tensor, torch.Tensor]:
+        p = self.weight
+        # an inference tensor keeps no version counter (nor can it change
+        # outside inference mode)
+        key = (None if p.is_inference() else p._version, p.data_ptr(), p.device)
+        if self._q is None or self._q[0] != key:
+            self._q = (key, quantize_weight_int8(p))
+        return self._q[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w8a8:
+            if self.recording:
+                amax = x.detach().float().abs().amax()
+                self.amax = amax if self.amax is None else torch.maximum(self.amax, amax)
+            a_scale = None
+            if self.w8a8_static:
+                a_scale = self.act_scale if self.act_scale is not None else 1.0 / 127.0
+            return w8a8_dense(x, self.weight, self.bias, out_dtype=x.dtype,
+                              a_scale=a_scale, qweight=self._qweight())
         w = self._cast.get("weight", self.weight, x.dtype)
         b = None if self.bias is None else self._cast.get("bias", self.bias, x.dtype)
         return F.linear(x, w, b)
@@ -194,24 +238,62 @@ class LayerNorm(nn.LayerNorm):
         ).to(x.dtype)
 
 
+def _int_bmm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """Batched product of int8-valued tensors, exact, as f32: an f32 ``bmm``
+    with full-precision f32 products forced (TF32 would round the operands).
+    Every partial sum is an integer below 2^24 (at most 64 * 127^2 for QK^T
+    at head width 64, 257 * 127^2 for PV at 257 tokens), so f32 holds it
+    exactly in any order of summation: the integers of an int8 x int8 ->
+    int32 product, which torch has no batched op for."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return torch.bmm(a8.float(), b8.float())
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention with HF names (``q_proj``/``k_proj``/``v_proj``/
-    ``out_proj``) and the reference's three modes: the HIGHEST-parity
-    einsum, the throughput einsum, and fused kernel B3 for unmasked
-    attention on a CUDA device."""
+    ``out_proj``) and the reference's modes: the HIGHEST-parity einsum, the
+    throughput einsum, fused kernel B3 for unmasked attention on a CUDA
+    device, and int8 attention (``int8_attn``, unmasked only). ``w8a8``
+    makes the four projections W8A8 layers."""
 
     def __init__(self, dim: int, num_heads: int, precision: str = "default",
                  fused_attn: bool = True, w8a8: bool = False,
-                 int8_attn: bool = False) -> None:
+                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
         super().__init__()
-        _refuse(w8a8=w8a8, int8_attn=int8_attn)
         self.num_heads = num_heads
         self.precision = precision
         self.fused_attn = fused_attn
-        self.q_proj = Dense(dim, dim)
-        self.k_proj = Dense(dim, dim)
-        self.v_proj = Dense(dim, dim)
-        self.out_proj = Dense(dim, dim)
+        self.int8_attn = int8_attn
+        self.q_proj = Dense(dim, dim, w8a8=w8a8, w8a8_static=w8a8_static)
+        self.k_proj = Dense(dim, dim, w8a8=w8a8, w8a8_static=w8a8_static)
+        self.v_proj = Dense(dim, dim, w8a8=w8a8, w8a8_static=w8a8_static)
+        self.out_proj = Dense(dim, dim, w8a8=w8a8, w8a8_static=w8a8_static)
+
+    def _int8_attention(self, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+        """The reference's int8 attention: Q (scaled by dh^-1/2) and K
+        quantized per token, V per (head, column); softmax in f32; the
+        probabilities quantized with the fixed scale 1/127."""
+        b, t, d = q.shape
+        h = self.num_heads
+        head_dim = d // h
+
+        def merge(y):
+            return y.reshape(b, t, h, head_dim).transpose(1, 2).reshape(b * h, t, head_dim)
+
+        qm, km, vm = merge(q), merge(k), merge(v)
+        q8, qs = symmetric_int8(qm * head_dim ** -0.5, dim=-1)    # (bh, t, 1)
+        k8, ks = symmetric_int8(km, dim=-1)                        # (bh, t, 1)
+        logits = _int_bmm(q8, k8.transpose(1, 2)) * qs * ks.transpose(1, 2)
+        weights = torch.softmax(logits, dim=-1)
+        p8 = torch.round(weights * 127.0).to(torch.int8)
+        v8, vs = symmetric_int8(vm, dim=1)                         # (bh, 1, hd)
+        out = _int_bmm(p8, v8) * (vs * (1.0 / 127.0))
+        return out.to(q.dtype).reshape(b, h, t, head_dim).transpose(1, 2).reshape(b, t, d)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         b, t, d = x.shape
@@ -219,6 +301,8 @@ class MultiHeadAttention(nn.Module):
         head_dim = d // h
         scale = head_dim ** -0.5
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if self.int8_attn and mask is None:
+            return self.out_proj(self._int8_attention(q, k, v))
         if (self.fused_attn and mask is None and self.precision != "highest"
                 and x.device.type == "cuda"):
             return self.out_proj(fused_mha(q, k, v, h))
@@ -254,11 +338,12 @@ def _activation(name: str):
 
 
 class _MLP(nn.Module):
-    def __init__(self, dim: int, hidden: int, act: str = "quick_gelu") -> None:
+    def __init__(self, dim: int, hidden: int, act: str = "quick_gelu",
+                 w8a8: bool = False, w8a8_static: bool = False) -> None:
         super().__init__()
         self.act = _activation(act)
-        self.fc1 = Dense(dim, hidden)
-        self.fc2 = Dense(hidden, dim)
+        self.fc1 = Dense(dim, hidden, w8a8=w8a8, w8a8_static=w8a8_static)
+        self.fc2 = Dense(hidden, dim, w8a8=w8a8, w8a8_static=w8a8_static)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -273,16 +358,18 @@ class TransformerBlock(nn.Module):
                  precision: str = "default", act: str = "quick_gelu",
                  ln_eps: float = 1e-5, fused_attn: bool = True,
                  fused_mlp: bool = False, w8a8: bool = False,
-                 int8_attn: bool = False) -> None:
+                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
         super().__init__()
-        _refuse(w8a8=w8a8, int8_attn=int8_attn)
         self.act = act
         self.layer_norm1 = LayerNorm(dim, eps=ln_eps)
-        self.self_attn = MultiHeadAttention(dim, num_heads, precision, fused_attn)
+        self.self_attn = MultiHeadAttention(dim, num_heads, precision, fused_attn,
+                                            w8a8=w8a8, w8a8_static=w8a8_static,
+                                            int8_attn=int8_attn)
         self.layer_norm2 = LayerNorm(dim, eps=ln_eps)
-        self.mlp = _MLP(dim, dim * mlp_ratio, act)
-        # the reference's gate: opt-in, throughput mode, shapes the kernel takes
-        self.fused_mlp = (fused_mlp and precision != "highest"
+        self.mlp = _MLP(dim, dim * mlp_ratio, act, w8a8=w8a8, w8a8_static=w8a8_static)
+        # the reference's gate: opt-in, throughput mode, shapes the kernel
+        # takes; a W8A8 block returns before it
+        self.fused_mlp = (fused_mlp and not w8a8 and precision != "highest"
                           and supports_fused_ln_mlp(dim, dim * mlp_ratio, act))
 
     def _fused_mlp_half(self, x: torch.Tensor) -> torch.Tensor:
@@ -311,13 +398,15 @@ class Transformer(nn.Module):
     def __init__(self, num_layers: int, dim: int, num_heads: int, mlp_ratio: int,
                  precision: str = "default", fused_attn: bool = True,
                  remat: bool = False, act: str = "quick_gelu",
-                 ln_eps: float = 1e-5, fused_mlp: bool = False) -> None:
+                 ln_eps: float = 1e-5, fused_mlp: bool = False, w8a8: bool = False,
+                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
         super().__init__()
         _refuse(remat=remat)
         self.layers = nn.ModuleList(
             TransformerBlock(dim, num_heads, mlp_ratio, precision, act=act,
                              ln_eps=ln_eps, fused_attn=fused_attn,
-                             fused_mlp=fused_mlp)
+                             fused_mlp=fused_mlp, w8a8=w8a8,
+                             w8a8_static=w8a8_static, int8_attn=int8_attn)
             for _ in range(num_layers)
         )
 
@@ -371,14 +460,16 @@ class CLIPVisionTower(nn.Module):
     (post-LN, before ``visual_projection``)."""
 
     def __init__(self, cfg: CLIPVisionConfig, precision: str = "default",
-                 fused_attn: bool = True, fused_mlp: bool = False) -> None:
+                 fused_attn: bool = True, fused_mlp: bool = False, w8a8: bool = False,
+                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = _VisionEmbeddings(cfg)
         self.pre_layrnorm = LayerNorm(cfg.hidden_size, eps=1e-5)  # HF's spelling
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                    cfg.mlp_ratio, precision, fused_attn,
-                                   fused_mlp=fused_mlp)
+                                   fused_mlp=fused_mlp, w8a8=w8a8,
+                                   w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.post_layernorm = LayerNorm(cfg.hidden_size, eps=1e-5)
 
     def forward(self, pixels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -403,13 +494,15 @@ class CLIPTextTower(nn.Module):
     transformer, final LN, before ``text_projection``)."""
 
     def __init__(self, cfg: CLIPTextConfig, precision: str = "default",
-                 fused_attn: bool = True, fused_mlp: bool = False) -> None:
+                 fused_attn: bool = True, fused_mlp: bool = False, w8a8: bool = False,
+                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = _TextEmbeddings(cfg)
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                    cfg.mlp_ratio, precision, fused_attn,
-                                   fused_mlp=fused_mlp)
+                                   fused_mlp=fused_mlp, w8a8=w8a8,
+                                   w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5)
 
     def forward(self, token_ids: torch.Tensor, dtype: torch.dtype,
@@ -437,17 +530,21 @@ class CLIPModel(nn.Module):
                  remat: bool = False, w8a8: bool = False, w8a8_static: bool = False,
                  int8_attn: bool = False, fused_mlp: bool = False) -> None:
         super().__init__()
-        _refuse(remat=remat, w8a8=w8a8 or w8a8_static, int8_attn=int8_attn)
+        _refuse(remat=remat)
         if precision not in ("default", "highest"):
             raise ValueError(f"precision must be 'default' or 'highest', got {precision!r}")
         self.config = config
         self.dtype = dtype
         self.precision = precision
         self.fused_mlp = fused_mlp
+        self.w8a8 = w8a8
+        self.w8a8_static = w8a8_static
+        self.int8_attn = int8_attn
+        flags = dict(w8a8=w8a8, w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.vision_model = CLIPVisionTower(config.vision, precision, fused_attn,
-                                            fused_mlp)
+                                            fused_mlp, **flags)
         self.text_model = CLIPTextTower(config.text, precision, fused_attn,
-                                        fused_mlp)
+                                        fused_mlp, **flags)
         self.visual_projection = Dense(config.vision.hidden_size,
                                        config.vision.projection_dim, bias=False)
         self.text_projection = Dense(config.text.hidden_size,

@@ -39,8 +39,11 @@ Dispatch, by where the tensors live:
   the card would be a fallback, so the port has one phase 1.
   ``use_pallas=False`` on a CUDA tensor raises.
 
-``w8a8_dense`` (the int8 tower layers) is not here: it comes with the W8A8
-change.
+``w8a8_dense`` is the dense layer of the W8A8 towers (``models.clip``):
+int8 activations times int8 per-output-channel weights, accumulated in
+int32 by ``torch._int_mm`` (a library product, as the JAX package leaves
+its int8 ``dot_general`` to XLA: no Pallas kernel to port), then
+dequantized. Quant and dequant are plain torch operations.
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ __all__ = [
     "int8_chunk_max_plain",
     "topk_search_int8",
     "int8_reference",
+    "quantize_weight_int8",
+    "w8a8_dense",
 ]
 
 # queries one B2 launch scores; larger batches sweep the rows again
@@ -91,6 +96,78 @@ def symmetric_int8(x: torch.Tensor, dim: int, eps: float = 1e-12):
     scale = amax / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_weight_int8(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``nn.Linear`` weight ``(out, in)`` -> (int8 ``(out, in)``, f32 ``(out,)``
+    per-output-channel scales), quantized from the f32 parameter. The JAX
+    kernel is ``(in, out)`` and takes its scale along axis 0: the same
+    maxima, the same bits."""
+    w8, w_scale = symmetric_int8(weight.detach().float(), dim=1)
+    return w8, w_scale[:, 0]
+
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _int_mm(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """``x8 (M, K) . w8 (N, K)^T`` in int32 through ``torch._int_mm``. Its
+    CUDA route takes M > 16 and K, N multiples of 8: other shapes are padded
+    with zero rows and columns (which add nothing to an integer sum) and the
+    result is sliced. Every dot product is exact: at most 4096 * 127^2 <
+    2^31 at the towers' widths."""
+    m, k = x8.shape
+    n = w8.shape[0]
+    mp, kp, np_ = max(m, 17), _ceil8(k), _ceil8(n)
+    if (mp, kp) != (m, k):
+        x8 = torch.nn.functional.pad(x8, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        w8 = torch.nn.functional.pad(w8, (0, kp - k, 0, np_ - n))
+    acc = torch._int_mm(x8.contiguous(), w8.t())
+    w8a8_dense.calls += 1
+    return acc[:m, :n]
+
+
+def w8a8_dense(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    out_dtype: torch.dtype | None = None,
+    a_scale: torch.Tensor | float | None = None,
+    qweight: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Dense layer in int8 (the JAX ``w8a8_dense``): activation quant x
+    per-output-channel weight quant -> int32 accumulate -> dequant.
+
+    ``x`` (..., in); ``weight`` the f32 ``(out, in)`` parameter, quantized
+    here unless ``qweight`` gives its :func:`quantize_weight_int8` (the
+    towers cache it per parameter version). ``a_scale`` None: dynamic
+    per-token scales (:func:`symmetric_int8` over the features); else the
+    calibrated static scale (``models.calibrate``), clamped to at least
+    1e-12, out-of-range activations saturating at +-127. The scale is moved
+    to ``x``'s device: CUDA divides by a CPU scalar as a multiply by its
+    reciprocal, which is not the CPU's quotient. The result is
+    ``((float)acc * x_scale) * w_scale + bias`` in f32, cast to
+    ``out_dtype`` (default ``x.dtype``), operation for operation the JAX
+    expression run eagerly. ``w8a8_dense.calls`` counts the ``_int_mm``
+    products."""
+    w8, w_scale = qweight if qweight is not None else quantize_weight_int8(weight)
+    lead = x.shape[:-1]
+    x_f = x.reshape(-1, x.shape[-1]).float()
+    if a_scale is None:
+        x8, x_scale = symmetric_int8(x_f, dim=-1)              # (M, 1)
+    else:
+        x_scale = torch.clamp(
+            torch.as_tensor(a_scale, dtype=torch.float32, device=x.device), min=1e-12)
+        x8 = torch.clamp(torch.round(x_f / x_scale), -127, 127).to(torch.int8)
+    out = _int_mm(x8, w8).float() * x_scale * w_scale
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype or x.dtype).reshape(*lead, w8.shape[0])
+
+
+w8a8_dense.calls = 0
 
 
 def quantize_rows_int8(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

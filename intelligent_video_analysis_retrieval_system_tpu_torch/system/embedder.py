@@ -9,8 +9,19 @@ kernel B3).
 
 - The model lives on an explicit ``torch.device``; asking for ``cuda``
   where CUDA is missing raises.
-- Parameters stay f32; activations run in bf16 (``compute_dtype``) or f32;
-  ``parity_mode`` forces f32 with the "highest" attention mode.
+- Parameters stay f32; activations run in bf16 (``compute_dtype``
+  ``bfloat16``, and ``float16``, which the reference also runs as bf16) or
+  f32; ``parity_mode`` forces f32 with the "highest" attention mode.
+- ``compute_dtype="int8"``: W8A8 dense layers (``ops.quant.w8a8_dense``)
+  with bf16 everything else, the same weights. ``"int8_static"`` swaps the
+  per-token activation scales for calibrated constants: the first
+  ``_CAL_BATCHES`` batches of each tower run a dynamic twin of the model
+  (the same parameter tensors) while recording activation maxima, then the
+  tower's scales freeze (``models.calibrate``, margin ``_CAL_MARGIN``) and
+  the static path takes over. ``self_test`` never counts, ``calibrate()``
+  freezes early, ``export_act_scales`` / ``import_act_scales`` carry the
+  scales across restarts in the reference's JSON format, and
+  ``on_scales_frozen`` tells the facade to persist them.
 - Batches pad to the reference's buckets (8, 32, 128, 256), so the device
   sees the same shapes as the reference's compiled programs.
 - ``fused_mlp=True`` runs the MLP half of every transformer block through
@@ -18,13 +29,12 @@ kernel B3).
   such keyword (there only ``Transformer(fused_mlp=True)`` reaches the
   kernel); without one no entry point of the port would. It is off by
   default and is no ``Config`` key.
-
-Not ported yet: the W8A8 modes ``int8`` / ``int8_static`` and their
-activation-scale calibration (a later change).
 """
 
 from __future__ import annotations
 
+import functools
+import json
 import threading
 import time
 from pathlib import Path
@@ -39,7 +49,17 @@ from ..utils.logging import Logger
 __all__ = ["CLIPEmbedder"]
 
 _BATCH_BUCKETS = (8, 32, 128, 256)
-_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# activation dtype per mode: the reference runs everything but float32 in bf16
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "float16": torch.bfloat16, "int8": torch.bfloat16,
+                   "int8_static": torch.bfloat16}
+
+# int8_static mode: batches observed through the dynamic path (accumulating
+# activation maxima) before scales freeze and the static path takes over
+_CAL_BATCHES = 4
+# clipping headroom over the observed calibration maxima
+_CAL_MARGIN = 1.1
+_SCALES_FORMAT = "ivars-act-scales-v1"
 
 
 def _bucket(n: int) -> int:
@@ -47,6 +67,15 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return -(-n // _BATCH_BUCKETS[-1]) * _BATCH_BUCKETS[-1]
+
+
+def _flatten_scale_tree(tree: Any, prefix: tuple = ()):
+    """Yield (keypath, scalar) pairs from a nested act-scales dict."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten_scale_tree(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val).item()
 
 
 def _normalized_f32(out: torch.Tensor) -> np.ndarray:
@@ -68,10 +97,6 @@ class CLIPEmbedder:
         device: torch.device | str = "cuda",
         fused_mlp: bool = False,
     ) -> None:
-        if compute_dtype in ("int8", "int8_static"):
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r} (W8A8 towers) is ported in "
-                "a later change")
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.model_path = model_path
@@ -90,17 +115,33 @@ class CLIPEmbedder:
         self.tokenizer = None
         self.load_time_s: float | None = None
         self.using_pretrained = False
+        # int8_static calibration state per tower: the accumulated maxima
+        # (host trees), the batches seen, and the frozen scale trees
+        self._cal_stats: dict[str, Any] = {"vision": None, "text": None}
+        self._cal_seen: dict[str, int] = {"vision": 0, "text": 0}
+        self._act_scales: dict[str, Any] = {}
+        self._installed: dict[str, Any] = {}   # tower -> tree set on the model
+        self._cal_paused = False  # self_test runs excluded from calibration
+        # called whenever a tower's scales freeze (the facade persists them)
+        self.on_scales_frozen: Callable[[], Any] | None = None
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _build_model(self, config: Any, state_dict: Mapping[str, torch.Tensor]):
+    def _build_model(self, config: Any, state_dict: Mapping[str, torch.Tensor],
+                     w8a8_static: bool | None = None):
+        """The model of this mode over ``state_dict``'s tensors (moved to the
+        device; tensors already there are taken as they are, so a twin
+        built from another model's state dict shares its parameters)."""
         from ..models.convert import empty_model
 
+        w8a8 = self.compute_dtype in ("int8", "int8_static")
         model = empty_model(
             config, "meta",
             dtype=_COMPUTE_DTYPES[self.compute_dtype],
             precision="highest" if self.parity_mode else "default",
-            fused_mlp=self.fused_mlp,
+            fused_mlp=self.fused_mlp, w8a8=w8a8,
+            w8a8_static=(self.compute_dtype == "int8_static"
+                         if w8a8_static is None else w8a8_static),
         )
         sd = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
               for k, v in state_dict.items()}
@@ -136,10 +177,16 @@ class CLIPEmbedder:
 
     def self_test(self) -> bool:
         """One text and one all-black image through the towers at load;
-        raises on a wrong shape or a non-finite embedding."""
-        txt = self.encode_text(["self test"])
-        s = self.config.vision.image_size
-        img = self.encode_images(np.zeros((1, s, s, 3), np.uint8))
+        raises on a wrong shape or a non-finite embedding. The dummy inputs
+        never count as int8_static calibration batches: their maxima are
+        not representative."""
+        self._cal_paused = True
+        try:
+            txt = self.encode_text(["self test"])
+            s = self.config.vision.image_size
+            img = self.encode_images(np.zeros((1, s, s, 3), np.uint8))
+        finally:
+            self._cal_paused = False
         ok = (
             txt.shape == (1, self.config.text.projection_dim)
             and img.shape == (1, self.config.vision.projection_dim)
@@ -162,6 +209,12 @@ class CLIPEmbedder:
             if config is not None:
                 self.config = config
             self.model = self._build_model(self.config, state_dict)
+            self.__dict__.pop("_dynamic_model", None)
+            # new weights invalidate calibrated activation ranges
+            self._cal_stats = {"vision": None, "text": None}
+            self._cal_seen = {"vision": 0, "text": 0}
+            self._act_scales = {}
+            self._installed = {}
             self.using_pretrained = True
         self.self_test()
 
@@ -174,6 +227,130 @@ class CLIPEmbedder:
     def input_size(self) -> int:
         self.ensure_loaded()
         return self.config.vision.image_size
+
+    # -- int8_static calibration ---------------------------------------------
+
+    @functools.cached_property
+    def _dynamic_model(self):
+        """Dynamic-scale twin for calibration passes, over the same
+        parameter tensors as ``self.model``."""
+        return self._build_model(self.config, self.model.state_dict(), w8a8_static=False)
+
+    def _static_ready(self, tower: str) -> bool:
+        return self.compute_dtype == "int8_static" and tower in self._act_scales
+
+    def _tower_model(self, tower: str):
+        """(the model to run a batch of ``tower`` on, whether it records
+        calibration maxima)."""
+        from ..models.calibrate import set_act_scales
+
+        if self.compute_dtype != "int8_static":
+            return self.model, False
+        if not self._static_ready(tower):
+            return self._dynamic_model, True
+        tree = self._act_scales[tower]
+        if self._installed.get(tower) is not tree:
+            set_act_scales(self.model, {tower: tree})
+            self._installed[tower] = tree
+        return self.model, False
+
+    def _encode(self, tower: str, fn: Callable[[Any], torch.Tensor]) -> np.ndarray:
+        """``fn(model)`` on the model this tower's mode runs, recording and
+        accumulating calibration maxima while the tower calibrates."""
+        from ..models.calibrate import record_act_stats
+
+        model, calibrating = self._tower_model(tower)
+        if calibrating:
+            # one calibration pass at a time: the twin's layers record into
+            # state of their own, and another thread may freeze the tower
+            with self._lock:
+                model, calibrating = self._tower_model(tower)
+                if calibrating:
+                    with torch.inference_mode(), record_act_stats(model) as stats:
+                        out = _normalized_f32(fn(model))
+                    self._accumulate_cal(tower, stats[tower])
+                    return out
+        with torch.inference_mode():
+            return _normalized_f32(fn(model))
+
+    def _accumulate_cal(self, tower: str, stats_tree: Any) -> None:
+        """Merge one calibration batch's maxima; freeze the tower's scales
+        after _CAL_BATCHES batches."""
+        from ..models.calibrate import merge_act_stats
+
+        if self._cal_paused:
+            return
+        self._cal_stats[tower] = merge_act_stats(self._cal_stats[tower], stats_tree)
+        self._cal_seen[tower] += 1
+        if self._cal_seen[tower] >= _CAL_BATCHES:
+            self._freeze_scales(tower)
+
+    def _freeze_scales(self, tower: str) -> None:
+        from ..models.calibrate import act_stats_to_scales
+
+        if self._cal_stats[tower] is None:
+            return
+        self._act_scales[tower] = act_stats_to_scales(
+            self._cal_stats[tower], margin=_CAL_MARGIN)["act_scales"]
+        if self.logger:
+            self.logger.info(
+                f"int8_static: froze {tower} activation scales after "
+                f"{self._cal_seen[tower]} calibration batches")
+        if self.on_scales_frozen is not None:
+            try:
+                self.on_scales_frozen()
+            except Exception:  # persistence must never break encoding
+                if self.logger:
+                    self.logger.exception("act-scales persistence failed")
+
+    def calibrate(self) -> None:
+        """Freeze int8_static scales now from whatever has been observed
+        (otherwise they freeze after _CAL_BATCHES batches per tower)."""
+        for tower in ("vision", "text"):
+            if self._cal_seen[tower] > 0 and tower not in self._act_scales:
+                self._freeze_scales(tower)
+
+    def export_act_scales(self, path: str | Path) -> bool:
+        """Persist the frozen int8_static scales as JSON (written to
+        ``<path>.tmp``, then moved into place) so a restarted server starts
+        static at once. Returns False if nothing is frozen yet."""
+        if not self._act_scales:
+            return False
+        flat = {
+            tower: {"/".join(str(k) for k in keypath): float(leaf)
+                    for keypath, leaf in _flatten_scale_tree(tree)}
+            for tower, tree in self._act_scales.items()
+        }
+        payload = {"format": _SCALES_FORMAT, "towers": flat}
+        tmp = Path(str(path) + ".tmp")
+        tmp.write_text(json.dumps(payload, indent=1, sort_keys=True))
+        tmp.replace(path)
+        return True
+
+    def import_act_scales(self, path: str | Path) -> bool:
+        """Load scales written by :meth:`export_act_scales` (of this package
+        or the JAX one); the towers it holds start static at once. Returns
+        False when the file is missing (calibrate lazily as usual)."""
+        path = Path(path)
+        if not path.is_file():
+            return False
+        payload = json.loads(path.read_text())
+        if payload.get("format") != _SCALES_FORMAT:
+            raise ValueError(f"{path}: not an act-scales file")
+        for tower, flat in payload["towers"].items():
+            tree: dict[str, Any] = {}
+            for joined, value in flat.items():
+                node = tree
+                parts = joined.split("/")
+                for part in parts[:-1]:
+                    node = node.setdefault(part, {})
+                node[parts[-1]] = np.float32(value)
+            self._act_scales[tower] = tree
+        if self.logger:
+            self.logger.info(
+                f"int8_static: imported frozen activation scales for "
+                f"{sorted(payload['towers'])} from {path}")
+        return True
 
     # -- text ---------------------------------------------------------------
 
@@ -193,12 +370,9 @@ class CLIPEmbedder:
             pad_tok[:, 1] = self.tokenizer.eot_id
             tokens = np.concatenate([tokens, pad_tok])
             eot = np.concatenate([eot, np.ones(b_pad - b, eot.dtype)])
-        with torch.inference_mode():
-            out = self.model.encode_text(
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(eot).to(self.device),
-            )
-            result = _normalized_f32(out)[:b]
+        tok_d = torch.from_numpy(tokens).to(self.device)
+        eot_d = torch.from_numpy(eot).to(self.device)
+        result = self._encode("text", lambda m: m.encode_text(tok_d, eot_d))[:b]
         if self.logger:
             self.logger.log_performance(
                 "clip_text_encoding", time.perf_counter() - t0, batch=b)
@@ -240,7 +414,7 @@ class CLIPEmbedder:
                     px = normalize_images(px, dtype=dtype)
                 else:
                     px = preprocess_images(px, image_size=s, dtype=dtype)
-                outs.append(_normalized_f32(self.model.encode_image(px))[:b])
+            outs.append(self._encode("vision", lambda m: m.encode_image(px))[:b])
         result = np.concatenate(outs)
         if self.logger:
             self.logger.log_performance(
@@ -298,6 +472,7 @@ class CLIPEmbedder:
             "device": str(self.device),
             "fused_mlp": self.fused_mlp,
             "embed_dim": self.config.vision.projection_dim if self._loaded else None,
+            "act_scales_calibrated": sorted(self._act_scales.keys()),
             # "clip_bpe" or "hash_fallback": degraded text semantics must
             # show in health checks
             "tokenizer": self.tokenizer.kind if self._loaded else None,

@@ -13,7 +13,11 @@ arrays and image files, ``export_portable_index`` / ``load_portable_index``,
 types are the reference's names: ``flat``/``exact``/``IndexFlatIP``/
 ``IndexFlatL2`` serve the exact sweep, ``ivf``/``ann``/``IndexIVFFlat``/
 ``IndexHNSW``/``IndexLSH`` the IVF approximate mode, self-tuned to ``index.ann_target_recall`` after every
-build and load.
+build and load. With ``device.compute_dtype = "int8_static"`` the calibrated
+activation scales persist beside the index as ``<index>.act_scales.json``:
+a build removes a stale file and writes the scales as they freeze; a load
+(``load_system``, or ``attach_index`` of an index that has a path) imports
+them, so the towers start static at once.
 
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
@@ -193,6 +197,7 @@ class EnhancedRetrievalSystem:
                 raise RuntimeError(f"post-build inconsistency: {consistency.errors}")
             # step 6: finalize
             self.is_built = True
+            self._wire_act_scale_persistence(output_path, import_existing=False)
             self._maybe_tune_ann()
             self._emit("build_progress", stage="done", done=6, total=6)
             self.logger.info("build complete", **report.as_dict())
@@ -221,6 +226,7 @@ class EnhancedRetrievalSystem:
             index = UnifiedIndex(self._index_config(), device=self.device)
             index.load_unified_index(index_path, mode="a" if writable else "r")
             self._adopt_index(index)
+            self._wire_act_scale_persistence(index_path, import_existing=True)
             self._maybe_tune_ann()
 
     def _maybe_tune_ann(self) -> None:
@@ -240,10 +246,43 @@ class EnhancedRetrievalSystem:
 
     def attach_index(self, index: UnifiedIndex) -> None:
         """Serve an index the caller opened (e.g. over
-        ``UnifiedIndex.attach_container``)."""
+        ``UnifiedIndex.attach_container``). An index with a path is a load:
+        with int8_static its scales file beside it is read, as
+        ``load_system`` reads it."""
         if index.device != self.device:
             raise ValueError(f"index on {index.device}, system on {self.device}")
         self._adopt_index(index)
+        if index.path is not None:
+            self._wire_act_scale_persistence(index.path, import_existing=True)
+
+    def _wire_act_scale_persistence(self, index_path: str | Path,
+                                    import_existing: bool) -> None:
+        """int8_static: persist the calibrated activation scales next to the
+        index (``<index>.act_scales.json``) so that a restarted server starts
+        static at once instead of observing calibration batches again.
+
+        ``import_existing`` is True only on a load: a fresh build never
+        imports the previous build's file (its scales were calibrated for
+        another corpus or checkpoint and would override the ones just
+        observed); the stale file is removed instead."""
+        if getattr(self.embedder, "compute_dtype", None) != "int8_static":
+            return
+        scales_path = Path(f"{index_path}.act_scales.json")
+        if import_existing:
+            try:
+                if self.embedder.import_act_scales(scales_path):
+                    self.logger.info("int8_static scales loaded", path=str(scales_path))
+            except Exception:
+                self.logger.exception("act-scales import failed — recalibrating")
+        else:
+            scales_path.unlink(missing_ok=True)
+        self.embedder.on_scales_frozen = (
+            lambda: self.embedder.export_act_scales(scales_path))
+        # towers may have frozen before the wiring (during the build's own
+        # encode batches): export what exists now, or a build that exits
+        # right after persists nothing
+        if self.embedder.export_act_scales(scales_path):
+            self.logger.info("int8_static scales saved", path=str(scales_path))
 
     def _adopt_index(self, index: UnifiedIndex) -> None:
         with self._lock:

@@ -1,7 +1,7 @@
 """SystemHealthMonitor: per-component checks + recovery recommendations.
 
 Copy of ``intelligent_video_analysis_retrieval_system_tpu/system/health.py``
-adapted to the port's facade (no W8A8 calibration state to report).
+for the port's facade, the int8_static calibration warning included.
 
 Parity with the reference ``SystemHealthMonitor`` (``system.py:95-401``):
 component checks for config / index / metadata / embedder / cache /
@@ -67,6 +67,15 @@ class SystemHealthMonitor:
             warnings.append(
                 "hash-fallback tokenizer active (no CLIP vocab files "
                 "found) — text embeddings do not match real CLIP semantics"
+            )
+        if (
+            stats.get("compute_dtype") == "int8_static"
+            and stats.get("act_scales_calibrated") != ["text", "vision"]
+        ):
+            warnings.append(
+                "int8_static activation scales still calibrating "
+                f"(frozen: {stats.get('act_scales_calibrated')}) — encodes "
+                "run the dynamic path until enough batches are observed"
             )
         if warnings:
             return {"status": "warning", "detail": "; ".join(warnings)}

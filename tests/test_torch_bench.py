@@ -1,8 +1,13 @@
 """The port's bench entry point on the CPU, at a small size.
 
 - ``bench`` with ``--device cpu --rows 20000 --skip-10m`` and narrow towers
-  prints one JSON line with the JAX bench's key names and
+  prints one JSON line with the JAX bench's key names (the W8A8-static
+  image tower's ``image_tower_fps_int8_static`` among them) and
   ``extra.not_ported``.
+- The W8A8-static image tower's scales equal JAX ``calibrate_act_scales``
+  on the same weights and batch within rtol 2e-2 (maxima of bf16
+  activations, which the two frameworks round at different places), and
+  its ``verify_static`` hook gets the timed model with those scales.
 - The headline section's answers equal the JAX ``topk_search`` on the same
   rows and the same query vectors (tie-aware, atol 5e-4: bf16 rows, sums in
   another order).
@@ -66,10 +71,12 @@ def test_bench_prints_one_json_line_with_the_jax_key_names(narrow_towers, capsys
     extra = result["extra"]
     assert list(extra)[0] == "gpu" and extra["gpu"] is None and extra["device"] == "cpu"
     assert list(extra)[-1] == "not_ported"
-    assert extra["not_ported"] == ["sharded_1M", "anchor_1M25", "image_tower_fps_int8_static"]
+    assert extra["not_ported"] == ["sharded_1M", "anchor_1M25"]
     assert extra["tokenizer_kind"] == "hash_fallback"
     assert extra["image_tower"] == "ViT-B/32" and extra["image_tower_fps"] > 0
     assert extra["image_tower_batch"] == 8
+    assert extra["image_tower_fps_int8_static"] > 0
+    assert extra["image_tower_int8_static_ms_per_batch"] > 0
     for key in ("facade_search_p50_ms", "facade_search_p95_ms", "search_batch_b32_ms"):
         assert extra[key] > 0
     assert extra["headline_device_p50_ms"] is None        # no device time on the CPU
@@ -104,6 +111,39 @@ def test_headline_answers_equal_jax_topk_search(narrow_towers):
     for i in range(100):
         tie_aware_equal(result.indices[i].numpy(), result.scores[i].numpy(), jids[i],
                         jscores[i])
+
+
+def test_image_tower_int8_static_matches_jax_calibration(narrow_towers):
+    from intelligent_video_analysis_retrieval_system_tpu.models import calibrate as jcal
+    from intelligent_video_analysis_retrieval_system_tpu.models import clip as jclip
+    from intelligent_video_analysis_retrieval_system_tpu.models.convert import (
+        convert_hf_clip_params,
+    )
+
+    seen = []
+    out = headline.image_tower(CPU, False, verify_static=lambda *a: seen.append(a))
+    assert out["image_tower_fps_int8_static"] > 0 and out["image_tower_int8_static_ms_per_batch"] > 0
+    ((model, scales, pixels, emb),) = seen
+    assert model.w8a8_static and pixels.shape == (8, 32, 32, 3) and emb.shape == (8, 32)
+    assert list(scales) == ["vision"]
+    # the scales are installed on the timed model, and they are JAX's
+    # calibration of the same weights on the same batch (bf16 activations,
+    # rounded at other places by the two frameworks)
+    fc = model.vision_model.encoder.layers[1].mlp.fc1
+    assert fc.act_scale.item() == float(scales["vision"]["transformer"]["layer_1"]["mlp_fc_ascale"])
+    cfg = jclip.CLIPConfig.tiny_test()
+    params = convert_hf_clip_params({k: v.numpy() for k, v in model.state_dict().items()}, cfg)
+    want = jcal.calibrate_act_scales(
+        jclip.CLIPModel(cfg, dtype=jnp.bfloat16, w8a8=True), {"params": params},
+        [(jnp.asarray(pixels.float().numpy(), jnp.bfloat16),)],
+        method=jclip.CLIPModel.encode_image)["act_scales"]["vision"]
+    got = scales["vision"]
+    for i in range(cfg.vision.num_layers):
+        lw, lg = want["transformer"][f"layer_{i}"], got["transformer"][f"layer_{i}"]
+        pairs = [(lw["attn"][k], lg["attn"][k]) for k in lw["attn"]]
+        pairs += [(lw[k], lg[k]) for k in ("mlp_fc_ascale", "mlp_proj_ascale")]
+        for w, g in pairs:
+            np.testing.assert_allclose(float(g), float(w), rtol=2e-2)
 
 
 def test_int8_section_equals_jax_topk_search_int8_bit_for_bit(narrow_towers):

@@ -137,9 +137,15 @@ def test_contrastive_logits_match(jax_params, inputs):
 
 
 def test_unported_options_raise():
-    for flag in ("w8a8", "int8_attn", "remat"):
-        with pytest.raises(NotImplementedError):
-            tclip.CLIPModel(CFG_T, **{flag: True})
+    with pytest.raises(NotImplementedError):
+        tclip.CLIPModel(CFG_T, remat=True)
+    assert list(tclip._LATER) == ["remat"]
+    # ported (tests/test_torch_w8a8.py): the W8A8 layers and int8 attention
+    m = tclip.CLIPModel(CFG_T, w8a8=True, w8a8_static=True, int8_attn=True)
+    assert m.vision_model.encoder.layers[0].mlp.fc1.w8a8_static
+    assert m.text_model.encoder.layers[0].self_attn.int8_attn
+    # a W8A8 block never takes the fused LN+MLP half-block
+    assert not tclip.TransformerBlock(256, 4, 2, fused_mlp=True, w8a8=True).fused_mlp
     # fused_mlp is ported: taken where the gate passes, the unfused chain else
     assert tclip.TransformerBlock(256, 4, 2, fused_mlp=True).fused_mlp
     assert not tclip.TransformerBlock(64, 4, 4, fused_mlp=True).fused_mlp

@@ -44,6 +44,16 @@ B5) on the card against the same calls on the CPU: quality scores ``rtol``
 tower launches B3 once per layer and B5 once per batch and keeps cosine >=
 0.999 against the f32 tower on the CPU; ``FrameFilter.dedup_step`` keeps
 the CPU's frames.
+
+The W8A8 towers (``torch._int_mm`` products, torch operations around B3 and
+B5): ``w8a8_dense`` on the card ``torch.equal`` to the CPU at the towers'
+shapes and at shapes its CUDA route refuses (padded), dynamic and static;
+int8 attention at (8, 257, 1024, 16 heads) against the CPU with TF32 asked
+for: cosine >= 0.9999 on the same q, k, v (exact integer products, so only
+the softmax's last bits differ), >= 0.999 for the layer (its bf16
+projections round apart, and p8's fixed 1/127 step amplifies that); a W8A8-static tower calibrated on the card against the same on
+the CPU (cosine >= 0.999, six products a layer, B3 once a layer unless
+``int8_attn``); the ``int8_static`` embedder freezing after four batches.
 """
 
 import pytest
@@ -1061,3 +1071,129 @@ def test_64_concurrent_served_searches_equal_their_serial_answers(cuda_device, t
     finally:
         recorder.close()
         system.cleanup()
+
+
+# ---------------------------------------------------------------------------
+# W8A8 towers: torch._int_mm products and torch operations around B3 and B5
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2056, 1024, 1024), (2056, 1024, 4096), (2056, 4096, 1024),
+                                   (616, 768, 3072), (77, 3072, 768), (16, 64, 64),
+                                   (5, 45, 37), (1, 8, 8)])
+def test_w8a8_dense_on_card_equals_cpu(cuda_device, shape, dtype, static):
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m * 7 + k + n)
+    x = (torch.randn(m, k, generator=gen) * 2).to(dtype)
+    w = torch.randn(n, k, generator=gen) * k ** -0.5
+    b = torch.randn(n, generator=gen)
+    a = torch.tensor(0.7 * float(x.float().abs().max()) / 127.0) if static else None
+    want = tq.w8a8_dense(x, w, b, a_scale=a)
+    calls = tq.w8a8_dense.calls
+    got = tq.w8a8_dense(x.to(cuda_device), w.to(cuda_device), b.to(cuda_device), a_scale=a)
+    torch.cuda.synchronize()
+    assert tq.w8a8_dense.calls == calls + 1 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_attention_on_card_matches_cpu(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import clip as tclip
+
+    mha = tclip.MultiHeadAttention(1024, 16, int8_attn=True)
+    gen = torch.Generator().manual_seed(3)
+    for p in mha.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen) * 1024 ** -0.5)
+    x = torch.randn(8, 257, 1024, generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        qkv = [proj(x) for proj in (mha.q_proj, mha.k_proj, mha.v_proj)]
+        want_core = mha._int8_attention(*qkv).float()
+        want = mha(x).float()
+    mha = mha.to(cuda_device)
+    before = tatt.fused_mha.launches
+    # TF32 asked for: the int8 products run in full f32 all the same and
+    # leave the setting as they found it
+    torch.set_float32_matmul_precision("high")
+    try:
+        with torch.inference_mode():
+            core = mha._int8_attention(*(t.to(cuda_device) for t in qkv)).float().cpu()
+            got = mha(x.to(cuda_device)).float().cpu()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert tatt.fused_mha.launches == before                 # not B3
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a.reshape(-1, 1024),
+                                                     b.reshape(-1, 1024)).min()
+
+    # on the same q, k, v only the softmax's last bits differ
+    assert cos(core, want_core) >= 0.9999
+    # the bf16 projections round apart, and near-uniform weights over 257
+    # keys sit at 0.49 of p8's 1/127 step: a last bit can move p8 by one
+    assert cos(got, want) >= 0.999
+
+
+@pytest.mark.parametrize("int8_attn", [False, True])
+def test_w8a8_static_tower_on_card(cuda_device, int8_attn):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import calibrate as tcal
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import clip as tclip
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import convert as tconv
+
+    cfg = tclip.CLIPConfig(
+        vision=tclip.CLIPVisionConfig(image_size=64, patch_size=8, hidden_size=256,
+                                      num_layers=3, num_heads=4, projection_dim=64),
+        text=tclip.CLIPTextConfig(vocab_size=512, max_length=16, hidden_size=64,
+                                  num_layers=1, num_heads=4, projection_dim=64))
+    _, sd = tconv.load_clip(None, config=cfg)
+    flags = dict(dtype=torch.bfloat16, w8a8=True, int8_attn=int8_attn)
+    models = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        dyn = tconv.empty_model(cfg, dev, **flags)
+        dyn.load_state_dict(sd)
+        static = tconv.empty_model(cfg, dev, w8a8_static=True, **flags)
+        static.load_state_dict(sd)
+        models[dev.type] = (dyn.eval(), static.eval())
+    px = torch.randn(8, 64, 64, 3, generator=torch.Generator().manual_seed(5)).bfloat16()
+    scales = tcal.calibrate_act_scales(models["cuda"][0], [(px.to(cuda_device),)])["act_scales"]
+    cpu_scales = tcal.calibrate_act_scales(models["cpu"][0], [(px,)])["act_scales"]
+    for _, static in models.values():
+        tcal.set_act_scales(static, scales)
+    before = (tq.w8a8_dense.calls, tatt.fused_mha.launches)
+    with torch.inference_mode():
+        got = models["cuda"][1].encode_image(px.to(cuda_device)).float().cpu()
+        want = models["cpu"][1].encode_image(px).float()
+    assert (tq.w8a8_dense.calls - before[0], tatt.fused_mha.launches - before[1]) == \
+        (2 * 6 * 3, 0 if int8_attn else 3)      # the CPU's 6 a layer too; B3 on the card only
+    cos = torch.nn.functional.cosine_similarity(got, want)
+    assert cos.min() >= 0.999
+    for key in ("mlp_fc_ascale", "mlp_proj_ascale"):
+        a = scales["vision"]["transformer"]["layer_2"][key]
+        c = cpu_scales["vision"]["transformer"]["layer_2"][key]
+        assert abs(float(a) / float(c) - 1) < 2e-2
+
+
+def test_embedder_int8_static_on_card(cuda_device):
+    import numpy as np
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        CLIPEmbedder,
+    )
+
+    emb = CLIPEmbedder(config=CLIPConfig.tiny_test(), compute_dtype="int8_static",
+                       device=cuda_device)
+    emb.ensure_loaded()
+    assert emb.get_stats()["act_scales_calibrated"] == []
+    rng = np.random.default_rng(6)
+    for i in range(4):
+        before = tpre.normalize_images.launches
+        emb.encode_images(rng.integers(0, 256, (5, 32, 32, 3), dtype=np.uint8))
+        assert tpre.normalize_images.launches == before + 1
+        emb.encode_text([f"query {i}"])
+    assert emb.get_stats()["act_scales_calibrated"] == ["text", "vision"]
+    calls = tq.w8a8_dense.calls
+    out = emb.encode_text(["a static query", "another"])
+    assert tq.w8a8_dense.calls - calls == 6 * 2 and np.isfinite(out).all()
+    assert emb.model.text_model.encoder.layers[0].self_attn.q_proj.act_scale.device.type == "cuda"

@@ -456,10 +456,12 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
 def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
     for call in (lambda: system.enable_llm(),
-                 lambda: CLIPEmbedder(compute_dtype="int8", device="cpu"),
                  lambda: EnhancedRetrievalSystem(device="cpu", mesh=object())):
         with pytest.raises(NotImplementedError):
             call()
+    # ported: the W8A8 tower modes (tests/test_torch_w8a8.py)
+    for mode in ("int8", "int8_static"):
+        assert CLIPEmbedder(compute_dtype=mode, device="cpu").compute_dtype == mode
     # ported: index_videos (tests/test_torch_ingest.py), start_server
     # (tests/test_torch_rest.py); chat answers a greeting; the IVF index types
     # configure the ANN mode
@@ -643,7 +645,9 @@ def test_cli_build_then_search(tmp_path, monkeypatch, capsys):
                      "--json"]) == 0
     hits = json.loads(capsys.readouterr().out)
     assert len(hits) == 3 and hits[0]["rank"] == 1 and hits[0]["folder"].startswith("video_")
-    with pytest.raises(NotImplementedError):
-        cli.main(["build", str(keyframes), "--output", str(tmp_path / "w.rvdb"),
-                  "--compute-dtype", "int8", "--device", "cpu"])
+    # the W8A8 tower mode builds (int8_static: tests/test_torch_w8a8.py)
+    assert cli.main(["build", str(keyframes), "--output", str(tmp_path / "w.rvdb"),
+                     "--map-dir", str(map_dir), "--compute-dtype", "int8",
+                     "--device", "cpu"]) == 0
+    assert "indexed 13 images" in capsys.readouterr().out
     assert cli._build_parser().parse_args(["build", "k"]).device == "cuda"
