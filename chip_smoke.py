@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build, W8A8 and ingest paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build, W8A8, ingest and multi-device search paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -140,7 +140,29 @@ non-zero):
             ``index_videos`` over the two videos with the seeded ViT-L/14
             towers: every keyframe found first by its own image. Frames/s of
             each run.
-8. bench    the port's bench (``bench.main(["--probes"])``) in this process
+8. mesh     multi-device search (``parallel/``) on ``create_mesh()`` (one
+            device) and on 4 logical shards of the card (``["cuda:0"] * 4``),
+            every shard a view of the phase's rows. Right after the int8 IVF
+            phase, over its 10,000,000 int8 rows (padded to split in 4):
+            ``sharded_topk_int8`` at B = 1 and 8 ``torch.equal`` to the
+            single-device ``topk_search_int8`` (tombstones, n_valid), B2
+            launches a call (shards x ceil(B_pad / 64)), B=1 p50/p95 beside
+            the single-device search's; ``sharded_ivf_topk`` on that phase's
+            structure partitioned over the 4 shards, nprobe 16 and 64, B = 1
+            and 8, ``torch.equal`` to ``ivf_topk``, p50 beside it. After the
+            open phase, ``create_system(mesh=create_mesh())`` over the
+            slice's 1,000,000 bf16 rows in a writable in-memory stand-in:
+            8 text requests (one B1 launch each) tie-aware equal to the exact
+            reference over the shard's rows, p50/p95 of 24 warm B=1 queries
+            beside phase 4's single-device facade; ``sharded_topk`` over the
+            same rows on both meshes (4 shards view a copy padded to split in
+            4), B = 1 and 8, against ``topk_search`` (one shard: the same
+            ids), B1 launches a call (= shards); a delete (the row gone, the
+            answer equal to the masked reference) and 8 rows appended in
+            place (each its own nearest neighbour). Each half sets B1's and
+            B2's counts to 0 first; the single-device references are not
+            counted.
+9. bench    the port's bench (``bench.main(["--probes"])``) in this process
             at full size, with its three hooks: the headline text query over
             1,000,000 bf16 rows (every answer tie-aware equal to the exact
             f32 reference over the same rows), the ViT-B/32 image tower at
@@ -154,8 +176,13 @@ non-zero):
             the reference of the route its batch took, the scores rounded as
             the server rounds them), the W8A8-static image tower (the timed
             model's first 8 embeddings against the same weights and scales on
-            the CPU: cosine >= 0.999); its JSON line is printed as it is.
-9. probes   inside the same bench run, what its probes (``bench/probes.py``)
+            the CPU: cosine >= 0.999), the sharded sections on a one-device
+            mesh (``sharded_1M`` over the headline's rows, the anchor's
+            1,250,000-row shard in bf16 and int8, the sharded IVF at nprobe
+            32 over the IVF section's structure: every timed answer against
+            the same references), ``not_ported`` empty; its JSON line is
+            printed as it is.
+10. probes  inside the same bench run, what its probes (``bench/probes.py``)
             returned, held against their plain versions on the same inputs:
             P1 (int8 tensor-core sweep) and P2 (rows widened to bf16) over
             2,097,152 x 768 int8 rows with 2,000,000 live, at 128, 256 and
@@ -167,12 +194,12 @@ non-zero):
             versions' and the library calls', and the stream rate is set
             beside the published 3.35 TB/s. The hook's launches are taken off
             the counts.
-10. open    the int8 facade over the 1,000,000 rows opened twice from a
+11. open    the int8 facade over the 1,000,000 rows opened twice from a
             stand-in container that has a path: record by record (which
             writes the ``.meta.npz`` and ``.flat8`` sidecars), then through
             the sidecars (columnar metadata); seconds of each, the same hits
             from both.
-11. ann     the IVF mode through the facade: ``index_type="IndexIVFFlat"``
+12. ann     the IVF mode through the facade: ``index_type="IndexIVFFlat"``
             over 1,000,000 x 768 bf16 rows around 4,096 seeded centres (the
             slice's rows as noise) in a writable in-memory stand-in; nlist
             4,096, bucket_cap 384; asserts ``ann_active``, builds again
@@ -187,7 +214,7 @@ non-zero):
             never returned; ``measure_ann_crossover`` over B in {1, ..., 64};
             a reopen with a default config restores ``ann_active``, nprobe
             and ``ann_max_batch``. TF32 must be off.
-12. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
+13. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
             of both serving slices, images/s of the build, kernel vs plain
             vs library-call times (CUDA events) beside each kernel's bound.
 
@@ -197,7 +224,8 @@ slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
 bench (whose own B1, B2, B3 and B5 launches are printed beside them); B3 and
 B5 carry the ingest path's launches and their DINO shapes beside, and B1,
 B3 and B5 the serve phase's (``serve_launches``) and the int8_static
-facade's (``w8a8_launches``). The
+facade's (``w8a8_launches``), B1 and B2 the mesh phase's
+(``mesh_launches``). The
 IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -462,7 +490,9 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
 
     gen = torch.Generator(device=device).manual_seed(0)
-    n_pad = -(-n_rows // topk.TILE_N) * topk.TILE_N
+    # padded so that the rows also split into MESH_SHARDS shards of TILE_N
+    # multiples: the mesh phase's shards are views of these rows
+    n_pad = -(-n_rows // (topk.TILE_N * MESH_SHARDS)) * topk.TILE_N * MESH_SHARDS
     x_i8 = torch.zeros((n_pad, dim), dtype=torch.int8, device=device)
     xs = torch.zeros((n_pad,), dtype=torch.float32, device=device)
     t0 = time.perf_counter()
@@ -2926,7 +2956,319 @@ def profile_ingest(device, n_frames: int = INGEST_FRAMES, scenes: int = INGEST_S
 
 
 # ---------------------------------------------------------------------------
-# phases 8 and 9: the bench in this process, every answer and probe checked
+# phase 8: multi-device search (the mesh)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4   # logical shards on the one card: ["cuda:0"] * MESH_SHARDS
+
+
+def mesh_counters() -> dict:
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
+
+    return {"b1": topk.chunk_max_sweep, "b2": quant.int8_chunk_max_sweep}
+
+
+def uncounted(fn):
+    """``fn()`` with the kernels' launch counts left as they were: the
+    single-device references the mesh's answers are held against are not
+    the mesh's path."""
+    saved = {k: f.launches for k, f in mesh_counters().items()}
+    try:
+        return fn()
+    finally:
+        for k, f in mesh_counters().items():
+            f.launches = saved[k]
+
+
+def smoke_meshes(device) -> dict:
+    """``create_mesh()`` (every visible card: one here) and MESH_SHARDS
+    logical shards on the same device. A CPU rehearsal passes the CPU."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+    )
+
+    one = create_mesh() if device.type == "cuda" else create_mesh(devices=[device])
+    many = create_mesh(MeshSpec(axis_names=("index",), shape=(MESH_SHARDS,)),
+                       devices=[device] * MESH_SHARDS)
+    return {one.shape["index"]: one, MESH_SHARDS: many}
+
+
+def wall_p50_p95(fn, device, n: int = 20) -> tuple[float, float]:
+    """p50/p95 wall milliseconds of ``fn``, each call ended by a
+    synchronize, after one warm call."""
+    import torch
+
+    def call():
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    call()
+    wall = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(wall, 50)), float(np.percentile(wall, 95))
+
+
+def run_mesh_int8(device, rows: dict, require_kernels: bool, k: int = 20) -> dict:
+    """Phase 8, int8 half: ``sharded_topk_int8`` over the int8 kernel phase's
+    rows (shards are views of them) on the one-device mesh and on
+    MESH_SHARDS logical shards, B = 1 and 8, ``torch.equal`` to the
+    single-device ``topk_search_int8`` (ids and scores); B2 launches per
+    call; p50 of each at B=1 beside the single-device search's. Then
+    ``sharded_ivf_topk`` on the IVF phase's structure partitioned over the
+    MESH_SHARDS shards, nprobe 16 and 64, B = 1 and 8, ``torch.equal`` to
+    ``ivf_topk``."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import ann, quant
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import bucket_b
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_ann import (
+        make_sharded_ivf,
+        sharded_ivf_topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_search import (
+        place_rows,
+        sharded_topk_int8,
+    )
+
+    x_i8, xs, dead, n_valid, state = (rows[key] for key in ("x_i8", "xs", "dead", "n_valid",
+                                                           "state"))
+    n_pad, dim = x_i8.shape
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(8)
+    t_phase = time.perf_counter()
+    for f in mesh_counters().values():       # the mesh path starts here
+        f.launches = 0
+    out: dict = {"int8": {}, "ivf": {}}
+    for n_sh, mesh in smoke_meshes(device).items():
+        xsh, ssh, dsh = (place_rows(mesh, t, n_pad) for t in (x_i8, xs, dead))
+        if xsh.buffer is not x_i8 or ssh.buffer is not xs:
+            raise AssertionError("the shards are not views of the int8 rows")
+        per_call = {}
+        for b in (1, 8):
+            q = torch.randn(b, dim, generator=gen, device=device)
+            before = quant.int8_chunk_max_sweep.launches
+            got = sharded_topk_int8(mesh, xsh, ssh, q, k, n_valid, deleted_sharded=dsh)
+            per_call[b] = quant.int8_chunk_max_sweep.launches - before
+            want = n_sh * -(-bucket_b(b) // quant._SWEEP_QUERIES)
+            if require_kernels and per_call[b] != want:
+                raise AssertionError(f"int8 mesh of {n_sh}: {per_call[b]} B2 launches for B={b}, "
+                                     f"not {want}")
+            ref = uncounted(lambda: quant.topk_search_int8(x_i8, xs, q, k, n_valid=n_valid,
+                                                           deleted=dead))
+            if not (torch.equal(got.indices, ref.indices) and torch.equal(got.scores, ref.scores)):
+                raise AssertionError(f"int8 mesh of {n_sh} shards, B={b}: not equal to the "
+                                     "single-device topk_search_int8")
+        q1 = torch.randn(1, dim, generator=gen, device=device)
+        p50, p95 = wall_p50_p95(lambda: sharded_topk_int8(mesh, xsh, ssh, q1, k, n_valid,
+                                                          deleted_sharded=dsh), device)
+        s50, _ = uncounted(lambda: wall_p50_p95(
+            lambda: quant.topk_search_int8(x_i8, xs, q1, k, n_valid=n_valid, deleted=dead),
+            device))
+        out["int8"][n_sh] = {"p50_ms": p50, "p95_ms": p95, "single_p50_ms": s50,
+                             "b2_per_call": per_call}
+        log("mesh", f"sharded_topk_int8 over {n_valid} x {dim} int8 rows on {n_sh} shard(s) "
+            f"({mesh}): B=1 and 8 torch.equal to topk_search_int8; B2 launches per call "
+            f"{per_call}; B=1 p50 {p50:.3f} ms, p95 {p95:.3f} ms (single device p50 "
+            f"{s50:.3f} ms)")
+    mesh = smoke_meshes(device)[MESH_SHARDS]
+    xsh, ssh, dsh = (place_rows(mesh, t, n_pad) for t in (x_i8, xs, dead))
+    sivf = make_sharded_ivf(mesh, "index", state, xsh.shard_rows)
+    for nprobe in (16, 64):
+        for b in (1, 8):
+            q = torch.randn(b, dim, generator=gen, device=device)
+            got = sharded_ivf_topk(mesh, xsh, sivf, q, k, nprobe=nprobe, n_valid=n_valid,
+                                   deleted_sharded=dsh, scales_sharded=ssh)
+            ref = uncounted(lambda: ann.ivf_topk(x_i8, state, q, k, nprobe=nprobe,
+                                                 n_valid=n_valid, deleted=dead, x_scales=xs))
+            if not (torch.equal(got.indices, ref.indices) and torch.equal(got.scores, ref.scores)):
+                raise AssertionError(f"sharded IVF nprobe={nprobe} B={b}: not equal to ivf_topk")
+        q1 = torch.randn(1, dim, generator=gen, device=device)
+        p50, p95 = wall_p50_p95(lambda: sharded_ivf_topk(
+            mesh, xsh, sivf, q1, k, nprobe=nprobe, n_valid=n_valid, deleted_sharded=dsh,
+            scales_sharded=ssh), device)
+        s50, _ = wall_p50_p95(lambda: ann.ivf_topk(x_i8, state, q1, k, nprobe=nprobe,
+                                                   n_valid=n_valid, deleted=dead, x_scales=xs),
+                              device)
+        out["ivf"][nprobe] = {"p50_ms": p50, "p95_ms": p95, "single_p50_ms": s50}
+        log("mesh", f"sharded_ivf_topk over {MESH_SHARDS} shards, nprobe {nprobe}: B=1 and 8 "
+            f"torch.equal to ivf_topk; B=1 p50 {p50:.3f} ms, p95 {p95:.3f} ms (ivf_topk p50 "
+            f"{s50:.3f} ms)")
+    out["launches"] = {k_: f.launches for k_, f in mesh_counters().items()}
+    if require_kernels and out["launches"]["b2"] == 0:
+        raise AssertionError("the int8 mesh path never launched B2")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("mesh", f"int8 half in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+def _mesh_reference(index, q, k: int):
+    """The exact masked reference over the mesh index's rows (one shard:
+    its buffer) for the f32 query ``q`` (rounded to the rows' dtype, as the
+    search rounds it)."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import (
+        topk_masked_reference,
+    )
+
+    rows = index._sharded._x.buffer
+    dead = None if index._sharded._dead is None else index._sharded._dead.buffer
+    return topk_masked_reference(rows, q.to(rows.device, rows.dtype), k, index.ntotal,
+                                 deleted=dead)
+
+
+def run_mesh_slice(device, bits: np.ndarray, single: dict, require_kernels: bool,
+                   config=None, k: int = 20) -> dict:
+    """Phase 8, bf16 half: ``create_system(mesh=create_mesh())`` over the
+    slice's rows (a writable in-memory stand-in): text requests through
+    ``search`` checked against the exact reference over the shard's rows,
+    p50/p95 of warm B=1 queries beside the single-device facade's
+    (``single``, phase 4); ``sharded_topk`` over the same rows on the
+    one-device mesh (the index's own shard) and on MESH_SHARDS logical shards
+    (views of a copy padded to split in MESH_SHARDS), B = 1 and 8, against
+    the single-device ``topk_search`` (tie-aware; one shard: ``torch.equal``),
+    B1 launches per call; then a delete and an in-place append through the
+    facade's index, the answers checked again."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import topk
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_search import (
+        place_rows,
+        sharded_topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+        create_system,
+    )
+
+    t_phase = time.perf_counter()
+    meshes = smoke_meshes(device)
+    one = next(m for n, m in meshes.items() if n != MESH_SHARDS)
+    for f in mesh_counters().values():       # the mesh path starts here
+        f.launches = 0
+    system = create_system(torch_device=device, mesh=one)
+    if config is not None:
+        system.embedder._config_override = config
+    system.embedder.ensure_loaded()
+    t0 = time.perf_counter()
+    index = UnifiedIndex(system._index_config(), device=device, mesh=one)
+    index.attach_container(AppendableMemoryContainer(bits))
+    system.attach_index(index)
+    n, dim = index.ntotal, index.dim
+    log("mesh", f"facade on {one}: index of {n} rows on {index._sharded.stats()} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def check(hits, qvec, limit: int) -> None:
+        rows = np.array([index.row_for(h["folder"], h["image"]) for h in hits])
+        scores = np.array([h["similarity_score"] for h in hits], np.float32)
+        q = torch.from_numpy(qvec[None] / max(float(np.linalg.norm(qvec)), 1e-12))
+        ref = uncounted(lambda: _mesh_reference(index, q.float(), limit))
+        tie_aware_equal(rows, scores, ref.indices[0].cpu().numpy(), ref.scores[0].cpu().numpy())
+
+    opts = SearchOptions(limit=10, use_cache=False)
+    for i in range(N_REQUESTS):
+        text = f"mesh {i}: a red car driving at night past neon signs"
+        before = topk.chunk_max_sweep.launches
+        hits = system.search(text, opts)
+        if require_kernels and topk.chunk_max_sweep.launches != before + 1:
+            raise AssertionError("a mesh facade query did not launch B1 once (one shard)")
+        check(hits, system.embedder.encode_text([system._clip_prompt(text, opts)[0]])[0], 10)
+    lat = []
+    for i in range(N_LATENCY + 4):
+        t0 = time.perf_counter()
+        hits = system.search(f"mesh latency {i}: a crowded market street in the rain", opts)
+        if i >= 4:
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if len(hits) != 10:
+            raise AssertionError("a mesh facade query returned a short answer")
+    p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+    log("mesh", f"{N_REQUESTS} facade requests tie-aware equal to the exact reference; B=1 e2e "
+        f"over {n} rows, {len(lat)} warm queries: p50 {p50:.3f} ms, p95 {p95:.3f} ms "
+        f"(single-device facade, phase 4: p50 {single['p50_ms']:.3f} ms, p95 "
+        f"{single['p95_ms']:.3f} ms)")
+
+    # the sharded sweep itself over the same rows, one shard and MESH_SHARDS
+    buf = index._sharded._x.buffer
+    n_pad4 = -(-n // (topk.TILE_N * MESH_SHARDS)) * topk.TILE_N * MESH_SHARDS
+    x4 = torch.zeros((n_pad4, dim), dtype=buf.dtype, device=buf.device)
+    x4[:buf.shape[0]].copy_(buf)
+    gen = torch.Generator(device=device).manual_seed(9)
+    sweeps = {}
+    for n_sh, mesh in meshes.items():
+        xsh = index._sharded._x if mesh is one else place_rows(mesh, x4, n_pad4)
+        rows_all = xsh.buffer
+        per_call = {}
+        for b in (1, 8):
+            q = torch.randn(b, dim, generator=gen, device=device)
+            q = (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+            before = topk.chunk_max_sweep.launches
+            got = sharded_topk(mesh, xsh, q, k, n)
+            per_call[b] = topk.chunk_max_sweep.launches - before
+            if require_kernels and per_call[b] != n_sh:
+                raise AssertionError(f"bf16 mesh of {n_sh}: {per_call[b]} B1 launches a call")
+            ref = uncounted(lambda: topk.topk_search(rows_all, q, k, n_valid=n))
+            if n_sh == 1 and not torch.equal(got.indices, ref.indices):
+                raise AssertionError("one shard: not the single-device topk_search")
+            for i in range(b):
+                tie_aware_equal(got.indices[i].cpu().numpy(), got.scores[i].cpu().numpy(),
+                                ref.indices[i].cpu().numpy(), ref.scores[i].cpu().numpy())
+        q1 = torch.randn(1, dim, generator=gen, device=device).to(torch.bfloat16)
+        s_p50, s_p95 = wall_p50_p95(lambda: sharded_topk(mesh, xsh, q1, k, n), device)
+        d_p50, _ = uncounted(lambda: wall_p50_p95(
+            lambda: topk.topk_search(rows_all, q1, k, n_valid=n), device))
+        sweeps[n_sh] = {"p50_ms": s_p50, "p95_ms": s_p95, "single_p50_ms": d_p50,
+                        "b1_per_call": per_call}
+        log("mesh", f"sharded_topk over {n} x {dim} bf16 rows on {n_sh} shard(s): B=1 and 8 "
+            f"tie-aware equal to topk_search; B1 launches per call {per_call}; B=1 p50 "
+            f"{s_p50:.3f} ms, p95 {s_p95:.3f} ms (single device p50 {d_p50:.3f} ms)")
+    del x4
+
+    # a delete and an in-place append through the facade's index
+    text = "mesh maintenance: a dog catching a frisbee in a park"
+    qvec = system.embedder.encode_text([system._clip_prompt(text, opts)[0]])[0]
+    first = system.search(text, opts)
+    top = index.row_for(first[0]["folder"], first[0]["image"])
+    index.delete_rows([top])
+    after = system.search(text, opts)
+    if top in [index.row_for(h["folder"], h["image"]) for h in after]:
+        raise AssertionError("a deleted row came back from the mesh facade")
+    check(after, qvec, 10)
+    searcher, cap = index._sharded, index._capacity
+    new = np.random.default_rng(11).standard_normal((8, dim)).astype(np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    index.incremental_update(new, [{"folder": "mesh_append", "image": f"{i}.jpg",
+                                    "frame_id": i} for i in range(8)])
+    if index._sharded is not searcher or index._capacity != cap:
+        raise AssertionError("the append did not land in place")
+    got = index.search_vectors(new, top_k=5)
+    if [h[0].metadata.row_id for h in got] != list(range(n, n + 8)):
+        raise AssertionError("an appended row is not its own nearest neighbour")
+    for i, hits in enumerate(got):
+        rows = np.array([h.metadata.row_id for h in hits])
+        scores = np.array([h.similarity_score for h in hits], np.float32)
+        ref = uncounted(lambda: _mesh_reference(index, torch.from_numpy(new[i:i + 1]), 5))
+        tie_aware_equal(rows, scores, ref.indices[0].cpu().numpy(), ref.scores[0].cpu().numpy())
+    log("mesh", f"delete of row {top}: gone from the answer, which equals the masked reference; "
+        f"8 rows appended in place (capacity {cap}), each its own nearest neighbour, answers "
+        "equal to the exact reference")
+    launches = {k_: f.launches for k_, f in mesh_counters().items()}
+    if require_kernels and launches["b1"] == 0:
+        raise AssertionError("the bf16 mesh path never launched B1")
+    system.cleanup()
+    seconds = time.perf_counter() - t_phase
+    log("mesh", f"bf16 half in {seconds:.1f} s; launches {launches}")
+    return {"p50_ms": p50, "p95_ms": p95, "sweeps": sweeps, "launches": launches,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the bench in this process, every answer and probe checked
 # ---------------------------------------------------------------------------
 
 TOL_P2 = 1e-5   # x max |score|: bf16 products summed in f32 in another order
@@ -3113,7 +3455,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
 
     checked = {"headline_1M": 0, "int8_10M": 0, "ivf_10M": 0, "image_tower": 0,
                "image_tower_int8_static": 0, "served_1M": 0, "served_10M_int8_ann": 0,
-               "served_10M_int8_dense": 0}
+               "served_10M_int8_dense": 0, "sharded_1M": 0, "anchor_1M25": 0,
+               "anchor_1M25_int8": 0, "sharded_ivf_10M": 0}
 
     def verify_tower(model, pixels, got) -> None:
         """The timed batch again, from the bench's own normalized pixels, with
@@ -3235,6 +3578,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
     want_extra = ["gpu", "image_tower_fps", "image_tower_fps_int8_static",
                   "facade_search_p50_ms", "search_batch_b32_ms",
                   "served_qps_1M", "served_p50_ms", "served_p95_ms", "served_avg_batch",
+                  "latency_1M_sharded_1dev_p50_ms", "latency_10M_8chip_anchor_ms",
+                  "latency_10M_8chip_anchor_p95_ms", "latency_10M_8chip_anchor_int8_ms",
                   "not_ported"]
     served_10m = ["served_10M_int8_ann", "served_10M_int8_dense"]
     if "--skip-10m" not in argv:
@@ -3242,7 +3587,8 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
                        "queries_10M", "qps_10M_int8_1chip_b128", "qps_10M_int8_1chip_b32",
                        "latency_2M5_int8_1chip_p50_ms", "latency_5M_int8_1chip_p50_ms",
                        "ivf_build_10M_s", "latency_10M_int8_ivf_np16_p50_ms",
-                       "latency_10M_int8_ivf_np64_p50_ms"]
+                       "latency_10M_int8_ivf_np64_p50_ms",
+                       "latency_10M_int8_sharded_ivf_np32_p50_ms"]
         for name in served_10m:
             suffix = name[len("served_"):]
             want_extra += [f"served_qps_{suffix}", f"served_p50_{suffix}_ms",
@@ -3257,7 +3603,9 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
         f"{result['value']} ms, p95 {result['p95']} ms; {checked['headline_1M']} headline "
         f"answers tie-aware equal to the exact f32 reference, {checked['int8_10M']} int8 "
         f"answers equal to int8_reference (atol 0), {checked['ivf_10M']} IVF answers bit for "
-        f"bit the candidate-set reference; served answers checked: "
+        f"bit the candidate-set reference; sharded answers checked (one-device mesh): "
+        f"{ {k: v for k, v in checked.items() if 'sharded' in k or 'anchor' in k} }; "
+        f"served answers checked: "
         f"{ {k: v for k, v in checked.items() if k.startswith('served')} }; "
         f"launches {launches}")
     if checked["headline_1M"] < result["queries"]:
@@ -3266,8 +3614,21 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
         raise AssertionError("the bench's image tower batch was not checked")
     if checked["image_tower_int8_static"] != min(8, extra["image_tower_batch"]):
         raise AssertionError("the bench's W8A8-static image tower was not checked")
-    if extra["not_ported"] != ["sharded_1M", "anchor_1M25"]:
+    if extra["not_ported"] != []:
         raise AssertionError(f"the bench lists {extra['not_ported']} as not ported")
+    sharded_short = {k: checked[k] for k in ("sharded_1M", "anchor_1M25", "anchor_1M25_int8")
+                     if checked[k] < result["queries"]}
+    if "--skip-10m" not in argv and checked["sharded_ivf_10M"] < result["queries"]:
+        sharded_short["sharded_ivf_10M"] = checked["sharded_ivf_10M"]
+    if sharded_short:
+        raise AssertionError(f"the bench timed sharded answers that were not checked: "
+                             f"{sharded_short}")
+    log("numbers", f"bench sharded sections (one-device mesh): 1M sharded p50 "
+        f"{extra['latency_1M_sharded_1dev_p50_ms']} ms; anchor ({extra['anchor_rows']} rows) "
+        f"bf16 p50 {extra['latency_10M_8chip_anchor_ms']} ms, p95 "
+        f"{extra['latency_10M_8chip_anchor_p95_ms']} ms, int8 p50 "
+        f"{extra['latency_10M_8chip_anchor_int8_ms']} ms; sharded IVF nprobe 32 p50 "
+        f"{extra.get('latency_10M_int8_sharded_ivf_np32_p50_ms')} ms")
     log("numbers", f"bench image tower ({extra['image_tower']}, B={extra['image_tower_batch']}):"
         f" bf16 {extra['image_tower_fps']} frames/s ({extra['image_tower_ms_per_batch']} ms per "
         f"batch), W8A8-static {extra['image_tower_fps_int8_static']} frames/s "
@@ -3293,7 +3654,7 @@ def run_bench_phase(device, require_kernels: bool, argv: list[str], timer: Timer
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the int8 facade opened record by record, then through its sidecars
+# phase 11: the int8 facade opened record by record, then through its sidecars
 # ---------------------------------------------------------------------------
 
 
@@ -3356,7 +3717,7 @@ def run_open_phase(device, bits: np.ndarray, config=None, workdir: Path | None =
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the IVF approximate mode
+# phase 12: the IVF approximate mode
 # ---------------------------------------------------------------------------
 
 ANN_CENTRES = 4096   # clusters of the 1M-row corpus (on uniform rows the recall
@@ -3695,6 +4056,7 @@ def run_ann_int8(device, rows: dict, timer: Timer, n_valid: int | None = None,
             break
         crossover = r["batch"]
     log("ann", f"10M int8 crossover by wall time: {crossover} (IVF wins at {wins})")
+    rows["state"] = state   # the mesh phase partitions this structure
     return {"build_s": build_s, "nlist": report.nlist, "bucket_cap": report.bucket_cap,
             "leftover": report.leftover, "ladder": ladder, "crossover": crossover,
             "calls": ann.ivf_topk.calls - calls0}
@@ -4033,6 +4395,7 @@ def main(argv: list[str] | None = None) -> int:
     rows10 = {}
     b2 = check_int8_kernels(device, N_INT8, DIM, timer, require_kernels=True, keep=rows10)
     ann10 = run_ann_int8(device, rows10, timer)
+    mesh8 = run_mesh_int8(device, rows10, require_kernels=True)
     del rows10
     torch.cuda.empty_cache()
     bits = make_rows(N_ROWS)
@@ -4042,6 +4405,9 @@ def main(argv: list[str] | None = None) -> int:
     result8 = run_int8_slice(device, bits, require_kernels=True)
     torch.cuda.empty_cache()
     opened = run_open_phase(device, bits)
+    torch.cuda.empty_cache()
+    mesh1 = run_mesh_slice(device, bits, result, require_kernels=True)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ann_bits = clustered_rows_bf16_bits(bits)
     log("ann", f"made {len(ann_bits)} x {ann_bits.shape[1]} rows around {ANN_CENTRES} centres "
@@ -4071,11 +4437,13 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/chunk_max.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/topk.py:134",
          "launches": result["launches"]["b1"], **b1,
-         "serve_launches": serve["launches"]["b1"], "w8a8_launches": w8a8["launches"]["b1"]},
+         "serve_launches": serve["launches"]["b1"], "w8a8_launches": w8a8["launches"]["b1"],
+         "mesh_launches": mesh1["launches"]["b1"]},
         {"name": "int8_chunk_max_sweep (B2)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/int8_sweep.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/quant.py:167",
-         "launches": result8["launches"]["b2"], **b2},
+         "launches": result8["launches"]["b2"], **b2,
+         "mesh_launches": mesh8["launches"]["b2"]},
         {"name": "fused_mha (B3)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/mha.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
@@ -4114,6 +4482,10 @@ def main(argv: list[str] | None = None) -> int:
         f"embedders {w8a8_emb['numbers']}")
     log("ingest", f"launches on the ingest path: {ingested['launches']}")
     log("open", f"1M-row int8 facade open: {opened}")
+    log("mesh", f"bf16 facade on the one-device mesh: p50 {mesh1['p50_ms']:.3f} ms, p95 "
+        f"{mesh1['p95_ms']:.3f} ms (single device {result['p50_ms']:.3f} / "
+        f"{result['p95_ms']:.3f} ms); sweeps {mesh1['sweeps']}; int8 {mesh8['int8']}; "
+        f"sharded IVF {mesh8['ivf']}; phase {mesh1['seconds'] + mesh8['seconds']:.1f} s")
     log("ann", f"1M bf16 facade: build {ann1['build_s']:.2f} s, nprobe {ann1['nprobe']}, "
         f"ann_max_batch {ann1['max_batch']}, launches {ann1['launches']}; 10M int8: build "
         f"{ann10['build_s']:.2f} s, crossover {ann10['crossover']}, ivf_topk calls "

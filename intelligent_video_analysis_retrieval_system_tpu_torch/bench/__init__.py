@@ -6,10 +6,12 @@
 Counterpart of the JAX package's root ``bench.py`` and of its
 ``benchmarks/exp_int8.py`` / ``exp_stream_bw.py`` experiments. It runs the
 sections of :mod:`.headline` (the headline text query over ``--rows`` bf16
-rows, 1,000,000 by default; the image tower, ViT-B/32 or with ``--full``
-ViT-L/14, in bf16 and in W8A8 with static scales; the int8 capacity mode
-over ten times ``--rows`` and the IVF approximate mode over the same rows,
-unless ``--skip-10m``), the served
+rows, 1,000,000 by default, also through the sharded search on a one-device
+mesh; the multi-device anchor, one card's shard of ten times ``--rows`` over
+8 cards; the image tower, ViT-B/32 or with ``--full`` ViT-L/14, in bf16 and
+in W8A8 with static scales; the int8 capacity mode over ten times
+``--rows`` and the IVF approximate mode over the same rows, also through the
+sharded IVF on a one-device mesh, unless ``--skip-10m``), the served
 sections of :mod:`.served` (the REST server with the batcher on over
 ``--rows`` fresh bf16 rows; unless ``--skip-10m``, over the IVF section's
 int8 rows with its structure attached and dense) and with ``--probes`` the
@@ -18,7 +20,8 @@ JSON line on stdout with the JAX bench's key names
 (``metric``, ``value``, ``unit``, ``vs_baseline``, ``p95``, ``queries``,
 ``extra``). ``extra`` starts with the card's name and power limit as
 ``nvidia-smi`` gives them, and ends with ``not_ported``: the sections of the
-JAX bench whose modules the port does not have yet.
+JAX bench whose modules the port does not have yet (none now: an empty
+list).
 
 It runs on the card unless ``--device cpu`` is asked for (then ``--rows``
 defaults to 20,000); without a card and without that flag it raises. A
@@ -74,6 +77,7 @@ def run_bench(device: torch.device | str = "cuda", rows: int | None = None,
     extra.update(head.pop("extra"))
     result: dict = {**head, "unit": "ms", "extra": extra}
     gc.collect()
+    extra.update(headline.anchor_1M25(device, embedder, rows, verify))
     extra.update(headline.image_tower(device, full, verify_tower, verify_static))
     kept: dict = {}
     if not skip_10m:

@@ -1,6 +1,9 @@
-"""The bench's sections: the headline text query over a 1M-row bf16 index,
-the image tower's throughput, the int8 capacity mode at 10M rows, and the
-IVF approximate mode over the same 10M int8 rows.
+"""The bench's sections: the headline text query over a 1M-row bf16 index
+(and the same query through the sharded search on a one-device mesh), the
+multi-device anchor (one card's 1,250,000-row shard of a 10M corpus over 8
+cards, bf16 then int8), the image tower's throughput, the int8 capacity
+mode at 10M rows, and the IVF approximate mode over the same 10M int8 rows
+(and through the sharded IVF on a one-device mesh).
 
 Counterpart of the JAX package's root ``bench.py``. Each section takes the
 device and returns its keys; a section that fails raises. The sections
@@ -14,7 +17,7 @@ synthetic (``bench/data.py``).
 the section searched and every answer it got (``verify(section, x, scales,
 n_valid, queries, result)``: ``scales`` None for bf16 rows, ``queries`` as
 they went into the search, ``result`` a ``TopKResult`` of all of them; the
-IVF section adds ``ivf=(state, nprobe)``, the structure and probe count the
+IVF sections add ``ivf=(state, nprobe)``, the structure and probe count the
 answers came from): the chip smoke holds them against the references. The
 served sections (``bench/served.py``) hand it their answers the same way,
 with ``decimals=6``: the scores as the server rounds them.
@@ -43,6 +46,9 @@ from ..ops.ann import build_ivf, default_nlist, ivf_topk
 from ..ops.preprocess import normalize_images
 from ..ops.quant import topk_search_int8
 from ..ops.topk import TILE_N, TopKResult, _ceil_to, topk_search
+from ..parallel.mesh import MeshSpec, create_mesh
+from ..parallel.sharded_ann import make_sharded_ivf, sharded_ivf_topk
+from ..parallel.sharded_search import place_rows, sharded_topk, sharded_topk_int8
 from ..system.embedder import CLIPEmbedder
 from ..system.facade import EnhancedRetrievalSystem, SearchOptions
 from ..utils.config import Config
@@ -50,16 +56,16 @@ from .data import MemoryContainer, gen_db_bf16, gen_db_int8
 from .timing import MIN_CALLS as CALLS
 from .timing import _sync, percentile_wall
 
-__all__ = ["K", "BASELINE_MS", "NOT_PORTED", "TextQuery", "headline_1M", "image_tower",
-           "int8_10M", "ivf_10M"]
+__all__ = ["K", "BASELINE_MS", "NOT_PORTED", "TextQuery", "headline_1M", "anchor_1M25",
+           "image_tower", "int8_10M", "ivf_10M"]
 
 K = 10
 # the reference system's own figure for one text query over its index (ms)
 BASELINE_MS = 39.0
 PROMPT = "a photo of a scene"
-# sections of the JAX bench whose modules the port does not have yet; a later
-# change removes a name when it ports the section
-NOT_PORTED = ["sharded_1M", "anchor_1M25"]
+# sections of the JAX bench whose modules the port does not have yet (every
+# one is ported)
+NOT_PORTED: list[str] = []
 
 Verify = Callable[..., None]
 VerifyTower = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], None]
@@ -99,6 +105,12 @@ class TextQuery:
             return emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True), min=1e-12)
 
 
+def one_device_mesh(device: torch.device):
+    """The mesh of one ``"index"`` shard on ``device`` that the sharded
+    sections time: the per-card program of the multi-device search."""
+    return create_mesh(MeshSpec(axis_names=("index",), shape=(1,)), devices=[device])
+
+
 def _stack(results: list[TopKResult]) -> TopKResult:
     return TopKResult(torch.cat([r.scores for r in results]),
                       torch.cat([r.indices for r in results]))
@@ -113,8 +125,10 @@ def headline_1M(device: torch.device, embedder: CLIPEmbedder, rows: int,
                 verify: Verify | None = None) -> dict:
     """p50/p95 of text tower + L2 normalize + ``topk_search`` (kernel B1 on a
     card) over ``rows`` x D bf16 rows, ``K = 10``; then the same query
-    through ``EnhancedRetrievalSystem.search`` over an index of the same
-    rows, and ``search_batch`` at 32 queries."""
+    through ``sharded_topk`` on a one-device mesh (the JAX bench's
+    ``sharded_1M``: ``latency_1M_sharded_1dev_p50_ms``), through
+    ``EnhancedRetrievalSystem.search`` over an index of the same rows, and
+    ``search_batch`` at 32 queries."""
     tq = TextQuery(embedder)
     n_pad = _ceil_to(rows, TILE_N)
     log(f"generating {rows} x {tq.dim} bf16 rows on {device}...")
@@ -143,6 +157,8 @@ def headline_1M(device: torch.device, embedder: CLIPEmbedder, rows: int,
         "extra": {"tokenizer_kind": embedder.tokenizer.kind,
                   "headline_device_p50_ms": t["device_p50_ms"]},
     }
+
+    out["extra"].update(_sharded_1M(device, tq, xd, rows, verify))
 
     # the same rows behind the facade: what a served request pays
     bits = xd[:rows].cpu().view(torch.int16).numpy().view("uint16")
@@ -177,6 +193,84 @@ def headline_1M(device: torch.device, embedder: CLIPEmbedder, rows: int,
     out["extra"].update(facade_search_p50_ms=round(f["p50_ms"], 3),
                         facade_search_p95_ms=round(f["p95_ms"], 3),
                         search_batch_b32_ms=round(b["p50_ms"], 3))
+    return out
+
+
+def _sharded_1M(device: torch.device, tq: TextQuery, xd: torch.Tensor, rows: int,
+                verify: Verify | None) -> dict:
+    """The headline query through the sharded search on a one-device mesh,
+    over the headline's rows (its one shard is a view of them)."""
+    mesh = one_device_mesh(device)
+    xs = place_rows(mesh, xd, xd.shape[0])
+    asked: list[torch.Tensor] = []
+    answers: list[TopKResult] = []
+
+    def query(i: int) -> None:
+        q = tq.encode(i + 1).to(xd.dtype)
+        res = sharded_topk(mesh, xs, q, K, rows)
+        if i >= 0:
+            asked.append(q)
+            answers.append(res)
+
+    t = percentile_wall(query, CALLS, device)
+    log(f"{_size_name(rows)} sharded (1-device mesh): p50={t['p50_ms']:.3f} ms "
+        f"p95={t['p95_ms']:.3f} ms (device p50 {t['device_p50_ms']})")
+    if verify is not None:
+        verify("sharded_1M", xd, None, rows, torch.cat(asked), _stack(answers))
+    return {"latency_1M_sharded_1dev_p50_ms": round(t["p50_ms"], 3)}
+
+
+# ---------------------------------------------------------------------------
+# the multi-device anchor: one card's shard of 10M rows over 8 cards
+# ---------------------------------------------------------------------------
+
+
+def anchor_1M25(device: torch.device, embedder: CLIPEmbedder, rows: int,
+                verify: Verify | None = None) -> dict:
+    """One card's shard of a corpus of ten times ``rows`` over 8 cards
+    (1,250,000 rows at the default 1M), on a one-device mesh: text query +
+    ``sharded_topk`` over bf16 rows (kernel B1), then + ``sharded_topk_int8``
+    over int8 rows (kernel B2). The key names are the JAX bench's
+    (``latency_10M_8chip_anchor_ms``, ``..._p95_ms``, ``..._int8_ms``)."""
+    tq = TextQuery(embedder)
+    n_a = 10 * rows // 8
+    n_pad = _ceil_to(n_a, TILE_N)
+    mesh = one_device_mesh(device)
+    log(f"anchor: generating {n_a} x {tq.dim} bf16 rows on {device}...")
+    xa = gen_db_bf16(n_pad, tq.dim, 21, device)
+    xs = place_rows(mesh, xa, n_pad)
+
+    def timed(search, cast, section: str, x, scales) -> dict:
+        asked: list[torch.Tensor] = []
+        answers: list[TopKResult] = []
+
+        def query(i: int) -> None:
+            q = cast(tq.encode(i + 1))
+            res = search(q)
+            if i >= 0:
+                asked.append(q)
+                answers.append(res)
+
+        t = percentile_wall(query, CALLS, device)
+        if verify is not None:
+            verify(section, x, scales, n_a, torch.cat(asked), _stack(answers))
+        return t
+
+    t = timed(lambda q: sharded_topk(mesh, xs, q, K, n_a), lambda q: q.to(xa.dtype),
+              "anchor_1M25", xa, None)
+    log(f"anchor bf16 {n_a} sharded: p50={t['p50_ms']:.3f} ms p95={t['p95_ms']:.3f} ms")
+    out = {"anchor_rows": n_a, "latency_10M_8chip_anchor_ms": round(t["p50_ms"], 3),
+           "latency_10M_8chip_anchor_p95_ms": round(t["p95_ms"], 3)}
+    del xa, xs
+    gc.collect()
+    xq, sq = gen_db_int8(n_pad, tq.dim, 22, device)
+    xqs, sqs = place_rows(mesh, xq, n_pad), place_rows(mesh, sq, n_pad)
+    t = timed(lambda q: sharded_topk_int8(mesh, xqs, sqs, q, K, n_a), lambda q: q,
+              "anchor_1M25_int8", xq, sq)
+    log(f"anchor int8 {n_a} sharded: p50={t['p50_ms']:.3f} ms p95={t['p95_ms']:.3f} ms")
+    out["latency_10M_8chip_anchor_int8_ms"] = round(t["p50_ms"], 3)
+    del xq, sq, xqs, sqs
+    gc.collect()
     return out
 
 
@@ -323,13 +417,43 @@ def int8_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
 # ---------------------------------------------------------------------------
 
 
+def _sharded_ivf(device: torch.device, tq: TextQuery, x10: torch.Tensor, s10: torch.Tensor,
+                 state, rows: int, verify: Verify | None, nprobe: int = 32) -> dict:
+    """The IVF section's state partitioned over a one-device mesh (the shard
+    views the section's rows), one text query + ``sharded_ivf_topk``."""
+    mesh = one_device_mesh(device)
+    n_pad = x10.shape[0]
+    xs, ss = place_rows(mesh, x10, n_pad), place_rows(mesh, s10, n_pad)
+    sivf = make_sharded_ivf(mesh, "index", state, n_pad)
+    asked: list[torch.Tensor] = []
+    answers: list[TopKResult] = []
+
+    def query(i: int) -> None:
+        q = tq.encode(i + 1)
+        res = sharded_ivf_topk(mesh, xs, sivf, q, K, nprobe=nprobe, n_valid=rows,
+                               scales_sharded=ss)
+        if i >= 0:
+            asked.append(q)
+            answers.append(res)
+
+    t = percentile_wall(query, CALLS, device)
+    log(f"{rows} int8 sharded IVF (1-device mesh) e2e nprobe={nprobe}: "
+        f"p50={t['p50_ms']:.3f} ms p95={t['p95_ms']:.3f} ms (device p50 {t['device_p50_ms']})")
+    if verify is not None:
+        verify("sharded_ivf_10M", x10, s10, rows, torch.cat(asked), _stack(answers),
+               ivf=(state, nprobe))
+    return {f"latency_10M_int8_sharded_ivf_np{nprobe}_p50_ms": round(t["p50_ms"], 3)}
+
+
 def ivf_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
             verify: Verify | None = None, keep: dict | None = None) -> dict:
     """``build_ivf`` over ``rows`` x D int8 rows (the int8 section's, made
     again from its seed) with the JAX bench's parameters (nlist 8192, or
     ``default_nlist`` where that is smaller; 48 sample rows per list; 6
     k-means iterations), timed; then one text query + ``ivf_topk`` at B=1,
-    nprobe 16 and 64. The key names are the JAX bench's and say 10M
+    nprobe 16 and 64, and + ``sharded_ivf_topk`` over the same state
+    partitioned on a one-device mesh at nprobe 32 (the per-card program of
+    the multi-device IVF). The key names are the JAX bench's and say 10M
     whatever ``rows`` is. ``keep``, when given, receives the rows, their
     scales and the structure (``x``, ``scales``, ``state``) for the served
     section that follows."""
@@ -366,6 +490,7 @@ def ivf_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
             verify("ivf_10M", x10, s10, rows, torch.cat(asked), _stack(answers),
                    ivf=(state, nprobe))
         out[f"latency_10M_int8_ivf_np{nprobe}_p50_ms"] = round(t["p50_ms"], 3)
+    out.update(_sharded_ivf(device, tq, x10, s10, state, rows, verify))
     if keep is not None:
         keep.update(x=x10, scales=s10, state=state)
     del x10, s10, state

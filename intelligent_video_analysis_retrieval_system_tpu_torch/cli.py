@@ -22,7 +22,11 @@ dedup or ``--cluster``; presets ``--gentle``, ``--ultra-gentle``,
 ``search`` — one text query against an ``.rvdb`` index:
 
     python -m intelligent_video_analysis_retrieval_system_tpu_torch search \\
-        index.rvdb "a red car at night" [--limit 10] [--device cuda]
+        index.rvdb "a red car at night" [--limit 10] [--device cuda] [--mesh]
+
+``--mesh`` (``search``, ``serve``) shards the index's rows over every
+visible CUDA device (a one-device mesh on one card; with ``--device cpu``
+one shard on the CPU) and merges their answers: the multi-device search.
 
 ``stats`` — the index's statistics as JSON.
 
@@ -51,7 +55,7 @@ them: nprobe to a recall target, then the IVF/dense crossover batch:
 until interrupted:
 
     python -m intelligent_video_analysis_retrieval_system_tpu_torch serve \
-        [index.rvdb] [--host 0.0.0.0] [--port 5000] [--device cuda]
+        [index.rvdb] [--host 0.0.0.0] [--port 5000] [--device cuda] [--mesh]
 
 The other commands of the JAX package's CLI (share, doctor, validate,
 parity) are ported with their subsystems in later changes.
@@ -149,6 +153,8 @@ def _build_parser() -> argparse.ArgumentParser:
                     choices=("bfloat16", "float16", "float32", "int8", "int8_static"),
                     help="tower activation mode (int8_static reads the scales "
                          "the build saved beside the index)")
+    se.add_argument("--mesh", action="store_true",
+                    help="shard the index over all visible devices")
     se.add_argument("--json", action="store_true", dest="as_json")
 
     st = sub.add_parser("stats", help="index statistics")
@@ -178,8 +184,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--model-path", default=None,
                     help="local HF CLIP checkpoint directory")
     sv.add_argument("--mesh", action="store_true",
-                    help="shard the index over all visible devices (multi-device search "
-                         "is ported in a later change: raises)")
+                    help="shard the index over all visible devices")
     sv.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -306,6 +311,22 @@ def cmd_build(args) -> int:
     return 0
 
 
+def _index_mesh(device: str):
+    """A mesh of one ``"index"`` axis over every visible CUDA device (on one
+    card a one-device mesh: the same code path), or one CPU shard where
+    ``device`` is the CPU."""
+    import torch
+
+    from .parallel import MeshSpec, create_mesh
+
+    if torch.device(device).type == "cpu":
+        return create_mesh(MeshSpec(axis_names=("index",), shape=(1,)), devices=["cpu"])
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--mesh on {device}: no CUDA device is visible")
+    n = torch.cuda.device_count()
+    return create_mesh(MeshSpec(axis_names=("index",), shape=(n,)))
+
+
 def cmd_search(args) -> int:
     from .system.facade import EnhancedRetrievalSystem, SearchOptions
     from .utils.config import Config
@@ -315,7 +336,7 @@ def cmd_search(args) -> int:
         overrides["model"] = {"path": args.model_path}
     system = EnhancedRetrievalSystem(
         Config(config_file="config.json", overrides=overrides),
-        device=args.device,
+        device=args.device, mesh=_index_mesh(args.device) if args.mesh else None,
     )
     try:
         system.load_system(args.index_path)
@@ -501,7 +522,8 @@ def cmd_serve(args) -> int:
 
     overrides = {"model": {"path": args.model_path}} if args.model_path else None
     system = EnhancedRetrievalSystem(Config(config_file="config.json", overrides=overrides),
-                                     device=args.device, mesh=args.mesh or None)
+                                     device=args.device,
+                                     mesh=_index_mesh(args.device) if args.mesh else None)
     try:
         if args.index_path:
             system.load_system(args.index_path)

@@ -4,7 +4,7 @@ Port of ``intelligent_video_analysis_retrieval_system_tpu/index/builder.py``
 (keep the two in step): the same scan, journal, decode, transactions and
 sidecars, so a container written by either package opens in the other. What
 differs: the returned index lives on an explicit ``torch.device`` (default
-``"cuda"``), and a mesh is refused until multi-device search is ported.
+``"cuda"``), or on a ``parallel.Mesh`` whose devices its rows shard over.
 
 Replaces the reference build pipeline (``unified_index.py:94-335`` +
 ``unified_builder.py:39-188``) with the batched-device design:
@@ -93,10 +93,8 @@ class RAGBuilder:
         mesh: Any | None = None,
         device: torch.device | str = "cuda",
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device search is ported in a later change")
         self.device = resolve_device(device)
+        self.mesh = mesh  # parallel.Mesh: the returned index shards over it
         self.embed_fn = embed_fn
         self.embed_dim = embed_dim
         self.input_size = input_size
@@ -183,7 +181,7 @@ class RAGBuilder:
         if report.duration_s > 0:
             report.images_per_s = report.processed / report.duration_s
 
-        index = UnifiedIndex(self.config, device=self.device).attach_container(
+        index = UnifiedIndex(self.config, device=self.device, mesh=self.mesh).attach_container(
             container
         )
         return index, report

@@ -32,7 +32,14 @@ Port of the single-device half (dense, int8 and IVF) of
   tuned knobs, restored on open (rows appended since go to its tail), and
   rebuilt after a compaction.
 
-Not ported yet: the multi-device mesh (raises ``NotImplementedError``).
+- on a mesh (``parallel.create_mesh``, an ``"index"`` axis) the rows
+  shard over the mesh's devices (``parallel.ShardedIndexSearcher``): every
+  shard runs the search above over its rows and one merge combines them,
+  the IVF structure partitions over the same shards
+  (``parallel.sharded_ann``), and appends, deletes and the ANN maintenance
+  go through the searcher. Answers equal the single-device index's (int8:
+  bit for bit).
+
 ``index.builder.RAGBuilder`` writes containers and hands the fresh one to
 :meth:`UnifiedIndex.attach_container`. Above ``metacols.SIDECAR_MIN_ROWS``
 rows the metadata opens from the columnar ``.meta.npz`` sidecar when it is
@@ -62,8 +69,6 @@ from .container import IndexContainer
 from .metacols import SIDECAR_MIN_ROWS, LazyRowByKey, load_sidecar, write_sidecar
 
 __all__ = ["UnifiedIndex", "UnifiedIndexConfig"]
-
-_LATER_MESH = "multi-device search is ported in a later change"
 
 # rows normalized per device step at upload (bounds the f32 temporary)
 _UPLOAD_ROWS = 262_144
@@ -158,10 +163,20 @@ class UnifiedIndex:
         device: torch.device | str = "cuda",
         mesh: Any | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(_LATER_MESH)
+        """``mesh``: a ``parallel.Mesh`` with an ``"index"`` axis: rows shard
+        over its devices and searches merge across them (int8 containers
+        shard rows and scales together). The index then lives on the mesh's
+        first shard's device, whose type ``device`` must name."""
         self.config = config or UnifiedIndexConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # parallel.ShardedIndexSearcher while rows are loaded on a mesh
+        self._sharded: Any | None = None
+        if mesh is not None:
+            first = mesh.local_shards("index")[1][0]
+            if first.type != self.device.type:
+                raise ValueError(f"a mesh on {first.type} for an index on {self.device}")
+            self.device = first
         self._container: Any | None = None
         self._lock = threading.RLock()
         self._dev_x: torch.Tensor | None = None       # (cap, dim) bf16/f32/int8
@@ -248,6 +263,7 @@ class UnifiedIndex:
             self._dev_x = None
             self._dev_scales = None
             self._dev_deleted = None
+            self._sharded = None
             self._ann = None
             self._ann_gen += 1
             self._n_valid = 0
@@ -269,11 +285,15 @@ class UnifiedIndex:
         self._ann = None
         self._ann_gen += 1
         self._dev_scales = None
+        self._sharded = None
         self._fp_cache = None
         self._fp_cache_n = 0
         if n == 0:
             self._dev_x = None
             self._capacity = 0
+        elif self.mesh is not None:
+            self._upload_to_mesh(n)
+            return
         elif self._container.dtype == "int8":
             # int8 rows go up as they are; the row normalization is folded
             # into the per-row scale (dividing a row by its norm is dividing
@@ -293,6 +313,33 @@ class UnifiedIndex:
             self._rebuild_deleted_mask()
         self._restore_or_build_ann()
 
+    def _upload_to_mesh(self, n: int) -> None:
+        """Rows onto the mesh's shards: int8 rows and their folded scales as
+        the single-device upload makes them; bf16/f32 rows normalized by the
+        single-device upload's code into a buffer of the mesh's padded size,
+        whose rows the shards view (or copy, on distinct devices)."""
+        from ..parallel.sharded_search import ShardedIndexSearcher
+
+        assert self._container is not None
+        self._deleted = set(self._container.deleted_rows())
+        if self._container.dtype == "int8":
+            rows = np.empty((n, self._container.dim), np.int8)
+            scales = np.empty((n,), np.float32)
+            self._quantized_into(rows, scales)
+            self._sharded = ShardedIndexSearcher(self.mesh)
+            self._sharded.load_int8(rows, scales, deleted_rows=self._deleted)
+        else:
+            dtype = (torch.bfloat16 if self._container.dtype == "bfloat16"
+                     else torch.float32)
+            self._sharded = ShardedIndexSearcher(self.mesh, dtype=dtype)
+            cap = _ceil_to(n, self._sharded.n_devices * TILE_N)
+            self._sharded.load(self._rows_to_device(n, cap), deleted_rows=self._deleted,
+                               n_rows=n)
+        self._capacity = self._sharded.capacity
+        self._dev_x = None
+        self._dev_deleted = None
+        self._restore_or_build_ann()
+
     # -- ANN (IVF approximate search, ops.ann) -----------------------------
 
     def _restore_or_build_ann(self) -> None:
@@ -301,7 +348,7 @@ class UnifiedIndex:
         enables ANN. A failed build logs and serves dense search."""
         self._ann = None
         self._ann_gen += 1
-        if self._dev_x is None:
+        if self._dev_x is None and self._sharded is None:
             return
         if (not self._restore_persisted_ann() and self.config.ann
                 and not self._ann_autobuild_suppressed):
@@ -355,6 +402,8 @@ class UnifiedIndex:
             return False
         self._ann = state
         self._ann_gen += 1
+        if self._sharded is not None:
+            self._sharded.set_ann(state)
         # the knobs tuned or measured on this corpus come back, but only where
         # the live config still holds the dataclass default (an explicitly
         # set value is never clobbered by a stale build-time one)
@@ -383,6 +432,11 @@ class UnifiedIndex:
         in place (appends write past it, deletes only mask). Rows appended
         meanwhile ride the fresh structure's tail; a remap (reload, compact,
         close) seen at install time retries the build, at most three times.
+        On a mesh the build runs over the shards
+        (``parallel.sharded_ann.build_ivf_sharded``: the state equals the
+        single-device build's) and the state is partitioned over them. The
+        JAX index's retry for a buffer donated by a concurrent append has no
+        counterpart: torch donates no buffer.
         ``persist`` stores the structure in a writable container.
         ``check_recall`` (default: on when ``config.ann_target_recall`` is
         set) samples recall against the exact path afterwards and climbs the
@@ -399,12 +453,24 @@ class UnifiedIndex:
                     "rebuilt concurrently (the previous ANN structure, if any, is still "
                     "serving)")
             with self._lock:
-                if self._dev_x is None or self._n_valid == 0:
+                sharded = self._sharded
+                if (self._dev_x is None and sharded is None) or self._n_valid == 0:
                     raise RuntimeError("no device rows loaded")
-                x, scales = self._dev_x, self._dev_scales
+                if sharded is not None:
+                    x, scales = sharded._x, sharded._scales
+                else:
+                    x, scales = self._dev_x, self._dev_scales
                 snap_n, snap_gen = self._n_valid, self._rows_gen
-            state, report = ann.build_ivf(x, n_rows=snap_n, x_scales=scales,
-                                          nlist=nlist or self.config.ann_nlist, **build_kwargs)
+            if sharded is not None:
+                from ..parallel.sharded_ann import build_ivf_sharded
+
+                state, report = build_ivf_sharded(x, snap_n, scales,
+                                                  nlist=nlist or self.config.ann_nlist,
+                                                  **build_kwargs)
+            else:
+                state, report = ann.build_ivf(x, n_rows=snap_n, x_scales=scales,
+                                              nlist=nlist or self.config.ann_nlist,
+                                              **build_kwargs)
             with self._lock:
                 if self._rows_gen != snap_gen:
                     remap_retries += 1
@@ -413,6 +479,8 @@ class UnifiedIndex:
                     continue
                 self._ann = state
                 self._ann_gen += 1
+                if self._sharded is not None:
+                    self._sharded.set_ann(state)
                 if self._n_valid > snap_n:
                     # rows appended mid-build ride the fresh state's tail
                     self._ann_register_append(snap_n, self._n_valid - snap_n)
@@ -550,7 +618,7 @@ class UnifiedIndex:
         with self._lock:
             if self._ann is None:
                 raise RuntimeError("ANN not active; call build_ann() first")
-            if self._dev_x is None:
+            if self._dev_x is None and self._sharded is None:
                 raise RuntimeError("no device rows loaded")
             snap_gen, snap_ann_gen = self.generation, self._ann_gen
             nprobe = int(self.config.ann_nprobe)
@@ -626,6 +694,8 @@ class UnifiedIndex:
             was_active = self._ann is not None
             self._ann = None
             self._ann_gen += 1
+            if self._sharded is not None:
+                self._sharded.clear_ann()
             dropped = False
             if self._container is not None and self._container.mode != "r":
                 self._container.drop_ann()
@@ -634,7 +704,10 @@ class UnifiedIndex:
 
     def _ann_register_append(self, start: int, count: int) -> None:
         """Track appended rows in the IVF tail; on overflow serve dense
-        search until the next :meth:`build_ann`."""
+        search until the next :meth:`build_ann`. On a mesh the partitioned
+        tails follow the global state; where the append re-sharded (new
+        shard size, the partition cleared) the whole state is partitioned
+        again."""
         if self._ann is None or count == 0:
             return
         try:
@@ -644,7 +717,15 @@ class UnifiedIndex:
                 "IVF tail full after append; reverting to dense search until build_ann() "
                 "is called again")
             self._ann = None
+            if self._sharded is not None:
+                self._sharded.clear_ann()
         self._ann_gen += 1
+        if self._ann is not None and self._sharded is not None:
+            if self._sharded.ann_active:
+                self._sharded.update_ann_tail(self._ann.tail_ids.cpu().numpy(),
+                                              int(self._ann.tail_count))
+            else:
+                self._sharded.set_ann(self._ann)
 
     def _read_rows_raw(self, n: int) -> np.ndarray:
         """Rows in their storage form (uint16 bf16 bits / f16 / f32): the
@@ -770,9 +851,22 @@ class UnifiedIndex:
 
     def _append_device_rows(self, rows: np.ndarray) -> None:
         """Append normalized rows into the padded capacity in place; past
-        the capacity, re-upload everything from the container."""
+        the capacity, re-upload everything from the container (a mesh's
+        searcher re-shards its rows instead)."""
         m = len(rows)
         if m == 0:
+            return
+        if self._sharded is not None:
+            # in place into the owning shards, or a re-shard carrying the
+            # tombstones (the searcher decides)
+            start = self._n_valid
+            if self._sharded._scales is not None:
+                self._sharded.append_quantized(*self._quantize_like_upload(rows))
+            else:
+                self._sharded.append(np.asarray(rows, np.float32))
+            self._n_valid += m
+            self._capacity = self._sharded.capacity
+            self._ann_register_append(start, m)
             return
         if self._dev_x is None or self._n_valid + m > self._capacity:
             self._reload_for_append()
@@ -921,12 +1015,13 @@ class UnifiedIndex:
         as many candidates are fetched and rescored at full precision.
         """
         with self._lock:
-            if self._dev_x is None or self._n_valid == 0:
+            if (self._dev_x is None and self._sharded is None) or self._n_valid == 0:
                 return [[] for _ in range(len(np.atleast_2d(query_vectors)))]
             q = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
             q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
             fetch = min(self._n_valid, top_k * over_fetch if filter_fn else top_k)
-            rescore_fp = (self.config.int8_rescore and self._dev_scales is not None
+            rescore_fp = (self.config.int8_rescore and self._container is not None
+                          and self._container.dtype == "int8"
                           and getattr(self._container, "has_fp_rows", False))
             want = fetch
             if rescore_fp:
@@ -940,7 +1035,10 @@ class UnifiedIndex:
                 raise ValueError(f"nprobe must be positive, got {nprobe}")
             else:
                 nprobe_eff = int(nprobe)
-            if use_ann:  # IVF latency mode
+            if use_ann and self._sharded is not None:
+                # the sharded IVF: equal to the single-device IVF's answer
+                result = self._sharded.search_ann(q, fetch, nprobe=nprobe_eff)
+            elif use_ann:  # IVF latency mode
                 result = ann.ivf_topk(
                     self._dev_x,
                     self._ann,
@@ -951,6 +1049,8 @@ class UnifiedIndex:
                     deleted=self._dev_deleted,
                     x_scales=self._dev_scales,
                 )
+            elif self._sharded is not None:  # the mesh
+                result = self._sharded.search(q, fetch)
             elif self._dev_scales is not None:  # int8
                 result = topk_search_int8(
                     self._dev_x,
@@ -1179,7 +1279,10 @@ class UnifiedIndex:
             self._container.flush_checkpoint()
             self._deleted.update(fresh)
             self.generation += 1
-            self._rebuild_deleted_mask()
+            if self._sharded is not None:
+                self._sharded.set_deleted(self._deleted)
+            else:
+                self._rebuild_deleted_mask()
         return {"deleted": len(fresh), "num_live": self.num_live}
 
     def delete_keys(self, keys: Sequence[tuple[str, str]]) -> dict[str, Any]:

@@ -44,7 +44,7 @@ set; recall is set by ``nprobe`` / ``nlist`` and measured per corpus
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -56,6 +56,7 @@ __all__ = [
     "IVFState",
     "IVFBuildReport",
     "build_ivf",
+    "build_ivf_from",
     "ivf_topk",
     "tail_append",
     "default_nlist",
@@ -284,6 +285,34 @@ def build_ivf(
     n_pad_src = int(x.shape[0])
     n = n_pad_src if n_rows is None else int(n_rows)
     assert 0 < n <= n_pad_src, f"n_rows {n} out of range"
+    return build_ivf_from(lambda idx: _rows_f32(x, x_scales, idx),
+                          lambda c, a_top: _assign(x, x_scales, c, n, a_top),
+                          n, n_pad_src, x.device, nlist=nlist, bucket_cap=bucket_cap,
+                          cap_factor=cap_factor, spill_rounds=spill_rounds,
+                          kmeans_iters=kmeans_iters, sample_per_list=sample_per_list,
+                          seed=seed)
+
+
+def build_ivf_from(
+    sample_rows: Callable[[np.ndarray], torch.Tensor],
+    assign: Callable[[torch.Tensor, int], tuple[torch.Tensor, torch.Tensor]],
+    n: int,
+    n_pad_src: int,
+    device: torch.device,
+    nlist: int | None = None,
+    bucket_cap: int | None = None,
+    cap_factor: float = 1.5,
+    spill_rounds: int = 4,
+    kmeans_iters: int = 10,
+    sample_per_list: int = 128,
+    seed: int = 0,
+) -> tuple[IVFState, IVFBuildReport]:
+    """:func:`build_ivf` over rows reached through two callables:
+    ``sample_rows(ids)`` gives the f32 rows of the sorted ids on ``device``
+    (k-means runs there) and ``assign(centroids, a_top)`` the top-``a_top``
+    centroid ids and similarities of every row, ``(n_pad_src, a_top)`` on
+    ``device``. The bucketing runs on ``device``. ``parallel.sharded_ann``
+    builds over row shards this way."""
     if nlist is None:
         nlist = default_nlist(n)
     nlist = int(min(nlist, max(64, n)))
@@ -296,19 +325,19 @@ def build_ivf(
     rng = np.random.default_rng(seed)
     idx = (np.arange(n) if sample_n >= n
            else np.sort(rng.choice(n, size=sample_n, replace=False)))
-    sample = _rows_f32(x, x_scales, idx)
+    sample = sample_rows(idx)
     centroids = _spherical_kmeans(sample, nlist, kmeans_iters, seed)
     del sample
 
     # --- full-corpus top-A assignment (chunked sweeps) ----------------------
     a_top = int(min(spill_rounds, nlist))
-    choice_c, choice_s = _assign(x, x_scales, centroids, n, a_top)
+    choice_c, choice_s = assign(centroids, a_top)
 
     # --- capacity bucketing with spill (sort passes) ------------------------
     def _bucket(cap: int):
-        bucket_flat = torch.full((nlist * cap + 1,), -1, dtype=torch.int32, device=x.device)
-        placed = torch.zeros((n_pad_src,), dtype=torch.bool, device=x.device)
-        fill = torch.zeros((nlist,), dtype=torch.int64, device=x.device)
+        bucket_flat = torch.full((nlist * cap + 1,), -1, dtype=torch.int32, device=device)
+        placed = torch.zeros((n_pad_src,), dtype=torch.bool, device=device)
+        fill = torch.zeros((nlist,), dtype=torch.int64, device=device)
         for a in range(a_top):
             bucket_flat, placed, fill = _bucket_pass(
                 bucket_flat, placed, fill, choice_c[:, a], choice_s[:, a], n, nlist, cap)

@@ -1,0 +1,27 @@
+"""Multi-device scale: the mesh, sharded search and sharded IVF.
+
+Port of ``intelligent_video_analysis_retrieval_system_tpu/parallel``: the
+embedding rows shard over a device mesh (``mesh.py``), every shard runs the
+single-device search (kernels B1 and B2 on a card) and one merge combines
+their candidates (``sharded_search.py``); the IVF mode partitions its
+buckets over the same shards (``sharded_ann.py``); a process group spans
+hosts (``distributed.py``). This replaces the reference's LAN fan-out of
+queries to peer nodes. Distributed training (``train.py``: ``CLIPTrainer``,
+``TrainConfig``) is ported in a later change.
+"""
+
+from .mesh import Mesh, MeshSpec, create_mesh, device_info
+from .sharded_ann import ShardedIVF, make_sharded_ivf, sharded_ivf_topk
+from .sharded_search import ShardedIndexSearcher, sharded_topk
+
+__all__ = [
+    "Mesh",
+    "MeshSpec",
+    "create_mesh",
+    "device_info",
+    "ShardedIndexSearcher",
+    "ShardedIVF",
+    "make_sharded_ivf",
+    "sharded_ivf_topk",
+    "sharded_topk",
+]

@@ -41,8 +41,9 @@ Not ported yet: the five ``/api/network/*`` routes (the P2P layer,
 Socket.IO wire (``/socket.io/``) is absent. Where the framework alone makes
 the two servers differ: an unknown path answers 404 and a known path asked
 with another method 405, a body over the 64 MiB cap 413, each with a JSON
-envelope (aiohttp answers these in plain text); no server-side WebSocket
-heartbeat. Facade work holds one of ``api.executor_workers`` slots (default
+envelope (aiohttp answers these in plain text). ``/ws`` has the JAX
+server's heartbeat (``WS_HEARTBEAT_S``): a ping every 30 s, and a socket
+whose pong has not come half an interval later is dropped. Facade work holds one of ``api.executor_workers`` slots (default
 128), the width of the JAX server's executor.
 """
 
@@ -72,6 +73,10 @@ __all__ = ["RetrievalServer"]
 MAX_BODY = 64 * 1024 * 1024   # aiohttp's client_max_size in the JAX server
 KEEPALIVE_S = 75.0            # an idle keep-alive connection closes after this
 LINGER_S = 10.0               # at most this long to drain a body left unread
+# /ws heartbeat, the JAX server's WebSocketResponse(heartbeat=30): a ping this
+# often, and a socket whose pong has not come half an interval later is
+# closed and no longer gets broadcasts (aiohttp's rule)
+WS_HEARTBEAT_S = 30.0
 
 
 def _with_ann_warm(index, action, **kwargs):
@@ -1056,13 +1061,36 @@ class RetrievalServer:
         sock = wsf.WebSocket(conn.connection, conn.rfile, client=False, max_size=MAX_BODY)
         with self._conns_lock:
             self._ws_clients.add(sock)
+        stop = threading.Event()
+        threading.Thread(target=self._ws_heartbeat, args=(sock, stop, WS_HEARTBEAT_S),
+                         name="ws-heartbeat", daemon=True).start()
         try:
             self._ws_loop(sock, self._client_id(request))
         finally:
+            stop.set()
             with self._conns_lock:
                 self._ws_clients.discard(sock)
             sock.close()
         return None
+
+    def _ws_heartbeat(self, sock: wsf.WebSocket, stop: threading.Event,
+                      interval: float) -> None:
+        """Ping ``sock`` every ``interval`` seconds; where no pong has come
+        half an interval after a ping, drop the socket from the broadcast set
+        and abort it (its receive loop then ends)."""
+        while not stop.wait(interval):
+            sent = time.monotonic()
+            try:
+                sock.send(wsf.PING, b"")
+            except OSError:
+                return
+            if stop.wait(interval / 2):
+                return
+            if sock.pong_at < sent:
+                with self._conns_lock:
+                    self._ws_clients.discard(sock)
+                sock.abort()
+                return
 
     def _ws_loop(self, sock: wsf.WebSocket, client: str) -> None:
         while True:

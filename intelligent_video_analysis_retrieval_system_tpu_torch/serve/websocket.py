@@ -24,6 +24,7 @@ import os
 import socket
 import struct
 import threading
+import time
 from typing import Any, BinaryIO, Callable
 
 __all__ = ["GUID", "CONT", "TEXT", "BINARY", "CLOSE", "PING", "PONG", "ProtocolError",
@@ -114,8 +115,9 @@ class WebSocket:
     :meth:`send` holds a lock, so that a frame sent from another thread (a
     server's broadcast) never interleaves with a reply on the wire.
     :meth:`receive` returns the next whole data message, answering pings on
-    the way; a close frame is answered once and returned as ``(CLOSE,
-    payload)``.
+    the way and noting when a pong came (``pong_at``, ``time.monotonic``);
+    a close frame is answered once and returned as ``(CLOSE, payload)``.
+    :meth:`abort` drops the connection without a close frame.
     """
 
     def __init__(self, sock: socket.socket, rfile: BinaryIO, client: bool,
@@ -125,6 +127,7 @@ class WebSocket:
         self.client = client
         self.max_size = max_size
         self.closed = False
+        self.pong_at = time.monotonic()
         self._send_lock = threading.Lock()
 
     def send(self, opcode: int, payload: bytes) -> None:
@@ -145,6 +148,7 @@ class WebSocket:
                 self.send(PONG, payload)
                 continue
             if op == PONG:
+                self.pong_at = time.monotonic()
                 continue
             if op == CLOSE:
                 code = struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else 1000
@@ -171,6 +175,17 @@ class WebSocket:
                     CLOSE, struct.pack("!H", code) + reason.encode()[:123], mask=self.client))
             except OSError:
                 pass
+
+
+    def abort(self) -> None:
+        """Drop the connection at once, without a close frame (later sends
+        raise; a blocked :meth:`receive` sees the end of the stream)."""
+        with self._send_lock:
+            self.closed = True
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
 
 
 class WebSocketClient(WebSocket):

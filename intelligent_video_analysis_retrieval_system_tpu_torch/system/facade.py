@@ -22,11 +22,14 @@ them, so the towers start static at once.
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
 kernels' plain versions); the embedder, the index and video ingest share
-it. ``start_server`` serves the system over REST and WebSocket
+it; with a ``mesh`` (``parallel.create_mesh``) every index it builds or
+loads shards its rows over the mesh's devices instead (the embedder stays on
+``device``). ``start_server`` serves the system over REST and WebSocket
 (``serve/rest.py``, on the standard library), ``start_gui`` the web console
 the same way, and ``cleanup`` stops the server. Not ported yet, raising
 ``NotImplementedError`` that names the later change: the LLM processor
-(``enable_llm``); P2P fan-in over remote indexes comes with the P2P layer.
+(``enable_llm``); P2P fan-in over remote indexes comes with the P2P layer
+(``remote_indexes`` stays empty until then).
 """
 
 from __future__ import annotations
@@ -98,11 +101,16 @@ class EnhancedRetrievalSystem:
         device: torch.device | str = "cuda",
         mesh: Any | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device search is ported in a later change")
+        """``mesh``: an optional ``parallel.Mesh`` with an ``"index"`` axis:
+        every index this system builds or loads shards its rows over the
+        mesh's devices (bf16/f32 and the int8 capacity mode alike), the
+        multi-device search that replaces the reference's fan-out to peers."""
         self.config = config or Config(config_file=None)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # P2P peers' indexes (serve/p2p.py in the JAX package): none until the
+        # P2P layer is ported
+        self.remote_indexes: list[Any] = []
         self.logger = logger or get_logger(
             "ivars",
             logs_dir=self.config.path("logs_dir")
@@ -217,13 +225,14 @@ class EnhancedRetrievalSystem:
             progress_fn=lambda stage, done, total: self._emit(
                 "build_progress", stage=stage, done=done, total=total
             ),
+            mesh=self.mesh,
             device=self.device,
         )
 
     def load_system(self, index_path: str | Path, writable: bool = False) -> None:
         """Open an ``.rvdb`` index on the device and rebuild metadata."""
         with self.perf.timer("load_system"):
-            index = UnifiedIndex(self._index_config(), device=self.device)
+            index = UnifiedIndex(self._index_config(), device=self.device, mesh=self.mesh)
             index.load_unified_index(index_path, mode="a" if writable else "r")
             self._adopt_index(index)
             self._wire_act_scale_persistence(index_path, import_existing=True)
@@ -249,7 +258,10 @@ class EnhancedRetrievalSystem:
         ``UnifiedIndex.attach_container``). An index with a path is a load:
         with int8_static its scales file beside it is read, as
         ``load_system`` reads it."""
-        if index.device != self.device:
+        if self.mesh is not None or index.mesh is not None:
+            if index.mesh is not self.mesh:
+                raise ValueError("the index and the system are on different meshes")
+        elif index.device != self.device:
             raise ValueError(f"index on {index.device}, system on {self.device}")
         self._adopt_index(index)
         if index.path is not None:
@@ -721,6 +733,7 @@ class EnhancedRetrievalSystem:
             "cache": self.cache.get_stats(),
             "performance": self.perf.get_stats(),
             "metadata": self.metadata.stats(),
+            "remote_indexes": len(self.remote_indexes),
         }
         if self.index is not None:
             stats["index"] = self.index.get_stats()
@@ -728,14 +741,16 @@ class EnhancedRetrievalSystem:
 
 
 def create_system(config_file: str | Path | None = None,
-                  torch_device: torch.device | str = "cuda", **overrides: Any):
+                  torch_device: torch.device | str = "cuda", mesh: Any | None = None,
+                  **overrides: Any):
     """Convenience factory: a system on ``torch_device`` (the default
     ``"cuda"`` raises where CUDA is missing; ``"cpu"`` runs the kernels'
-    plain versions). ``overrides`` are config sections, as in the JAX
+    plain versions). Pass ``mesh`` to shard every built or loaded index over
+    a device mesh. ``overrides`` are config sections, as in the JAX
     package (e.g. ``device={"compute_dtype": "float32"}``)."""
     return EnhancedRetrievalSystem(
         Config(config_file=config_file, overrides=overrides or None),
-        device=torch_device,
+        device=torch_device, mesh=mesh,
     )
 
 

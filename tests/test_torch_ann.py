@@ -841,7 +841,10 @@ def test_bench_ivf_section_small(monkeypatch):
     embedder = CLIPEmbedder(config=CLIPConfig.tiny_test(), device="cpu")
     out = headline.ivf_10M(torch.device("cpu"), embedder, 4096, verify=verify)
     assert set(out) == {"ivf_build_10M_s", "ivf_nlist", "ivf_bucket_cap",
-                        "latency_10M_int8_ivf_np16_p50_ms", "latency_10M_int8_ivf_np64_p50_ms"}
+                        "latency_10M_int8_ivf_np16_p50_ms", "latency_10M_int8_ivf_np64_p50_ms",
+                        "latency_10M_int8_sharded_ivf_np32_p50_ms"}
     assert out["ivf_nlist"] == ann.default_nlist(4096)
-    assert checked == [("ivf_10M", 16, 100), ("ivf_10M", 64, 100)]
+    # the sharded IVF point: the same state on a one-device mesh, nprobe 32
+    assert checked == [("ivf_10M", 16, 100), ("ivf_10M", 64, 100),
+                       ("sharded_ivf_10M", 32, 100)]
     assert "ivf_10M" not in headline.NOT_PORTED

@@ -71,7 +71,7 @@ def test_bench_prints_one_json_line_with_the_jax_key_names(narrow_towers, capsys
     extra = result["extra"]
     assert list(extra)[0] == "gpu" and extra["gpu"] is None and extra["device"] == "cpu"
     assert list(extra)[-1] == "not_ported"
-    assert extra["not_ported"] == ["sharded_1M", "anchor_1M25"]
+    assert extra["not_ported"] == []
     assert extra["tokenizer_kind"] == "hash_fallback"
     assert extra["image_tower"] == "ViT-B/32" and extra["image_tower_fps"] > 0
     assert extra["image_tower_batch"] == 8
@@ -82,7 +82,14 @@ def test_bench_prints_one_json_line_with_the_jax_key_names(narrow_towers, capsys
     assert extra["headline_device_p50_ms"] is None        # no device time on the CPU
     for key in ("served_qps_1M", "served_p50_ms", "served_p95_ms", "served_avg_batch"):
         assert extra[key] > 0                             # served_qps runs with --skip-10m
-    assert not any("10M" in key for key in extra)         # --skip-10m
+    # the sharded sections: the headline query on a one-device mesh, and the
+    # anchor (one card's shard of ten times --rows over 8 cards, bf16 and int8)
+    anchor = ("latency_10M_8chip_anchor_ms", "latency_10M_8chip_anchor_p95_ms",
+              "latency_10M_8chip_anchor_int8_ms")
+    for key in ("latency_1M_sharded_1dev_p50_ms",) + anchor:
+        assert extra[key] > 0
+    assert extra["anchor_rows"] == 25_000
+    assert not any("10M" in key for key in extra if key not in anchor)   # --skip-10m
 
 
 def test_bench_needs_a_card_unless_the_cpu_is_asked_for():
@@ -97,8 +104,14 @@ def test_headline_answers_equal_jax_topk_search(narrow_towers):
     embedder = CLIPEmbedder(device=CPU)
     out = headline.headline_1M(CPU, embedder, 20_000, verify=lambda *args: seen.append(args))
     assert out["metric"] == "e2e_text_query_latency_20k_index" and out["queries"] == 100
-    (section, x, scales, n_valid, q, result), = seen
+    (section, x, scales, n_valid, q, result), sharded = seen
     assert section == "headline_1M" and scales is None and n_valid == 20_000
+    # the sharded section: the same rows and queries through sharded_topk on a
+    # one-device mesh answer as topk_search does (one shard: the same sweep)
+    assert sharded[0] == "sharded_1M" and sharded[1] is x and torch.equal(sharded[4], q)
+    assert torch.equal(sharded[5].indices, result.indices)
+    assert torch.equal(sharded[5].scores, result.scores)
+    assert out["extra"]["latency_1M_sharded_1dev_p50_ms"] > 0
     assert x.dtype == torch.bfloat16 and x.shape == (20_480, 32)
     assert q.shape == (100, 32) and result.indices.shape == (100, headline.K)
     # every query differs (token 1 is salted) and is a unit vector
@@ -178,6 +191,46 @@ def test_int8_section_equals_jax_topk_search_int8_bit_for_bit(narrow_towers):
         np.testing.assert_array_equal(result.indices.numpy(), order)
         np.testing.assert_array_equal(result.scores.numpy(),
                                       np.take_along_axis(spec, order, axis=1))
+
+
+def test_anchor_section_equals_the_jax_sharded_searchers(narrow_towers):
+    """The anchor at 4,096 rows (5,120 in the shard): bf16 answers tie-aware
+    equal to JAX ``sharded_topk`` on a one-device mesh, int8 ids equal to
+    JAX ``sharded_topk_int8`` and scores within 2 ulps (jitted), and bit for
+    bit the port's single-device ``topk_search_int8``."""
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from intelligent_video_analysis_retrieval_system_tpu.parallel import sharded_search as jss
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.quant import (
+        topk_search_int8,
+    )
+
+    seen = []
+    embedder = CLIPEmbedder(device=CPU)
+    out = headline.anchor_1M25(CPU, embedder, 4096, verify=lambda *args: seen.append(args))
+    assert out["anchor_rows"] == 5120
+    for key in ("latency_10M_8chip_anchor_ms", "latency_10M_8chip_anchor_p95_ms",
+                "latency_10M_8chip_anchor_int8_ms"):
+        assert out[key] > 0
+    assert [s[0] for s in seen] == ["anchor_1M25", "anchor_1M25_int8"]
+    mesh = Mesh(np.array(jax.devices()[:1]), ("index",))
+    rows = NamedSharding(mesh, P("index", None))
+    (_, x, _, n, q, res), (_, x8, s8, n8, q8, res8) = seen
+    jx = jax.device_put(jnp.asarray(x.float().numpy(), jnp.bfloat16), rows)
+    jres = jss.sharded_topk(mesh, jx, jnp.asarray(q.float().numpy(), jnp.bfloat16),
+                            headline.K, n, use_pallas=False)
+    for i in range(len(q)):
+        tie_aware_equal(res.indices[i].numpy(), res.scores[i].numpy(),
+                        np.asarray(jres.indices)[i], np.asarray(jres.scores)[i])
+    jres8 = jss.sharded_topk_int8(
+        mesh, jax.device_put(jnp.asarray(x8.numpy()), rows),
+        jax.device_put(jnp.asarray(s8.numpy()[:, None]), rows), jnp.asarray(q8.numpy()),
+        headline.K, n8, use_pallas=False)
+    np.testing.assert_array_equal(res8.indices.numpy(), np.asarray(jres8.indices))
+    np.testing.assert_array_max_ulp(res8.scores.numpy(), np.asarray(jres8.scores), maxulp=2)
+    single = topk_search_int8(x8, s8, q8, headline.K, n_valid=n8)
+    assert torch.equal(res8.indices, single.indices) and torch.equal(res8.scores, single.scores)
 
 
 def test_served_qps_answers_equal_jax_topk_search(narrow_towers):

@@ -284,8 +284,11 @@ def test_builder_defaults_to_the_card_and_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             RAGBuilder(embed_fn, DIM)                    # device defaults to "cuda"
-    with pytest.raises(NotImplementedError):
-        RAGBuilder(embed_fn, DIM, device="cpu", mesh=object())
+    # the mesh is ported (tests/test_torch_parallel.py): the built index shards over it
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(devices=["cpu"] * 2)
+    assert RAGBuilder(embed_fn, DIM, device="cpu", mesh=mesh).mesh is mesh
     builder = RAGBuilder(lambda b: np.zeros((len(b), DIM + 1), np.float32), DIM,
                          input_size=SIZE, device="cpu")
     assert builder.device.type == "cpu" and builder._ordinal_of("frame_0012.jpg") == 12

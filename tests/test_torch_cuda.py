@@ -54,6 +54,14 @@ the softmax's last bits differ), >= 0.999 for the layer (its bf16
 projections round apart, and p8's fixed 1/127 step amplifies that); a W8A8-static tower calibrated on the card against the same on
 the CPU (cosine >= 0.999, six products a layer, B3 once a layer unless
 ``int8_attn``); the ``int8_static`` embedder freezing after four batches.
+
+Multi-device search (``parallel/``) over one card's logical shards
+(``["cuda:0"] * n``, views of one buffer): ``sharded_topk`` (B1 per shard)
+tie-aware equal to the single-device ``topk_search``, ``sharded_topk_int8``
+(B2 per shard) and ``sharded_ivf_topk`` ``torch.equal`` to the
+single-device searches, the launch counts growing by the shards a call; a
+mesh-backed index on the card answering as the single-device one. Shards on
+distinct cards need more than one card and are not tested here.
 """
 
 import pytest
@@ -1197,3 +1205,139 @@ def test_embedder_int8_static_on_card(cuda_device):
     out = emb.encode_text(["a static query", "another"])
     assert tq.w8a8_dense.calls - calls == 6 * 2 and np.isfinite(out).all()
     assert emb.model.text_model.encoder.layers[0].self_attn.q_proj.act_scale.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# multi-device search over logical shards of the card
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(n: int):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+    )
+
+    return create_mesh(MeshSpec(axis_names=("index",), shape=(n,)), devices=["cuda:0"] * n)
+
+
+def test_create_mesh_on_the_card(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh()
+    assert mesh.shape["index"] == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in mesh.devices.flat)
+    with pytest.raises(ValueError):
+        create_mesh(devices=["cuda:0", "cpu"])
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("b", [1, 8, 33])
+def test_sharded_b1_equals_single_device(cuda_device, n_shards, b):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_search import (
+        place_rows,
+        sharded_topk,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(b)
+    n_pad, d, n = 4 * 3 * ttopk.TILE_N, 768, 4 * 3 * ttopk.TILE_N - 777
+    x = torch.randn(n_pad, d, generator=gen, device=cuda_device)
+    x = (x / x.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    q = torch.randn(b, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    dead = (torch.rand(n_pad, generator=gen, device=cuda_device) < 1e-2).to(torch.int8)
+    mesh = _card_mesh(n_shards)
+    xs, ds = place_rows(mesh, x, n_pad), place_rows(mesh, dead, n_pad)
+    assert xs.buffer is x
+    before = ttopk.chunk_max_sweep.launches
+    got = sharded_topk(mesh, xs, q, 20, n, deleted_sharded=ds)
+    assert ttopk.chunk_max_sweep.launches - before == n_shards
+    ref = ttopk.topk_search(x, q, 20, n_valid=n, deleted=dead)
+    for i in range(b):
+        tie_aware_equal(got.indices[i].cpu().numpy(), got.scores[i].cpu().numpy(),
+                        ref.indices[i].cpu().numpy(), ref.scores[i].cpu().numpy())
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("b", [1, 8, 100])
+def test_sharded_b2_equals_single_device(cuda_device, n_shards, b):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_search import (
+        place_rows,
+        sharded_topk_int8,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + b)
+    n_pad, d, n = 4 * 3 * ttopk.TILE_N, 768, 4 * 3 * ttopk.TILE_N - 1500
+    x8 = torch.randint(-127, 128, (n_pad, d), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    xs = (torch.rand(n_pad, generator=gen, device=cuda_device) * 0.2 + 0.9) / 127.0
+    x8[[7, 5000, 9000, 20000]] = x8[3].clone()   # ties across shards
+    xs[[7, 5000, 9000, 20000]] = xs[3].clone()
+    q = torch.randn(b, d, generator=gen, device=cuda_device)
+    q[0] = x8[3].float()
+    mesh = _card_mesh(n_shards)
+    before = tq.int8_chunk_max_sweep.launches
+    got = sharded_topk_int8(mesh, place_rows(mesh, x8, n_pad), place_rows(mesh, xs, n_pad), q,
+                            20, n)
+    assert tq.int8_chunk_max_sweep.launches - before == \
+        n_shards * -(-ttopk.bucket_b(b) // tq._SWEEP_QUERIES)
+    ref = tq.topk_search_int8(x8, xs, q, 20, n_valid=n)
+    assert torch.equal(got.indices, ref.indices) and torch.equal(got.scores, ref.scores)
+    assert got.indices[0, :5].tolist() == [3, 7, 5000, 9000, 20000]
+
+
+def test_sharded_ivf_on_the_card_equals_ivf_topk(cuda_device):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_ann import (
+        make_sharded_ivf,
+        sharded_ivf_topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.sharded_search import (
+        place_rows,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    n_pad, d, n = 4 * 8 * ttopk.TILE_N, 128, 4 * 8 * ttopk.TILE_N - 300
+    x8 = torch.randint(-127, 128, (n_pad, d), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    xs = (torch.rand(n_pad, generator=gen, device=cuda_device) * 0.2 + 0.9) / 127.0
+    state, _ = tann.build_ivf(x8, n_rows=n, x_scales=xs, nlist=64, kmeans_iters=4)
+    mesh = _card_mesh(4)
+    xsh, ssh = place_rows(mesh, x8, n_pad), place_rows(mesh, xs, n_pad)
+    sivf = make_sharded_ivf(mesh, "index", state, xsh.shard_rows)
+    for nprobe in (4, 64):
+        for b in (1, 8):
+            q = torch.randn(b, d, generator=gen, device=cuda_device)
+            got = sharded_ivf_topk(mesh, xsh, sivf, q, 10, nprobe=nprobe, n_valid=n,
+                                   scales_sharded=ssh)
+            ref = tann.ivf_topk(x8, state, q, 10, nprobe=nprobe, n_valid=n, x_scales=xs)
+            assert torch.equal(got.indices, ref.indices)
+            assert torch.equal(got.scores, ref.scores)
+
+
+def test_mesh_index_on_the_card_answers_as_single_device(cuda_device):
+    import numpy as np
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench.data import (
+        MemoryContainer,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.native import f32_to_bf16
+
+    rng = np.random.default_rng(6)
+    rows = rng.standard_normal((30_000, 256)).astype(np.float32)
+    q = rng.standard_normal((5, 256)).astype(np.float32)
+    indexes = []
+    for mesh in (None, _card_mesh(4)):
+        index = UnifiedIndex(device=cuda_device, mesh=mesh)
+        index.attach_container(MemoryContainer(f32_to_bf16(rows)))
+        indexes.append(index)
+    single, meshed = indexes
+    assert meshed._sharded is not None and meshed._sharded.capacity % (4 * ttopk.TILE_N) == 0
+    before = ttopk.chunk_max_sweep.launches
+    got = meshed.search_vectors(q, top_k=10)
+    assert ttopk.chunk_max_sweep.launches - before == 4
+    want = single.search_vectors(q, top_k=10)
+    for g, w in zip(got, want):
+        tie_aware_equal([h.metadata.row_id for h in g], [h.similarity_score for h in g],
+                        [h.metadata.row_id for h in w], [h.similarity_score for h in w])

@@ -249,10 +249,17 @@ def test_port_container_reads_and_writes_rvdb(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    # the IVF mode is ported (tests/test_torch_ann.py); the mesh is not
+    # the IVF mode is ported (tests/test_torch_ann.py), and the mesh
+    # (tests/test_torch_parallel.py): an index on a CPU mesh lives on the CPU,
+    # and a mesh of another device type than the index's raises
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import create_mesh
+
     assert UnifiedIndex(UnifiedIndexConfig(ann=True), device="cpu").config.ann
-    with pytest.raises(NotImplementedError):
-        UnifiedIndex(device="cpu", mesh=object())
+    mesh = create_mesh(devices=["cpu"] * 4)
+    assert UnifiedIndex(device="cpu", mesh=mesh).device == torch.device("cpu")
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError):
+            UnifiedIndex(device="cuda", mesh=mesh)
 
 
 def test_cuda_device_without_cuda_raises():

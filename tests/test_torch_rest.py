@@ -473,6 +473,78 @@ def test_ws_event_answers_as_the_jax_server(pair, name, message):
                                         "metadata", "index"}
 
 
+def test_stats_keys_are_the_jax_servers(pair):
+    """``stats`` of ``GET /api/stats`` and of the ``/ws`` ``system_stats``
+    event carry the JAX server's keys (``remote_indexes`` among them, 0 with
+    no peers), plus the port's ``device``."""
+    (_, jb), (_, pb) = (parsed(a) for a in pair.both("GET", "/api/stats"))
+    assert set(pb["stats"]) == set(jb["stats"]) | {"device"}
+    assert pb["stats"]["remote_indexes"] == jb["stats"]["remote_indexes"] == 0
+    replies = []
+    for port in (pair.jport, pair.tport):
+        with WebSocketClient("127.0.0.1", port, timeout=60) as ws:
+            ws.send_json({"event": "system_stats"})
+            replies.append(ws.receive_json())
+    assert set(replies[1]["stats"]) == set(replies[0]["stats"]) | {"device"}
+
+
+def _ws_registered(server, want: int, within: float) -> bool:
+    deadline = time.monotonic() + within
+    while time.monotonic() < deadline:
+        with server._conns_lock:
+            if len(server._ws_clients) == want:
+                return True
+        time.sleep(0.02)
+    return False
+
+
+def test_ws_heartbeat_drops_a_client_that_never_answers_pings(pair, monkeypatch):
+    """The JAX server's ``/ws`` heartbeat (aiohttp ``heartbeat=30``): a ping
+    every interval, and a socket whose pong does not come is closed and
+    leaves the broadcast set; a client that answers stays."""
+    interval = 0.2
+    monkeypatch.setattr(rest, "WS_HEARTBEAT_S", interval, raising=False)
+    server = pair.tserver
+    assert _ws_registered(server, 0, 5.0)
+    silent = WebSocketClient("127.0.0.1", pair.tport, timeout=10)   # never reads
+    answering = WebSocketClient("127.0.0.1", pair.tport, timeout=10)
+    seen: list = []
+
+    def answer() -> None:           # receive() answers each ping with a pong
+        try:
+            seen.append(answering.receive())
+        except OSError as exc:
+            seen.append(exc)
+
+    import threading
+
+    reader = threading.Thread(target=answer, daemon=True)
+    reader.start()
+    try:
+        assert _ws_registered(server, 2, 5.0)
+        t0 = time.monotonic()
+        assert _ws_registered(server, 1, 2.5 * interval + 1.0), "silent client not dropped"
+        assert time.monotonic() - t0 < 2.5 * interval + 1.0
+        # the silent client got pings, then the end of the stream
+        silent.sock.settimeout(5.0)
+        frames = []
+        while True:
+            chunk = silent.sock.recv(4096)
+            if not chunk:
+                break
+            frames.append(chunk)
+        assert frames and frames[0][0] == 0x89          # a final ping frame
+        time.sleep(3 * interval)                        # the answering one stays
+        with server._conns_lock:
+            assert len(server._ws_clients) == 1
+        assert not seen
+    finally:
+        silent.rfile.close()
+        silent.sock.close()
+        answering.shutdown()
+        reader.join(timeout=5)
+
+
 def test_open_autodetect_matches_jax(corpus, tmp_path):
     """/api/open on a .rvdb, a directory scan and a portable package."""
     scan = tmp_path / "scan"
@@ -655,6 +727,7 @@ def test_cli_serve_starts_the_server_on_the_asked_device(corpus, monkeypatch, ca
         seen["search"] = parsed(call(self.port, "POST", "/api/search",
                                      {"query": "a person", "limit": 2}))
         seen["device"] = str(self.system.device)
+        seen["sharded"] = self.system.index._sharded is not None
 
     monkeypatch.setattr(rest.RetrievalServer, "run", run_then_probe)
     monkeypatch.chdir(corpus["root"])
@@ -665,10 +738,13 @@ def test_cli_serve_starts_the_server_on_the_asked_device(corpus, monkeypatch, ca
     assert seen["block"] is True and seen["device"] == "cpu"
     assert seen["health"][0] == 200 and seen["health"][1]["index_loaded"]
     assert seen["search"][0] == 200 and seen["search"][1]["count"] == 2
+    assert not seen["sharded"]
     with pytest.raises(OSError):                       # cleanup stopped it
         call(port, "GET", "/api/health")
-    with pytest.raises(NotImplementedError):
-        cli.main(["serve", "--mesh", "--device", "cpu"])
+    # --mesh: the index shards over a mesh (one CPU shard) and answers alike
+    assert cli.main(["serve", str(corpus["rvdb"]), "--host", "127.0.0.1", "--port",
+                     str(free_port()), "--device", "cpu", "--mesh"]) == 0
+    assert seen["search"][0] == 200 and seen["search"][1]["count"] == 2 and seen["sharded"]
     args = cli._build_parser().parse_args(["serve"])
     assert (args.device, args.host, args.port, args.index_path) == ("cuda", "0.0.0.0", 5000,
                                                                    None)

@@ -455,10 +455,13 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
 
 def test_unported_entry_points_raise(tmp_path):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
-    for call in (lambda: system.enable_llm(),
-                 lambda: EnhancedRetrievalSystem(device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        system.enable_llm()
+    # ported: the mesh (tests/test_torch_parallel.py)
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(devices=["cpu"] * 2)
+    assert EnhancedRetrievalSystem(device="cpu", mesh=mesh).mesh is mesh
     # ported: the W8A8 tower modes (tests/test_torch_w8a8.py)
     for mode in ("int8", "int8_static"):
         assert CLIPEmbedder(compute_dtype=mode, device="cpu").compute_dtype == mode
