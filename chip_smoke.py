@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build, W8A8, ingest and multi-device search paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build, W8A8, ingest, multi-device search and training paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -214,7 +214,35 @@ non-zero):
             never returned; ``measure_ann_crossover`` over B in {1, ..., 64};
             a reopen with a default config restores ``ann_active``, nprobe
             and ``ann_max_batch``. TF32 must be off.
-13. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
+13. train   CLIP contrastive training (``parallel.CLIPTrainer``). B3 at the
+            training shapes (B = 64, T = 257, D = 1024, 16 heads; one
+            ``(2, 2)`` shard's 32 x 257 x 512, 8 heads; a 4-way shard's 32 x
+            257 x 256, 4 heads; bf16): the forward against its plain version
+            and timed beside SDPA, the gradients through ``fused_mha``
+            ``torch.equal`` to ``_einsum_attention``'s, the einsum-recompute
+            backward timed beside SDPA's backward and forward + backward.
+            Then seeded ViT-L/14 towers in bf16 with remat and B3 on
+            ``create_mesh(MeshSpec(("data", "model"), (1, 1)))``: ``init(0)``
+            and 6 steps on one seeded batch of 64 (raw pixels, tokens ending
+            in the EOT id), every loss finite and the last below the first,
+            step ms p50 over steps 2-6, image-text pairs/s, peak memory, B3
+            launches = 48 a step (24 layers, twice with the recompute). The
+            first step again with every B3 call on its plain version: loss
+            within 2e-3 relative, the gradients' cosine per tower >= 0.999;
+            with ``fused_attn=False`` (bf16 logits) and on a ``(2, 2)`` mesh
+            of logical shards (``["cuda:0"] * 4``: B3 launches 192, every
+            split tensor in 2 shards, one update): loss within 2e-3, cosine
+            >= 0.998 (two bf16 roundings of a near-uniform softmax's
+            gradients sit at 0.9989-0.9993); the ``(1, 1)`` and ``(2, 2)``
+            layouts in f32: loss within 1e-5, cosine >= 0.99999. A
+            checkpoint of step 6 under
+            ``build/chip_smoke/train_phase/`` (deleted at the end) restored
+            ``torch.equal`` on its devices, step 7's loss ``==`` from both
+            states. Train -> deploy: ``trainer.state_dict`` into
+            ``CLIPEmbedder.load_params``, ``encode_images`` of 8 of the
+            batch's images against the trainer's ``encode_image`` of the
+            same normalized pixels (cosine >= 0.999).
+14. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
             of both serving slices, images/s of the build, kernel vs plain
             vs library-call times (CUDA events) beside each kernel's bound.
 
@@ -225,7 +253,8 @@ bench (whose own B1, B2, B3 and B5 launches are printed beside them); B3 and
 B5 carry the ingest path's launches and their DINO shapes beside, and B1,
 B3 and B5 the serve phase's (``serve_launches``) and the int8_static
 facade's (``w8a8_launches``), B1 and B2 the mesh phase's
-(``mesh_launches``). The
+(``mesh_launches``), B3 the training steps' (``train_launches``) and its
+training shapes (``train``). The
 IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -244,8 +273,10 @@ intervals), device ops per call and the milliseconds of each kernel; the
 idle share is 1 - busy / mean untraced wall; then the IVF path at B=1:
 ``search_vectors`` (IVF and ``exact=True``) and the facade's ``search``
 over the 1M clustered bf16 rows, ``ivf_topk`` at nprobe 16 and 64 and
-``topk_search_int8`` over 10M int8 rows. It checks no answers and prints no
-``ok`` line.
+``topk_search_int8`` over 10M int8 rows; last, one training row (phase 13's
+trainer: step, ``value_and_grad`` and ``apply_gradients`` wall p50, then a
+traced step's device busy, idle share, ops and costliest kernels). It checks
+no answers and prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -255,6 +286,7 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -4063,6 +4095,321 @@ def run_ann_int8(device, rows: dict, timer: Timer, n_valid: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: CLIP contrastive training (parallel/train.py; B3 on its path)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 64
+TRAIN_STEPS = 6
+TOL_TRAIN_LOSS = 2e-3   # bf16 loss of another attention route or layout, relative
+COS_TRAIN_GRAD = 0.999  # first-step gradients per tower, B3 against its plain version
+# bf16 first-step gradients of two roundings (the bf16-logit route, the (2, 2)
+# layout's partial sums): at the seeded init the softmax is near uniform, the
+# gradients are small differences of near-equal terms, and their cosine sits
+# at 0.9989-0.9993 on an H100 (text tower lowest; PERF.md section 6)
+COS_TRAIN_GRAD_ROUNDING = 0.998
+TOL_TRAIN_LOSS_F32 = 1e-5     # f32 (1, 1) against (2, 2): the order of f32 sums only
+COS_TRAIN_GRAD_F32 = 0.99999
+
+
+@contextmanager
+def b3_plain_version():
+    """The towers' B3 calls run the kernel's plain version on the card (f32
+    scores and softmax, as the kernel computes them), so that a training
+    step through B3 is held against the same step through its oracle."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import clip
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
+
+    kernel = clip.fused_mha
+    clip.fused_mha = attention._einsum_attention
+    try:
+        yield
+    finally:
+        clip.fused_mha = kernel
+
+
+def check_train_mha(device, gen, timer: Timer, b: int, t: int, d: int, h: int) -> dict:
+    """B3 at a training shape: the forward against its plain version and
+    timed beside SDPA (``check_mha``); the gradients through ``fused_mha``
+    ``torch.equal`` to ``_einsum_attention``'s on the same q, k, v and output
+    gradient (the backward is that einsum, recomputed); the einsum-recompute
+    backward timed beside SDPA's backward and SDPA's forward + backward."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
+
+    out = check_mha(device, gen, timer, b, t, d, h, timed=True)
+    q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+    fused = attention.fused_mha(q, k, v, h)
+    got = torch.autograd.grad(fused, (q, k, v), g, retain_graph=True)
+    want = torch.autograd.grad(attention._einsum_attention(q, k, v, h), (q, k, v), g)
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: the gradients through fused_mha "
+                             "are not the einsum's")
+    g4 = g.view(b, t, h, d // h).transpose(1, 2)
+    lib = sdpa(q, k, v, h)
+    out.update(
+        bwd_ms=timer(lambda: torch.autograd.grad(fused, (q, k, v), g, retain_graph=True),
+                     iters=5),
+        library_bwd_ms=timer(lambda: torch.autograd.grad(lib, (q, k, v), g4, retain_graph=True),
+                             iters=5),
+        library_fwd_bwd_ms=timer(lambda: torch.autograd.grad(sdpa(q, k, v, h), (q, k, v), g4),
+                                 iters=5),
+        # read q, k, v and the output gradient once, write the three gradients;
+        # the scores again (2 B T^2 D) and the four gradient products (8 B T^2 D)
+        bwd_bound=bound(7 * b * t * d * 2, 10.0 * b * t * t * d, "bf16"))
+    log("numbers", f"B3 backward (einsum recompute) B={b} T={t} D={d} H={h}: "
+        f"{out['bwd_ms']:.4f} ms; SDPA backward {out['library_bwd_ms']:.4f} ms, SDPA forward + "
+        f"backward {out['library_fwd_bwd_ms']:.4f} ms; bound {out['bwd_bound']['bound_ms']:.4f} "
+        f"ms ({out['bwd_bound']['bound_by']}); gradients torch.equal to the einsum's")
+    return out
+
+
+def tower_cosines(a: dict, b: dict) -> dict:
+    """Cosine between two gradient state dicts, flattened per tower (the
+    projections with their towers; ``logit_scale`` with neither)."""
+    import torch
+
+    sums = {}
+    for name, x in a.items():
+        tower = ("vision" if name.startswith(("vision_model", "visual_projection")) else
+                 "text" if name.startswith(("text_model", "text_projection")) else None)
+        if tower is None:
+            continue
+        x, y = x.double(), b[name].to(x.device).double()
+        s = sums.setdefault(tower, [0.0, 0.0, 0.0])
+        s[0] += float(torch.sum(x * y))
+        s[1] += float(torch.sum(x * x))
+        s[2] += float(torch.sum(y * y))
+    return {tower: s[0] / (s[1] * s[2]) ** 0.5 for tower, s in sums.items()}
+
+
+def train_setup(device, cfg, batch: int):
+    """A bf16 trainer with the reference's defaults (remat, B3) on a ``(1,
+    1)`` mesh of ``device`` (``create_mesh`` on a card), ``init(0)``, and one
+    seeded batch: raw pixels and tokens ending in the EOT id, the largest,
+    as the reference's tests build them."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        CLIPTrainer,
+        MeshSpec,
+        create_mesh,
+    )
+
+    spec = MeshSpec(("data", "model"), (1, 1))
+    mesh = create_mesh(spec) if device.type == "cuda" else create_mesh(spec, devices=[device])
+    trainer = CLIPTrainer(cfg, mesh)
+    params, opt_state = trainer.init(0)
+    rng = np.random.default_rng(0)
+    size = cfg.vision.image_size
+    pixels = rng.standard_normal((batch, size, size, 3)).astype(np.float32)
+    eot = cfg.text.vocab_size - 1
+    tokens = rng.integers(1, eot, (batch, cfg.text.max_length)).astype(np.int32)
+    tokens[:, -1] = eot
+    return trainer, params, opt_state, pixels, tokens
+
+
+def run_train_phase(device, require_kernels: bool, timer: Timer, config=None,
+                    batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS,
+                    workdir: Path | None = None) -> dict:
+    """Phase 13: ``CLIPTrainer`` at ViT-L/14 width in bf16 with remat and B3
+    (the reference's defaults). B3 at the training shapes first. Then on a
+    ``(1, 1)`` mesh: ``init(0)`` and ``steps`` steps on one seeded batch
+    (the launch counts start here): every loss finite, the last below the
+    first, step ms p50 over steps 2 on, pairs/s, peak memory, B3 launches
+    per step = 2 x vision layers. The first step's loss and gradients again
+    with B3 on its plain version (``COS_TRAIN_GRAD``), on the reference's
+    ``fused_attn=False`` route and on a ``(2, 2)`` mesh of logical shards (B3
+    launches = vision layers x 2 x 2 x 2; every split tensor held as 2 shards
+    of the right shape; one update applied; ``COS_TRAIN_GRAD_ROUNDING``), and
+    the two layouts in f32. A checkpoint after the last step under ``workdir`` (deleted at
+    the end): restored bit for bit, the next step's loss ``==`` the live
+    state's. Train -> deploy: ``state_dict`` into ``CLIPEmbedder``, its
+    ``encode_images`` against the trainer's ``encode_image``."""
+    import shutil
+
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.preprocess import (
+        normalize_images,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        CLIPTrainer,
+        MeshSpec,
+        TrainConfig,
+        create_mesh,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.train import param_spec
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.embedder import (
+        CLIPEmbedder,
+    )
+
+    cfg = config or CLIPConfig.vit_l_14()
+    vis = cfg.vision
+    on_card = device.type == "cuda"
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "train_phase"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # B3 at the shapes of a step: the whole batch, a (2, 2) shard, a 4-way shard
+    gen = torch.Generator(device=device).manual_seed(13)
+    t = vis.num_patches + 1
+    out: dict = {"b3": []}
+    for b, d, h in ((batch, vis.hidden_size, vis.num_heads),
+                    (batch // 2, vis.hidden_size // 2, vis.num_heads // 2),
+                    (batch // 2, vis.hidden_size // 4, vis.num_heads // 4)):
+        out["b3"].append(check_train_mha(device, gen, timer, b, t, d, h))
+    if on_card:
+        torch.cuda.empty_cache()
+
+    trainer, params0, opt0, pixels, tokens = train_setup(device, cfg, batch)
+    mesh11 = trainer.mesh
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    attention.fused_mha.launches = 0         # the training path starts here
+    params, opt_state, losses, wall = params0, opt0, [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = trainer.train_step(params, opt_state, pixels, tokens)
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = attention.fused_mha.launches
+    per_step = 2 * vis.num_layers            # forward + remat recompute
+    if require_kernels and launches != per_step * steps:
+        raise AssertionError(f"B3 launched {launches} times in {steps} steps, not "
+                             f"{per_step} a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite, or not falling")
+    step_ms = float(np.percentile(wall[1:], 50))
+    out.update(launches=launches, launches_per_step=launches / steps, losses=losses,
+               step_ms=wall, step_ms_p50=step_ms, pairs_per_s=batch / step_ms * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+               accuracy=float(metrics["accuracy"]), scale=float(metrics["scale"]))
+    log("train", f"CLIP towers (vision {vis.num_layers} x {vis.hidden_size}, "
+        f"{vis.num_heads} heads; text {cfg.text.num_layers} x {cfg.text.hidden_size}) bf16, "
+        f"remat, B3, mesh (1, 1), batch {batch}: losses {losses}; step ms {wall}; p50 over "
+        f"steps 2-{steps} {step_ms:.1f} ms, {out['pairs_per_s']:.1f} image-text pairs/s; "
+        f"peak memory {out['peak_gb']} GB; B3 launches {launches} ({launches / steps:g} a step)")
+
+    def compare(where, loss_a, grads_a, loss_b, grads_b, tol, min_cos):
+        rel = abs(float(loss_b) - float(loss_a)) / abs(float(loss_a))
+        cos = tower_cosines(grads_a, grads_b)
+        if rel > tol or min(cos.values()) < min_cos:
+            raise AssertionError(f"{where}: loss {float(loss_b)} vs {float(loss_a)} (rel "
+                                 f"{rel:.3e} > {tol}?), gradient cosines {cos} (< {min_cos}?)")
+        log("train", f"{where}: loss {float(loss_b):.6f} vs {float(loss_a):.6f} (rel {rel:.3e} "
+            f"<= {tol}); gradient cosine per tower {cos} (>= {min_cos})")
+        return {"loss": float(loss_b), "rel": rel, "cos": cos}
+
+    # the first step again with B3 on its plain version, and on the reference's
+    # other route (fused_attn=False: bf16 logits)
+    loss_f, _, g_f = trainer.value_and_grad(params0, pixels, tokens)
+    g_f = trainer.state_dict(g_f)
+    with b3_plain_version():
+        loss_p, _, g_p = trainer.value_and_grad(params0, pixels, tokens)
+    out["plain"] = compare("first step, B3 on its plain version", loss_f, g_f, loss_p,
+                           trainer.state_dict(g_p), TOL_TRAIN_LOSS, COS_TRAIN_GRAD)
+    bmm = CLIPTrainer(cfg, mesh11, TrainConfig(fused_attn=False))
+    loss_p, _, g_p = bmm.value_and_grad(params0, pixels, tokens)
+    out["unfused"] = compare("first step, fused_attn=False", loss_f, g_f, loss_p,
+                             bmm.state_dict(g_p), TOL_TRAIN_LOSS, COS_TRAIN_GRAD_ROUNDING)
+    del g_p
+
+    # the same step on a (2, 2) mesh of logical shards of the device
+    t22 = CLIPTrainer(cfg, create_mesh(MeshSpec(("data", "model"), (2, 2)),
+                                       devices=[device] * 4))
+    p22 = t22.shard_params(trainer.state_dict(params0))
+    for name, shards in p22.items():
+        spec, full = param_spec(name, params0[name][0]), params0[name][0].shape
+        dim = spec.index("model") if spec else None
+        want = [full] if dim is None else [full[:dim] + (full[dim] // 2,) + full[dim + 1:]] * 2
+        if [s.shape for s in shards] != want:
+            raise AssertionError(f"(2, 2) mesh: {name} held as {[s.shape for s in shards]}")
+    attention.fused_mha.launches = 0
+    loss22, _, g22 = t22.value_and_grad(p22, pixels, tokens)
+    launches22 = attention.fused_mha.launches
+    if require_kernels and launches22 != per_step * 4:
+        raise AssertionError(f"(2, 2) mesh: {launches22} B3 launches, not {per_step * 4}")
+    out["mesh22"] = compare("(2, 2) mesh, bf16", loss_f, g_f, loss22, t22.state_dict(g22),
+                            TOL_TRAIN_LOSS, COS_TRAIN_GRAD_ROUNDING)
+    out["mesh22"]["launches"] = launches22
+    zeros = {name: [torch.zeros_like(s) for s in shards] for name, shards in p22.items()}
+    p22, _ = t22.apply_gradients(p22, g22, {"count": 0, "mu": zeros, "nu": zeros})
+    if not all(bool(torch.isfinite(s).all()) for shards in p22.values() for s in shards):
+        raise AssertionError("(2, 2) mesh: the update is not finite")
+    del g22, g_f, p22, zeros
+    # in f32 the layouts differ only in the order of f32 sums
+    f32 = [CLIPTrainer(cfg, mesh, dtype=torch.float32) for mesh in (mesh11, t22.mesh)]
+    (l11, _, g11), (l22, _, g22) = (t.value_and_grad(t.shard_params(trainer.state_dict(params0)),
+                                                     pixels, tokens) for t in f32)
+    out["mesh22_f32"] = compare("(2, 2) mesh, f32", l11, f32[0].state_dict(g11), l22,
+                                f32[1].state_dict(g22), TOL_TRAIN_LOSS_F32, COS_TRAIN_GRAD_F32)
+    del g11, g22
+    log("train", f"(2, 2) mesh of logical shards: every split tensor in 2 shards; B3 launches "
+        f"{launches22}; one update applied, finite")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # a checkpoint after the last step, restored bit for bit; the next loss is the same
+    try:
+        t0 = time.perf_counter()
+        path = trainer.save_checkpoint(workdir / "ckpt", params, opt_state, step=steps)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        r_params, r_opt, r_step = trainer.restore_checkpoint(workdir / "ckpt")
+        restore_s = time.perf_counter() - t0
+        if r_step != steps or r_opt["count"] != opt_state["count"]:
+            raise AssertionError(f"checkpoint: step {r_step}, count {r_opt['count']}")
+        for live, back in ((params, r_params), (opt_state["mu"], r_opt["mu"]),
+                           (opt_state["nu"], r_opt["nu"])):
+            for name, shards in live.items():
+                if not all(a.device == r.device and torch.equal(a, r)
+                           for a, r in zip(shards, back[name])):
+                    raise AssertionError(f"checkpoint: {name} not restored bit for bit")
+        _, _, m_live = trainer.train_step(params, opt_state, pixels, tokens)
+        _, _, m_back = trainer.train_step(r_params, r_opt, pixels, tokens)
+        if not float(m_back["loss"]) == float(m_live["loss"]):
+            raise AssertionError(f"step {steps + 1} from the restored state: loss "
+                                 f"{float(m_back['loss'])}, live {float(m_live['loss'])}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del r_params, r_opt
+    out["ckpt"] = {"bytes": size, "save_s": save_s, "restore_s": restore_s,
+                   "next_loss": float(m_live["loss"])}
+    log("train", f"checkpoint of step {steps}: {size / 1e9:.2f} GB written in {save_s:.1f} s, "
+        f"restored in {restore_s:.1f} s, every tensor torch.equal on its device; step "
+        f"{steps + 1}'s loss {float(m_live['loss'])!r} from both")
+
+    # train -> deploy
+    embedder = CLIPEmbedder(config=cfg, device=device)
+    embedder.load_params(trainer.state_dict(params))
+    images = pixels[:8]
+    got = embedder.encode_images(images)
+    with torch.no_grad():
+        normed = normalize_images(torch.from_numpy(images).to(device), dtype=trainer.dtype)
+        want = torch.nn.functional.normalize(trainer.encode_image(params, normed).float(),
+                                             dim=-1).cpu().numpy()
+    cos_deploy = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                         * np.linalg.norm(want, axis=-1))
+    if cos_deploy.min() < COS_TRAIN_GRAD:
+        raise AssertionError(f"train -> deploy: cosines {cos_deploy}")
+    out["deploy_cos_min"] = float(cos_deploy.min())
+    out["seconds"] = time.perf_counter() - t_phase
+    log("train", f"train -> deploy: CLIPEmbedder.load_params(state_dict), encode_images of 8 "
+        f"against the trainer's encode_image: min cosine {out['deploy_cos_min']:.6f}; phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time of a query goes
 # ---------------------------------------------------------------------------
 
@@ -4228,6 +4575,64 @@ def profile_build(device, config=None, n_frames: int = 2048, n_folders: int = 2,
     return row
 
 
+def profile_train(device, config=None, batch: int = TRAIN_BATCH, warm: int = 3,
+                  iters: int = 3) -> dict:
+    """PERF.md section 5's training row: the phase 13 trainer after ``warm``
+    steps; wall p50 of ``iters`` steps and of their two halves
+    (``value_and_grad``, ``apply_gradients``), each ended by a synchronize;
+    then a ``torch.profiler`` trace of one step: device busy, idle share
+    against the untraced step, device ops, B3's forward and the costliest
+    kernels by device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+
+    trainer, params, opt_state, pixels, tokens = train_setup(
+        device, config or CLIPConfig.vit_l_14(), batch)
+    for _ in range(warm):
+        params, opt_state, _ = trainer.train_step(params, opt_state, pixels, tokens)
+    _, _, grads = trainer.value_and_grad(params, pixels, tokens)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def p50(fn):
+        wall = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return float(np.percentile(wall, 50))
+
+    row = {"phase": "train", "batch": batch,
+           "step_p50_ms": p50(lambda: trainer.train_step(params, opt_state, pixels, tokens)),
+           "value_and_grad_p50_ms": p50(lambda: trainer.value_and_grad(params, pixels, tokens)),
+           "apply_gradients_p50_ms": p50(lambda: trainer.apply_gradients(params, grads,
+                                                                         opt_state))}
+    del grads
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(params, opt_state, pixels, tokens)
+        sync()
+    path = ROOT / "build" / "chip_smoke" / "train_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    path.unlink()
+    busy, ops, per = device_time(trace)
+    by_name: dict = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("cat") == "kernel":
+            by_name[ev["name"][:80]] = by_name.get(ev["name"][:80], 0.0) + float(ev["dur"]) / 1e3
+    row.update(device_busy_ms=busy, idle_share=1 - busy / row["step_p50_ms"], device_ops=ops,
+               b3_fwd_ms=per["b3"],
+               top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]))
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def run_profile(device, bits: np.ndarray, config=None, iters: int = 20) -> list[dict]:
     """PERF.md section 5's breakdown: the query phases over the same rows
     served in bf16, then in int8."""
@@ -4386,6 +4791,9 @@ def main(argv: list[str] | None = None) -> int:
         run_profile(device, bits)
         torch.cuda.empty_cache()
         profile_ann(device, bits)
+        del bits
+        torch.cuda.empty_cache()
+        profile_train(device)
         print(smi, flush=True)
         return 0
 
@@ -4431,6 +4839,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     benched = run_bench_phase(device, require_kernels=True, argv=["--probes"], timer=timer)
     p1, p2, p3 = benched["probes"]
+    torch.cuda.empty_cache()
+    train = run_train_phase(device, require_kernels=True, timer=timer)
 
     record = {"kernels": [
         {"name": "chunk_max_sweep (B1)", "route": "cuda",
@@ -4449,7 +4859,8 @@ def main(argv: list[str] | None = None) -> int:
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
          "launches": result["launches"]["b3"], **b3, "dino_vit_s_16": ingested["b3"],
          "ingest_launches": ingested["launches"]["b3"],
-         "serve_launches": serve["launches"]["b3"], "w8a8_launches": w8a8["launches"]["b3"]},
+         "serve_launches": serve["launches"]["b3"], "w8a8_launches": w8a8["launches"]["b3"],
+         "train_launches": train["launches"], "train": train["b3"]},
         {"name": "fused_ln_mlp (B4)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/block.py:78",
@@ -4481,6 +4892,10 @@ def main(argv: list[str] | None = None) -> int:
         f"{w8a8['images_per_s']:.1f} images/s; int8 attention {w8a8_ops['attention']}; "
         f"embedders {w8a8_emb['numbers']}")
     log("ingest", f"launches on the ingest path: {ingested['launches']}")
+    log("train", f"ViT-L/14 bf16 trainer, batch {TRAIN_BATCH}: step p50 "
+        f"{train['step_ms_p50']:.1f} ms, {train['pairs_per_s']:.1f} pairs/s, peak "
+        f"{train['peak_gb']:.2f} GB, B3 {train['launches_per_step']:g} launches a step; "
+        f"checkpoint {train['ckpt']}; phase {train['seconds']:.1f} s")
     log("open", f"1M-row int8 facade open: {opened}")
     log("mesh", f"bf16 facade on the one-device mesh: p50 {mesh1['p50_ms']:.3f} ms, p95 "
         f"{mesh1['p95_ms']:.3f} ms (single device {result['p50_ms']:.3f} / "

@@ -36,17 +36,24 @@ Flax tree without renaming tables. The towers return the pooled hidden
 state; :class:`CLIPModel` applies the projections (``text_projection``,
 ``visual_projection``), as HF does.
 
-Left out for now (a later change ports it): rematerialization. Asking for
-it raises ``NotImplementedError``.
+``remat=True`` runs every transformer block through activation
+checkpointing (``torch.utils.checkpoint``, the reference's
+``nn.remat(TransformerBlock)``) while autograd records: the block's
+activations are recomputed in the backward pass, so B3 runs twice per layer
+and step. Under ``no_grad`` or ``inference_mode`` it is the plain loop.
+:func:`attention`, :func:`patch_embed` and :func:`run_blocks` are the
+towers' pieces that ``parallel.train`` calls on each tensor-parallel shard.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_mha
 from ..ops.block import activation, fused_ln_mlp, supports_fused_ln_mlp
@@ -63,17 +70,10 @@ __all__ = [
     "CLIPVisionTower",
     "CLIPTextTower",
     "CLIPModel",
+    "attention",
+    "patch_embed",
+    "run_blocks",
 ]
-
-_LATER = {
-    "remat": "rematerialization is ported with training in a later change",
-}
-
-
-def _refuse(**flags: bool) -> None:
-    for name, on in flags.items():
-        if on:
-            raise NotImplementedError(_LATER[name])
 
 
 # ---------------------------------------------------------------------------
@@ -296,38 +296,46 @@ class MultiHeadAttention(nn.Module):
         return out.to(q.dtype).reshape(b, h, t, head_dim).transpose(1, 2).reshape(b, t, d)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        b, t, d = x.shape
-        h = self.num_heads
-        head_dim = d // h
-        scale = head_dim ** -0.5
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if self.int8_attn and mask is None:
             return self.out_proj(self._int8_attention(q, k, v))
-        if (self.fused_attn and mask is None and self.precision != "highest"
-                and x.device.type == "cuda"):
-            return self.out_proj(fused_mha(q, k, v, h))
-        if self.precision == "highest":
-            # parity mode: f32 logits (+ mask), f32 softmax
-            qh, kh, vh = (y.reshape(b, t, h, head_dim) for y in (q, k, v))
-            logits = torch.einsum("bqhd,bkhd->bhqk", qh * scale, kh).float()
-            if mask is not None:
-                logits = logits + mask
-            weights = torch.softmax(logits, dim=-1).to(x.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", weights, vh)
-        else:
-            # throughput mode: (B*H, T, T) batched GEMMs, logits in the
-            # model dtype, f32 softmax
-            def merge(y):
-                return y.reshape(b, t, h, head_dim).transpose(1, 2).reshape(
-                    b * h, t, head_dim)
+        return self.out_proj(attention(q, k, v, self.num_heads, mask, self.precision,
+                                       self.fused_attn))
 
-            logits = torch.bmm(merge(q) * scale, merge(k).transpose(1, 2))
-            if mask is not None:
-                logits = logits + mask.reshape(1, t, t).to(logits.dtype)
-            weights = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-            out = torch.bmm(weights, merge(v))
-            out = out.reshape(b, h, t, head_dim).transpose(1, 2)
-        return self.out_proj(out.reshape(b, t, d))
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+              mask: torch.Tensor | None = None, precision: str = "default",
+              fused_attn: bool = True) -> torch.Tensor:
+    """(B, T, D) q/k/v projections -> (B, T, D) attention output, before
+    ``out_proj``: kernel B3 for unmasked throughput-mode attention on a
+    CUDA device (with ``fused_attn``), else the reference's einsums."""
+    b, t, d = q.shape
+    h = num_heads
+    head_dim = d // h
+    scale = head_dim ** -0.5
+    if fused_attn and mask is None and precision != "highest" and q.device.type == "cuda":
+        return fused_mha(q, k, v, h)
+    if precision == "highest":
+        # parity mode: f32 logits (+ mask), f32 softmax
+        qh, kh, vh = (y.reshape(b, t, h, head_dim) for y in (q, k, v))
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh * scale, kh).float()
+        if mask is not None:
+            logits = logits + mask
+        weights = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, vh)
+    else:
+        # throughput mode: (B*H, T, T) batched GEMMs, logits in the model
+        # dtype, f32 softmax
+        def merge(y):
+            return y.reshape(b, t, h, head_dim).transpose(1, 2).reshape(b * h, t, head_dim)
+
+        logits = torch.bmm(merge(q) * scale, merge(k).transpose(1, 2))
+        if mask is not None:
+            logits = logits + mask.reshape(1, t, t).to(logits.dtype)
+        weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.bmm(weights, merge(v))
+        out = out.reshape(b, h, t, head_dim).transpose(1, 2)
+    return out.reshape(b, t, d)
 
 
 def _activation(name: str):
@@ -392,6 +400,21 @@ class TransformerBlock(nn.Module):
         return x + self.mlp(self.layer_norm2(x))
 
 
+def run_blocks(blocks: Sequence[Callable], x: torch.Tensor, mask: torch.Tensor | None,
+               remat: bool) -> torch.Tensor:
+    """``x = block(x, mask)`` for each block in turn; with ``remat``, while
+    autograd records, each block runs under activation checkpointing, so
+    the backward pass recomputes its activations (B3 included) instead of
+    keeping them."""
+    for block in blocks:
+        if remat and torch.is_grad_enabled():
+            # the blocks draw no random numbers: no RNG state to replay
+            x = checkpoint(block, x, mask, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(x, mask)
+    return x
+
+
 class Transformer(nn.Module):
     """A stack of blocks under HF's ``encoder.layers`` name."""
 
@@ -401,7 +424,7 @@ class Transformer(nn.Module):
                  ln_eps: float = 1e-5, fused_mlp: bool = False, w8a8: bool = False,
                  w8a8_static: bool = False, int8_attn: bool = False) -> None:
         super().__init__()
-        _refuse(remat=remat)
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerBlock(dim, num_heads, mlp_ratio, precision, act=act,
                              ln_eps=ln_eps, fused_attn=fused_attn,
@@ -411,9 +434,7 @@ class Transformer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        for layer in self.layers:
-            x = layer(x, mask)
-        return x
+        return run_blocks(self.layers, x, mask, self.remat)
 
 
 # ---------------------------------------------------------------------------
@@ -435,16 +456,21 @@ class _PatchEmbed(nn.Module):
         self._cast = _CastCache()
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        p = self.patch
-        b, h, w, c = pixels.shape                       # NHWC
-        x = pixels.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(b, (h // p) * (w // p), p * p * c)
-        # (D, c, p, p) -> (p, p, c, D): the (p_h, p_w, c) order of the patch
-        wt = self._cast.get("weight", self.weight, pixels.dtype)
-        x = x @ wt.permute(2, 3, 1, 0).reshape(p * p * c, -1)
+        x = patch_embed(pixels, self._cast.get("weight", self.weight, pixels.dtype))
         if self.bias is None:
             return x
         return x + self._cast.get("bias", self.bias, pixels.dtype)
+
+
+def patch_embed(pixels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) pixels x HF's conv weight ``(D, 3, p, p)`` (in the
+    pixels' dtype) -> (B, patches, D), without bias."""
+    p = weight.shape[-1]
+    b, h, w, c = pixels.shape                       # NHWC
+    x = pixels.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, (h // p) * (w // p), p * p * c)
+    # (D, c, p, p) -> (p, p, c, D): the (p_h, p_w, c) order of the patch
+    return x @ weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
 
 
 class _VisionEmbeddings(nn.Module):
@@ -461,13 +487,14 @@ class CLIPVisionTower(nn.Module):
 
     def __init__(self, cfg: CLIPVisionConfig, precision: str = "default",
                  fused_attn: bool = True, fused_mlp: bool = False, w8a8: bool = False,
-                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
+                 w8a8_static: bool = False, int8_attn: bool = False,
+                 remat: bool = False) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = _VisionEmbeddings(cfg)
         self.pre_layrnorm = LayerNorm(cfg.hidden_size, eps=1e-5)  # HF's spelling
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                                   cfg.mlp_ratio, precision, fused_attn,
+                                   cfg.mlp_ratio, precision, fused_attn, remat=remat,
                                    fused_mlp=fused_mlp, w8a8=w8a8,
                                    w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.post_layernorm = LayerNorm(cfg.hidden_size, eps=1e-5)
@@ -495,12 +522,13 @@ class CLIPTextTower(nn.Module):
 
     def __init__(self, cfg: CLIPTextConfig, precision: str = "default",
                  fused_attn: bool = True, fused_mlp: bool = False, w8a8: bool = False,
-                 w8a8_static: bool = False, int8_attn: bool = False) -> None:
+                 w8a8_static: bool = False, int8_attn: bool = False,
+                 remat: bool = False) -> None:
         super().__init__()
         self.config = cfg
         self.embeddings = _TextEmbeddings(cfg)
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                                   cfg.mlp_ratio, precision, fused_attn,
+                                   cfg.mlp_ratio, precision, fused_attn, remat=remat,
                                    fused_mlp=fused_mlp, w8a8=w8a8,
                                    w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5)
@@ -530,7 +558,6 @@ class CLIPModel(nn.Module):
                  remat: bool = False, w8a8: bool = False, w8a8_static: bool = False,
                  int8_attn: bool = False, fused_mlp: bool = False) -> None:
         super().__init__()
-        _refuse(remat=remat)
         if precision not in ("default", "highest"):
             raise ValueError(f"precision must be 'default' or 'highest', got {precision!r}")
         self.config = config
@@ -540,7 +567,7 @@ class CLIPModel(nn.Module):
         self.w8a8 = w8a8
         self.w8a8_static = w8a8_static
         self.int8_attn = int8_attn
-        flags = dict(w8a8=w8a8, w8a8_static=w8a8_static, int8_attn=int8_attn)
+        flags = dict(w8a8=w8a8, w8a8_static=w8a8_static, int8_attn=int8_attn, remat=remat)
         self.vision_model = CLIPVisionTower(config.vision, precision, fused_attn,
                                             fused_mlp, **flags)
         self.text_model = CLIPTextTower(config.text, precision, fused_attn,

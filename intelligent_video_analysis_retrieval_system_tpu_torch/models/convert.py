@@ -6,7 +6,10 @@ The port's modules carry HF-CLIP state-dict names, so
   ``position_ids`` are dropped);
 - :func:`from_jax_params` turns the JAX package's ``CLIPModel`` param tree
   (numpy arrays) into a state dict, and the JAX package's
-  ``convert_hf_clip_params`` is its exact inverse.
+  ``convert_hf_clip_params`` is its exact inverse;
+- :func:`from_optax_state` carries the trainer's optimizer state (optax's
+  Adam ``count``, ``mu``, ``nu``) across through the same table, so a run
+  of the JAX trainer continues in ``parallel.train``.
 
 Conventions: Flax Dense kernels are ``(in, out)``, torch Linear weights
 ``(out, in)``; the Flax patch kernel is HWIO ``(p, p, 3, D)``, HF's conv
@@ -32,8 +35,8 @@ import torch
 from .clip import CLIPConfig, CLIPModel, CLIPTextConfig, CLIPVisionConfig
 from .dino import DINOConfig, DINOTower, hf_name
 
-__all__ = ["from_jax_params", "hf_config_to_ours", "load_clip", "empty_model",
-           "from_jax_dino_params", "load_dino"]
+__all__ = ["from_jax_params", "from_optax_state", "hf_config_to_ours", "load_clip",
+           "empty_model", "from_jax_dino_params", "load_dino"]
 
 
 def _tensor(x: Any, transpose: bool = False) -> torch.Tensor:
@@ -92,6 +95,25 @@ def from_jax_params(params: Mapping[str, Any], config: CLIPConfig) -> dict[str, 
         sd.update(_block(t["transformer"][f"layer_{i}"],
                          f"text_model.encoder.layers.{i}"))
     return sd
+
+
+def from_optax_state(opt_state: Any, config: CLIPConfig) -> dict[str, Any]:
+    """The JAX trainer's ``optax.chain(clip_by_global_norm, adamw)`` state
+    -> ``{"count": int, "mu": state dict, "nu": state dict}``, the optimizer
+    state of ``parallel.train.CLIPTrainer`` before it is sharded
+    (``CLIPTrainer.shard_opt_state``). The Adam state is the node of the
+    chain's state that has ``count``, ``mu`` and ``nu``; its moments are
+    param trees and map through :func:`from_jax_params`."""
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+            return {"count": int(np.asarray(node.count)),
+                    "mu": from_jax_params(node.mu, config),
+                    "nu": from_jax_params(node.nu, config)}
+        if isinstance(node, (tuple, list)):
+            stack.extend(reversed(node))
+    raise ValueError("from_optax_state: no Adam state (count, mu, nu) in the optimizer state")
 
 
 def hf_config_to_ours(hf_config: Any) -> CLIPConfig:

@@ -1,4 +1,4 @@
-"""Multi-device scale: the mesh, sharded search and sharded IVF.
+"""Multi-device scale: the mesh, sharded search, sharded IVF and training.
 
 Port of ``intelligent_video_analysis_retrieval_system_tpu/parallel``: the
 embedding rows shard over a device mesh (``mesh.py``), every shard runs the
@@ -6,13 +6,15 @@ single-device search (kernels B1 and B2 on a card) and one merge combines
 their candidates (``sharded_search.py``); the IVF mode partitions its
 buckets over the same shards (``sharded_ann.py``); a process group spans
 hosts (``distributed.py``). This replaces the reference's LAN fan-out of
-queries to peer nodes. Distributed training (``train.py``: ``CLIPTrainer``,
-``TrainConfig``) is ported in a later change.
+queries to peer nodes. ``train.py`` (``CLIPTrainer``, ``TrainConfig``)
+fine-tunes the CLIP towers contrastively with data and tensor parallelism
+over a ``("data", "model")`` mesh.
 """
 
 from .mesh import Mesh, MeshSpec, create_mesh, device_info
 from .sharded_ann import ShardedIVF, make_sharded_ivf, sharded_ivf_topk
 from .sharded_search import ShardedIndexSearcher, sharded_topk
+from .train import CLIPTrainer, TrainConfig
 
 __all__ = [
     "Mesh",
@@ -24,4 +26,6 @@ __all__ = [
     "make_sharded_ivf",
     "sharded_ivf_topk",
     "sharded_topk",
+    "CLIPTrainer",
+    "TrainConfig",
 ]

@@ -136,10 +136,23 @@ def test_contrastive_logits_match(jax_params, inputs):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=1e-5)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tclip.CLIPModel(CFG_T, remat=True)
-    assert list(tclip._LATER) == ["remat"]
+def test_unported_options_raise(jax_params, inputs):
+    # nothing is refused any more: remat (activation checkpointing) is ported;
+    # its gradients equal the plain loop's, and without autograd it is that loop
+    px, toks, _ = inputs
+    sd = tconv.from_jax_params(jax_params, CFG_T)
+    grads, outs = [], []
+    for remat in (False, True):
+        m = tconv.empty_model(CFG_T, "cpu", remat=remat)
+        m.load_state_dict(sd)
+        assert m.vision_model.encoder.remat is remat and m.text_model.encoder.remat is remat
+        m(torch.from_numpy(px), torch.from_numpy(toks)).logsumexp(-1).sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        with torch.no_grad():
+            outs.append(m(torch.from_numpy(px), torch.from_numpy(toks)))
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name
+    assert torch.equal(outs[0], outs[1])
     # ported (tests/test_torch_w8a8.py): the W8A8 layers and int8 attention
     m = tclip.CLIPModel(CFG_T, w8a8=True, w8a8_static=True, int8_attn=True)
     assert m.vision_model.encoder.layers[0].mlp.fc1.w8a8_static

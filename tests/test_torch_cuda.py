@@ -62,6 +62,14 @@ tie-aware equal to the single-device ``topk_search``, ``sharded_topk_int8``
 single-device searches, the launch counts growing by the shards a call; a
 mesh-backed index on the card answering as the single-device one. Shards on
 distinct cards need more than one card and are not tested here.
+
+CLIP training (``parallel/train.py``) with the tiny config in f32: a step on
+the card (``(1, 1)`` and ``(2, 2)`` logical shards) against the same step on
+the CPU (loss within 1e-5, each gradient within 1e-4 x its tensor's max |g|;
+``k_proj.bias``, whose exact gradient is zero, below 1e-6 x the largest),
+B3 launched once per vision layer, data position and model shard and again
+in the remat recompute; remat on and off the same loss; a checkpoint
+restored bit for bit on its devices, the next loss equal.
 """
 
 import pytest
@@ -1341,3 +1349,92 @@ def test_mesh_index_on_the_card_answers_as_single_device(cuda_device):
     for g, w in zip(got, want):
         tie_aware_equal([h.metadata.row_id for h in g], [h.similarity_score for h in g],
                         [h.metadata.row_id for h in w], [h.similarity_score for h in w])
+
+
+# ---------------------------------------------------------------------------
+# CLIP training (parallel/train.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny_trainers(device, shape=(1, 1), **tc):
+    """The same tiny f32 trainer on the card and on the CPU, over one seeded
+    state (made on the CPU: a card's generator draws other numbers)."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        CLIPTrainer,
+        MeshSpec,
+        TrainConfig,
+        create_mesh,
+    )
+
+    n = shape[0] * shape[1]
+    out = []
+    for dev in (device, torch.device("cpu")):
+        mesh = create_mesh(MeshSpec(("data", "model"), shape), devices=[dev] * n)
+        out.append(CLIPTrainer(CLIPConfig.tiny_test(), mesh, TrainConfig(**tc),
+                               dtype=torch.float32))
+    card, cpu = out
+    return card, cpu, cpu.state_dict(cpu.init(0)[0])
+
+
+def _tiny_batch(b=8):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    px = rng.standard_normal((b, 32, 32, 3)).astype(np.float32)
+    tokens = rng.integers(1, 500, (b, 16)).astype(np.int32)
+    tokens[:, -1] = 511
+    return px, tokens
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_trainer_step_on_card_matches_cpu(cuda_device, shape):
+    card, cpu, sd = _tiny_trainers(cuda_device, shape)
+    before = tatt.fused_mha.launches
+    loss, _, grads = card.value_and_grad(card.shard_params(sd), *_tiny_batch())
+    # B3 once per vision layer, data position and model shard, and again in the recompute
+    assert tatt.fused_mha.launches - before == 2 * shape[0] * shape[1] * 2
+    ref_loss, _, ref_grads = cpu.value_and_grad(cpu.shard_params(sd), *_tiny_batch())
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5
+    got, want = card.state_dict(grads), cpu.state_dict(ref_grads)
+    largest = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        g = got[name].cpu()
+        if name.endswith("self_attn.k_proj.bias"):   # exactly zero: rounding noise
+            assert float(g.abs().max()) <= 1e-6 * largest
+            continue
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+    params, opt_state, metrics = card.train_step(card.shard_params(sd), card.init(0)[1],
+                                                 *_tiny_batch())
+    assert opt_state["count"] == 1 and torch.isfinite(metrics["loss"])
+    assert all(s.device.type == cuda_device.type for shards in params.values() for s in shards)
+
+
+def test_trainer_remat_on_card_recomputes_b3_and_keeps_the_loss(cuda_device):
+    losses, launches = [], []
+    for remat in (True, False):
+        card, _, sd = _tiny_trainers(cuda_device, remat=remat)
+        before = tatt.fused_mha.launches
+        _, _, metrics = card.train_step(card.shard_params(sd), card.init(0)[1], *_tiny_batch())
+        launches.append(tatt.fused_mha.launches - before)
+        losses.append(float(metrics["loss"]))
+    assert launches == [4, 2]             # 2 vision layers; twice each with remat
+    assert losses[0] == losses[1]
+
+
+def test_trainer_checkpoint_roundtrip_on_card(cuda_device, tmp_path):
+    card, _, sd = _tiny_trainers(cuda_device, (1, 2))
+    params, opt_state, _ = card.train_step(card.shard_params(sd), card.init(0)[1],
+                                           *_tiny_batch())
+    card.save_checkpoint(tmp_path, params, opt_state, step=1)
+    params2, opt2, step = card.restore_checkpoint(tmp_path)
+    assert step == 1 and opt2["count"] == 1
+    for tree, tree2 in ((params, params2), (opt_state["mu"], opt2["mu"]),
+                        (opt_state["nu"], opt2["nu"])):
+        for name, shards in tree.items():
+            assert len(shards) == len(tree2[name])
+            for a, b in zip(shards, tree2[name]):
+                assert a.device == b.device and torch.equal(a, b), name
+    _, _, live = card.train_step(params, opt_state, *_tiny_batch())
+    _, _, restored = card.train_step(params2, opt2, *_tiny_batch())
+    assert float(live["loss"]) == float(restored["loss"])

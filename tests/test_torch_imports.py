@@ -1,9 +1,9 @@
 """The port stands on its own: it imports neither JAX nor anything of the
 JAX package, nor the server libraries the card's machine lacks.
 
-- In a fresh interpreter with ``jax``, ``jaxlib``, ``flax``,
-  ``intelligent_video_analysis_retrieval_system_tpu``, ``aiohttp`` and
-  ``websockets`` blocked (``None`` in ``sys.modules``, so any import of them
+- In a fresh interpreter with ``jax``, ``jaxlib``, ``flax``, ``optax``,
+  ``orbax``, ``intelligent_video_analysis_retrieval_system_tpu``,
+  ``aiohttp`` and ``websockets`` blocked (``None`` in ``sys.modules``, so any import of them
   raises), every module of the port and ``chip_smoke`` imports.
 - No source line of the port or of ``chip_smoke.py`` is an import of them
   (comments and strings that name the originals of copies, or the TPU
@@ -24,8 +24,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "intelligent_video_analysis_retrieval_system_tpu_torch"
 JAX_PKG = ROOT / "intelligent_video_analysis_retrieval_system_tpu"
-BLOCKED = ("jax", "jaxlib", "flax", "intelligent_video_analysis_retrieval_system_tpu",
-           "aiohttp", "websockets")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax",
+           "intelligent_video_analysis_retrieval_system_tpu", "aiohttp", "websockets")
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -97,7 +97,7 @@ def test_the_bench_and_the_index_open_modules_are_walked():
             "retrieval/temporal.py", "ingest/__init__.py", "ingest/frames.py",
             "ingest/pipeline.py", "ingest/video.py", "ops/quality.py", "ops/phash.py",
             "ops/dedup.py", "models/dino.py", "serve/rest.py", "serve/websocket.py",
-            "bench/served.py"} <= names
+            "bench/served.py", "parallel/train.py"} <= names
 
 
 def test_the_console_page_is_the_jax_servers():
