@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, REST, IVF, index-build, W8A8, ingest, multi-device search and training paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, REST, P2P, agent, Socket.IO, IVF, index-build, W8A8, ingest, multi-device search and training paths on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -58,6 +58,33 @@ non-zero):
             received on the socket, then a search over the built rows.
             Prints served p50/p95, QPS at concurrency 1, 16 and 64,
             ``served_avg_batch`` and the idle share.
+4c. p2p     before 4b, on the same system: a port ``NetworkServer`` on a
+            free loopback port (no discovery) shares a second bf16 index of
+            1,000,000 x 768 rows from ``numpy.random.default_rng(1)`` on the
+            card, its records named apart (``peer_video_*``: the fan-in
+            dedups on folder and image); ``NetworkClient().load_remote_index``
+            joins ``system.remote_indexes``. 8 text queries through
+            ``search`` (limit 20, no cache; B1 once locally and once on the
+            peer each) tie-aware equal to the exact f32 reference over both
+            row sets, with hits of both; ``search_batch`` of the 8 equal to
+            ``search`` per query; ``RemoteUnifiedIndex.search_vector`` equal
+            to the peer's exact reference; a vector of the wrong length
+            answers 400. ``enable_llm`` with a scripted provider: one
+            ``search_keyframes`` call (``clip_only``, limit 5), then a text;
+            ``chat``'s ``search_results`` equal ``system.search`` with those
+            options and the exact reference; ``llm_enhanced`` with 4
+            scripted variants equal to the max-merge of their exact
+            references. A ``RetrievalServer`` over the system: a Socket.IO
+            polling handshake and ``40``, ``search`` equal to the same
+            query's ``/api/search``, the upgrade to WebSocket, then
+            ``image_search`` of a 224 x 224 JPEG (B5 and B3) equal to
+            ``/api/image_search``, ``system_stats`` with an ack id. Prints
+            the peer's remote search p50/p95 (20 warm calls) beside local
+            ``search_vectors`` at B=1, the fan-in p50 beside phase 4's, and
+            the Socket.IO search round trip beside ``/ws``'s. Then the
+            remote indexes and the LLM processor are cleared, the server
+            and the peer stopped (the peer no longer answers a health
+            check).
 5. int8     the int8 capacity mode: the same 1,000,000 rows quantized by
             ``quantize_rows_int8`` behind an int8 index (``load_system`` on a
             real int8 ``.rvdb`` with the bf16 copy where h5py imports, else
@@ -251,7 +278,8 @@ counts just after; the kernels' JSON line reports B1 and B3 from the bf16
 slice, B2 from the int8 slice, B4 and B5 from the build and P1-P3 from the
 bench (whose own B1, B2, B3 and B5 launches are printed beside them); B3 and
 B5 carry the ingest path's launches and their DINO shapes beside, and B1,
-B3 and B5 the serve phase's (``serve_launches``) and the int8_static
+B3 and B5 the serve phase's (``serve_launches``) and the P2P phase's
+(``p2p_launches``) and the int8_static
 facade's (``w8a8_launches``), B1 and B2 the mesh phase's
 (``mesh_launches``), B3 the training steps' (``train_launches``) and its
 training shapes (``train``). The
@@ -1147,6 +1175,389 @@ def run_serve_phase(device, system, require_kernels: bool, workdir: Path | None 
         raise AssertionError(f"a kernel of the serve path never launched: {launches}")
     return {"launches": launches, "p50_ms": p50, "p95_ms": p95, "qps": qps,
             "avg_batch": avg_batch, "idle_share": idle, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: P2P fan-in, the agents and the Socket.IO wire on the slice's system
+# ---------------------------------------------------------------------------
+
+P2P_QUERIES = 8
+P2P_TIMED = 20
+
+
+class PeerContainer(MemoryContainer):
+    """The stand-in container of the peer's rows, its records named apart from
+    the slice's (``peer_video_*``): the fan-in dedups on (folder, image), so
+    rows named alike would merge into one hit without a failure."""
+
+    @staticmethod
+    def record(i: int) -> dict:
+        rec = synthetic_record(i)
+        rec["folder"] = "peer_" + rec["folder"]
+        return rec
+
+    def iter_metadata(self):
+        return (self.record(i) for i in range(self.num_rows))
+
+    def get_metadata(self, row_id: int) -> dict:
+        return self.record(row_id)
+
+
+def fan_in_reference(indexes: list, qvecs: np.ndarray, limit: int) -> list[tuple]:
+    """Per query, the exact top ``limit`` over every index's device rows
+    together: (keys, scores), a key being (folder, image)."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops.topk import (
+        topk_exact_reference,
+    )
+
+    q = qvecs / np.maximum(np.linalg.norm(qvecs, axis=1, keepdims=True), 1e-12)
+    parts = []
+    for index in indexes:
+        ref = topk_exact_reference(index._dev_x[:index.ntotal], torch.from_numpy(
+            q.astype(np.float32)).to(index.device, index._dev_x.dtype), limit)
+        parts.append((index, ref.indices.cpu().numpy(), ref.scores.cpu().numpy()))
+    out = []
+    for j in range(len(q)):
+        cand = [(float(s), index.get_metadata(int(i)).key)
+                for index, ids, scores in parts for i, s in zip(ids[j], scores[j])]
+        cand.sort(key=lambda c: -c[0])
+        out.append(([c[1] for c in cand[:limit]], np.array([c[0] for c in cand[:limit]])))
+    return out
+
+
+def same_keyed_hits(hits: list[dict], keys: list, scores, atol: float | None = None) -> None:
+    """Hits (dicts with folder, image, similarity_score) tie-aware equal to
+    the reference's keys and scores."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.testing import ATOL_TOPK
+
+    got = [(h["folder"], h["image"]) for h in hits]
+    if len(got) != len(keys):
+        raise AssertionError(f"{len(got)} hits, expected {len(keys)}")
+    ids = {k: i for i, k in enumerate(sorted(set(got) | set(keys)))}
+    tie_aware_equal([ids[k] for k in got], [h["similarity_score"] for h in hits],
+                    [ids[k] for k in keys], scores, atol=ATOL_TOPK if atol is None else atol)
+
+
+def run_p2p_phase(device, system, require_kernels: bool, single_p50_ms: float,
+                  n_peer: int = N_ROWS, timed: int = P2P_TIMED) -> dict:
+    """Phase 4c on the slice's system (its bf16 rows from default_rng(0)): a
+    port ``NetworkServer`` on the card shares a second index of ``n_peer``
+    bf16 rows from default_rng(1), loaded into ``system.remote_indexes``;
+    the fan-in, the remote search, the agents' chat and ``llm_enhanced``, and
+    the Socket.IO wire of a ``RetrievalServer`` over the system, each checked
+    against its reference. Leaves the system as it found it."""
+    import base64
+    import io
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import UnifiedIndex
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import (
+        attention, preprocess, topk,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve.p2p import (
+        NetworkClient,
+        NetworkServer,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve.rest import RetrievalServer
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve.websocket import (
+        WebSocketClient,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+        SearchOptions,
+    )
+
+    phase_t0 = time.perf_counter()
+    local = system.index
+    dim = local.dim
+    t0 = time.perf_counter()
+    peer_bits = synthetic_rows_bf16_bits(n_peer, dim, seed=1)
+    peer_index = UnifiedIndex(device=device)
+    peer_index.attach_container(PeerContainer(peer_bits))
+    del peer_bits
+    peer = NetworkServer("127.0.0.1", free_port(), node_name="smoke-peer",
+                         enable_discovery=False, device=device)
+    peer.register_index("peer", peer_index)
+    peer.start_server()
+    log("p2p", f"peer NetworkServer on 127.0.0.1:{peer.port} shares {peer_index.ntotal} x "
+        f"{dim} bf16 rows from numpy.random.default_rng(1) on {peer_index.device} "
+        f"(set up in {time.perf_counter() - t0:.1f} s)")
+    counters = {"b1": topk.chunk_max_sweep, "b3": attention.fused_mha,
+                "b5": preprocess.normalize_images}
+
+    def uncounted(fn, *args, **kwargs):
+        """A reference's own work is not the phase's path."""
+        saved = {k: c.launches for k, c in counters.items()}
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for k, c in counters.items():
+                c.launches = saved[k]
+
+    def prompt_vecs(texts: list[str]) -> np.ndarray:
+        """The vectors the facade searches: each prompt encoded alone, as
+        ``search`` encodes it."""
+        return np.stack([uncounted(system.embedder.encode_text,
+                                   [system._clip_prompt(t, SearchOptions())[0]])[0]
+                         for t in texts])
+
+    server = RetrievalServer(system, host="127.0.0.1", port=free_port())
+    numbers: dict = {}
+    try:
+        # the P2P path starts here: every launch count from zero
+        for c in counters.values():
+            c.launches = 0
+        client = NetworkClient(timeout_s=120)
+        remote = client.load_remote_index("127.0.0.1", peer.port, "peer")
+        if (remote.ntotal, remote.dim) != (n_peer, dim):
+            raise AssertionError(f"the remote index reports {remote.ntotal} x {remote.dim}")
+        system.remote_indexes.append(remote)
+
+        # fan-in: local rows (B1 here) and the peer's (B1 there), merged
+        queries = [f"p2p {i}: a red car driving at night past neon signs"
+                   for i in range(P2P_QUERIES)]
+        opts = SearchOptions(limit=20, use_cache=False)
+        answers = []
+        for q in queries:
+            before = topk.chunk_max_sweep.launches
+            answers.append(system.search(q, opts))
+            if require_kernels and topk.chunk_max_sweep.launches - before != 2:
+                raise AssertionError("a fan-in search did not launch B1 once locally and "
+                                     "once on the peer")
+        refs = uncounted(fan_in_reference, [local, peer_index], prompt_vecs(queries), 20)
+        sources = set()
+        for hits, (keys, scores) in zip(answers, refs):
+            same_keyed_hits(hits, keys, scores)
+            sources |= {h.get("source", "local").split(":")[0] for h in hits}
+        if sources != {"local", "remote"}:
+            raise AssertionError(f"the fan-in answers hold hits of {sources} only")
+        batch = system.search_batch(queries, opts)
+        for got, single in zip(batch, answers):
+            if [(h["folder"], h["image"], h["similarity_score"]) for h in got] != \
+                    [(h["folder"], h["image"], h["similarity_score"]) for h in single]:
+                raise AssertionError("search_batch with a remote index differs from search")
+        log("p2p", f"{P2P_QUERIES} fan-in searches (limit 20) tie-aware equal to the exact "
+            f"f32 reference over both {local.ntotal}-row and {n_peer}-row sets, hits of both; "
+            "search_batch equal to search per query")
+
+        # the remote search alone, and a query vector of the wrong length
+        qvecs = prompt_vecs(queries[:2])
+        for qvec, hits in zip(qvecs, (remote.search_vector(v, top_k=20) for v in qvecs)):
+            (keys, scores), = uncounted(fan_in_reference, [peer_index], qvec[None], 20)
+            same_keyed_hits(hits, keys, scores)
+            if any(h["row_id"] != peer_index.row_for(h["folder"], h["image"]) for h in hits):
+                raise AssertionError("a remote hit's row_id is not its row")
+        try:
+            remote.search_vector(np.zeros(dim - 1, np.float32))
+            raise AssertionError("a query vector of the wrong length was answered")
+        except urllib.error.HTTPError as exc:
+            if exc.code != 400:
+                raise AssertionError(f"a wrong-length vector answered {exc.code}") from exc
+        log("p2p", "RemoteUnifiedIndex.search_vector tie-aware equal to the peer's exact "
+            f"reference; a vector of {dim - 1} values answered 400")
+
+        # the agents: a scripted provider calls search_keyframes, then answers
+        script = [{"content": None, "tool_calls": [
+                      {"id": "c1", "name": "search_keyframes",
+                       "arguments": json.dumps({"query": "a goal celebration in a stadium",
+                                                "limit": 5, "mode": "clip_only"})}]},
+                  {"content": "Five frames show a celebration.", "tool_calls": None}]
+        calls: list = []
+
+        def scripted(messages, tools=None):
+            calls.append(len(messages))
+            return script[min(len(calls) - 1, len(script) - 1)]
+
+        proc = system.enable_llm(complete_fn=scripted)
+        out = system.chat("show me a goal celebration")
+        want = system.search("a goal celebration in a stadium",
+                             SearchOptions(mode="clip_only", limit=5, use_cache=False))
+        if out["method"] != "agent" or out["tool_calls"] != ["search_keyframes"] or \
+                out["response"] != script[1]["content"]:
+            raise AssertionError(f"chat answered {out['method']}: {out['response']!r}")
+        if [(h["folder"], h["image"], h["similarity_score"]) for h in out["search_results"]] \
+                != [(h["folder"], h["image"], round(h["similarity_score"], 4)) for h in want]:
+            raise AssertionError("the agent's search_results differ from system.search")
+        (keys, scores), = uncounted(fan_in_reference, [local, peer_index],
+                                    prompt_vecs(["a goal celebration in a stadium"]), 5)
+        same_keyed_hits(want, keys, scores)
+        # llm_enhanced: the query and three scripted expansions, max-merged
+        proc.complete_fn = lambda messages, tools=None: {
+            "content": "a red sports car\ncars on a wet street at night\nneon lights",
+            "tool_calls": None}
+        text = "a red car at night"
+        variants = proc.expand_query(text)
+        if len(variants) != 4 or variants[0] != text:
+            raise AssertionError(f"expand_query gave {variants}")
+        got = system.search(text, SearchOptions(mode="llm_enhanced", limit=20, use_cache=False))
+        vv = uncounted(system.embedder.encode_text, variants)
+        merged: dict = {}
+        for keys, scores in uncounted(fan_in_reference, [local, peer_index], vv, 20):
+            for k, s in zip(keys, scores):
+                merged[k] = max(merged.get(k, -np.inf), float(s))
+        best = sorted(merged, key=lambda k: -merged[k])[:20]
+        same_keyed_hits(got, best, np.array([merged[k] for k in best]))
+        log("p2p", "agents: chat through a scripted search_keyframes call equals "
+            "system.search (clip_only, limit 5) and the exact reference; llm_enhanced with 4 "
+            "scripted variants equals the merge of their exact references")
+
+        # the Socket.IO wire of the REST server over the same system
+        server.run(block=False)
+        base = f"http://127.0.0.1:{server.port}/socket.io/?EIO=4"
+
+        def get(url: str) -> str:
+            with urllib.request.urlopen(url, timeout=120) as resp:
+                return resp.read().decode()
+
+        def post(url: str, body: str) -> str:
+            req = urllib.request.Request(url, data=body.encode(),
+                                         headers={"Content-Type": "text/plain;charset=UTF-8"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.read().decode()
+
+        def rest_call(path: str, payload: dict) -> dict:
+            req = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}",
+                                         data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return json.loads(resp.read())
+
+        def event(packet: str) -> tuple[str, dict]:
+            if not packet.startswith("42"):
+                raise AssertionError(f"expected an event, got {packet[:80]!r}")
+            name, data = json.loads(packet[2:])
+            return name, data
+
+        def receive(ws) -> str:
+            """The next packet that is not the server's ping (answered)."""
+            while True:
+                packet = ws.receive()[1].decode()
+                if packet != "2":
+                    return packet
+                ws.send(1, b"3")
+
+        def same_answers(a: list[dict], b: list[dict]) -> None:
+            same_keyed_hits(a, [(h["folder"], h["image"]) for h in b],
+                            [h["similarity_score"] for h in b], atol=0.0)
+
+        hello = get(base + "&transport=polling")
+        sid = json.loads(hello[1:])["sid"]
+        poll = f"{base}&transport=polling&sid={sid}"
+        post(poll, "40")
+        packets = get(poll).split("\x1e")
+        if not packets[0].startswith("40") or event(packets[1])[0] != "connected":
+            raise AssertionError(f"namespace connect answered {packets}")
+        text = "socket.io: people walking on a beach at sunset"
+        post(poll, "42" + json.dumps(["search", {"query": text, "limit": 10}]))
+        name, sio_out = event(get(poll).split("\x1e")[0])
+        system.cache.clear()
+        rest_out = rest_call("/api/search", {"query": text, "limit": 10})
+        if name != "result" or sio_out["count"] != 10:
+            raise AssertionError(f"socket.io search answered {name}")
+        same_answers(sio_out["results"], rest_out["results"])
+        size = system.embedder.input_size
+        buf = io.BytesIO()
+        Image.fromarray(np.random.default_rng(5).integers(0, 256, (size, size, 3),
+                                                          dtype=np.uint8)).save(buf, "JPEG")
+        jpeg = base64.b64encode(buf.getvalue()).decode()
+        with WebSocketClient("127.0.0.1", server.port, timeout=120,
+                             path=f"/socket.io/?EIO=4&transport=websocket&sid={sid}") as ws:
+            ws.send(1, b"2probe")
+            if receive(ws) != "3probe":
+                raise AssertionError("the upgrade probe was not answered")
+            ws.send(1, b"5")
+            before = {k: c.launches for k, c in counters.items()}
+            ws.send(1, ('42["image_search", {"image_base64": "%s", "limit": 10}]'
+                        % jpeg).encode())
+            name, img_out = event(receive(ws))
+            moved = {k: c.launches - before[k] for k, c in counters.items()}
+            if name != "image_search_result" or img_out["count"] != 10:
+                raise AssertionError(f"socket.io image_search answered {name}")
+            if require_kernels and (moved["b5"] < 1 or moved["b3"] < 1):
+                raise AssertionError(f"socket.io image_search launched {moved}")
+            rest_img = rest_call("/api/image_search", {"image_base64": jpeg, "limit": 10})
+            same_answers(img_out["results"], rest_img["results"])
+            ws.send(1, b'4217["system_stats", {}]')
+            ack, stats = receive(ws), receive(ws)
+            if not ack.startswith("4317") or event(stats)[0] != "system_stats" or \
+                    event(stats)[1]["stats"]["remote_indexes"] != 1:
+                raise AssertionError(f"system_stats with an ack answered {ack[:40]!r}")
+            # numbers: the Socket.IO search round trip beside /ws's
+            sio_rt = []
+            for i in range(timed + 2):
+                t0 = time.perf_counter()
+                ws.send(1, ("42" + json.dumps(["search", {
+                    "query": f"socket.io timed {i}: a dog catching a frisbee",
+                    "limit": 10}])).encode())
+                if event(receive(ws))[0] != "result":
+                    raise AssertionError("a socket.io search did not answer a result")
+                sio_rt.append((time.perf_counter() - t0) * 1e3)
+        with WebSocketClient("127.0.0.1", server.port, timeout=120) as plain:
+            ws_rt = []
+            for i in range(timed + 2):
+                t0 = time.perf_counter()
+                plain.send_json({"event": "search", "data": {
+                    "query": f"ws timed {i}: a dog catching a frisbee", "limit": 10}})
+                if plain.receive_json().get("event") != "result":
+                    raise AssertionError("/ws search did not answer a result")
+                ws_rt.append((time.perf_counter() - t0) * 1e3)
+        log("p2p", "Socket.IO: polling handshake and 40, search equal to /api/search, "
+            f"upgrade to WebSocket, image_search equal to /api/image_search (launches {moved}), "
+            "system_stats with an ack")
+        launches = {k: c.launches for k, c in counters.items()}
+
+        # numbers (not the path): the remote search and the fan-in, warm
+        def wall(fn) -> list[float]:
+            out = []
+            for i in range(timed + 2):
+                t0 = time.perf_counter()
+                fn(i)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return out[2:]
+
+        tv = prompt_vecs([f"timed {i}: a crowded market street in the rain"
+                          for i in range(timed + 2)])
+        remote_ms = wall(lambda i: remote.search_vector(tv[i], top_k=20))
+        local_ms = wall(lambda i: local.search_vectors(tv[i][None], top_k=20))
+        fan_ms = wall(lambda i: system.search(f"fan-in timed {i}: a crowded market street",
+                                              SearchOptions(limit=20, use_cache=False)))
+        p = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+        numbers = {"remote_p50_ms": p(remote_ms, 50), "remote_p95_ms": p(remote_ms, 95),
+                   "local_b1_p50_ms": p(local_ms, 50), "local_b1_p95_ms": p(local_ms, 95),
+                   "fan_in_p50_ms": p(fan_ms, 50), "fan_in_p95_ms": p(fan_ms, 95),
+                   "single_p50_ms": single_p50_ms,
+                   "socketio_search_p50_ms": p(sio_rt[2:], 50),
+                   "ws_search_p50_ms": p(ws_rt[2:], 50)}
+        log("numbers", f"peer remote search over {n_peer} rows, {timed} warm calls: p50 "
+            f"{numbers['remote_p50_ms']:.3f} ms, p95 {numbers['remote_p95_ms']:.3f} ms; local "
+            f"search_vectors B=1 p50 {numbers['local_b1_p50_ms']:.3f} ms, p95 "
+            f"{numbers['local_b1_p95_ms']:.3f} ms")
+        log("numbers", f"fan-in search (local + 1 peer) p50 {numbers['fan_in_p50_ms']:.3f} ms, "
+            f"p95 {numbers['fan_in_p95_ms']:.3f} ms; phase 4's single-system p50 "
+            f"{single_p50_ms:.3f} ms")
+        log("numbers", f"Socket.IO search round trip p50 {numbers['socketio_search_p50_ms']:.3f} "
+            f"ms; /ws {numbers['ws_search_p50_ms']:.3f} ms ({timed} warm searches each)")
+    finally:
+        system.remote_indexes.clear()
+        system.llm_processor = None
+        system.cache.clear()
+        server.stop()
+        peer.stop_server()
+    if NetworkClient(timeout_s=2).health_check("127.0.0.1", peer.port):
+        raise AssertionError("the peer still answers after stop_server")
+    seconds = time.perf_counter() - phase_t0
+    log("p2p", f"phase in {seconds:.1f} s; launches on the P2P path {launches}; peer stopped, "
+        "remote_indexes and llm_processor cleared")
+    if require_kernels and any(launches[k] == 0 for k in ("b1", "b3", "b5")):
+        raise AssertionError(f"a kernel of the P2P path never launched: {launches}")
+    return {"launches": launches, "numbers": numbers, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -4808,6 +5219,9 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     bits = make_rows(N_ROWS)
     result = run_slice(device, N_ROWS, require_kernels=True, bits=bits)
+    p2p = run_p2p_phase(device, result["system"], require_kernels=True,
+                        single_p50_ms=result["p50_ms"])
+    torch.cuda.empty_cache()
     serve = run_serve_phase(device, result.pop("system"), require_kernels=True)
     torch.cuda.empty_cache()
     result8 = run_int8_slice(device, bits, require_kernels=True)
@@ -4847,8 +5261,8 @@ def main(argv: list[str] | None = None) -> int:
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/chunk_max.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/topk.py:134",
          "launches": result["launches"]["b1"], **b1,
-         "serve_launches": serve["launches"]["b1"], "w8a8_launches": w8a8["launches"]["b1"],
-         "mesh_launches": mesh1["launches"]["b1"]},
+         "serve_launches": serve["launches"]["b1"], "p2p_launches": p2p["launches"]["b1"],
+         "w8a8_launches": w8a8["launches"]["b1"], "mesh_launches": mesh1["launches"]["b1"]},
         {"name": "int8_chunk_max_sweep (B2)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/int8_sweep.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/quant.py:167",
@@ -4859,7 +5273,8 @@ def main(argv: list[str] | None = None) -> int:
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/attention.py:32",
          "launches": result["launches"]["b3"], **b3, "dino_vit_s_16": ingested["b3"],
          "ingest_launches": ingested["launches"]["b3"],
-         "serve_launches": serve["launches"]["b3"], "w8a8_launches": w8a8["launches"]["b3"],
+         "serve_launches": serve["launches"]["b3"], "p2p_launches": p2p["launches"]["b3"],
+         "w8a8_launches": w8a8["launches"]["b3"],
          "train_launches": train["launches"], "train": train["b3"]},
         {"name": "fused_ln_mlp (B4)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
@@ -4870,7 +5285,8 @@ def main(argv: list[str] | None = None) -> int:
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py:127",
          "launches": built["launches"]["b5"], **b5, "dino_f32": ingested["b5"],
          "ingest_launches": ingested["launches"]["b5"],
-         "serve_launches": serve["launches"]["b5"], "w8a8_launches": w8a8["launches"]["b5"]},
+         "serve_launches": serve["launches"]["b5"], "p2p_launches": p2p["launches"]["b5"],
+         "w8a8_launches": w8a8["launches"]["b5"]},
         {"name": "probe_int8_mma_sweep (P1)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/probes.cu",
          "replaces": "benchmarks/exp_int8.py:37",
@@ -4887,6 +5303,8 @@ def main(argv: list[str] | None = None) -> int:
     log("serve", f"launches on the serve path: {serve['launches']}; p50 {serve['p50_ms']:.3f} "
         f"ms, p95 {serve['p95_ms']:.3f} ms, QPS {serve['qps']}, avg batch "
         f"{serve['avg_batch']:.2f}, idle share {serve['idle_share']:.4f}")
+    log("p2p", f"launches on the P2P path: {p2p['launches']}; numbers {p2p['numbers']}; "
+        f"phase {p2p['seconds']:.1f} s")
     log("build", f"launches on the build path: {built['launches']}")
     log("w8a8", f"launches on the int8_static facade path: {w8a8['launches']}; build "
         f"{w8a8['images_per_s']:.1f} images/s; int8 attention {w8a8_ops['attention']}; "

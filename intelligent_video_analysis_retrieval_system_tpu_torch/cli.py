@@ -57,8 +57,26 @@ until interrupted:
     python -m intelligent_video_analysis_retrieval_system_tpu_torch serve \
         [index.rvdb] [--host 0.0.0.0] [--port 5000] [--device cuda] [--mesh]
 
-The other commands of the JAX package's CLI (share, doctor, validate,
-parity) are ported with their subsystems in later changes.
+``share`` — a P2P peer server sharing an index on the LAN (``serve/p2p.py``;
+the index opens on ``--device``), until interrupted:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch share \
+        index.rvdb [--host 0.0.0.0] [--port 5001] [--index-id shared] [--device cuda]
+
+``doctor`` — diagnostics: the CUDA cards torch sees and ``nvidia-smi``'s name
+and power limit, the tokenizer and weights the config names, the host's
+network and ports, and with ``--probe host:port`` a peer:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch doctor \
+        [--port 5001] [--probe 10.0.0.2:5001] [--config config.json]
+
+``validate`` — the peer server's lifecycle self-test on a loopback port
+(start, ping, info, status, discovery, clean shutdown):
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch validate \
+        [--port 0] [--device cuda]
+
+``parity`` (the HF weights check) is not ported yet.
 """
 
 from __future__ import annotations
@@ -188,6 +206,25 @@ def _build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
+
+    sh = sub.add_parser("share", help="share an index on the LAN (P2P)")
+    sh.add_argument("index_path")
+    sh.add_argument("--host", default="0.0.0.0")
+    sh.add_argument("--port", type=int, default=5001)
+    sh.add_argument("--name", default=None, help="node name")
+    sh.add_argument("--index-id", default="shared")
+    sh.add_argument("--device", default="cuda",
+                    help="torch device the shared index opens on (default cuda)")
+
+    dr = sub.add_parser("doctor", help="diagnose network & device setup")
+    dr.add_argument("--port", type=int, default=5001)
+    dr.add_argument("--probe", default=None, help="host:port of a peer to probe")
+    dr.add_argument("--config", default=None,
+                    help="config.json to check model/vocab provenance from")
+
+    va = sub.add_parser("validate", help="peer server lifecycle self-test")
+    va.add_argument("--port", type=int, default=0, help="port (0 = ephemeral)")
+    va.add_argument("--device", default="cuda", help="torch device of the peer server")
 
     # the bench parses its own flags (bench.main)
     sub.add_parser("bench", help="end-to-end bench: one JSON line on stdout",
@@ -534,9 +571,153 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_share(args) -> int:
+    from .serve.p2p import NetworkServer
+
+    server = NetworkServer(args.host, args.port, node_name=args.name, device=args.device)
+    server.register_index_file(args.index_id, args.index_path)
+    server.start_server()
+    print(f"sharing {args.index_path!r} as {args.index_id!r} on {args.host}:{server.port} "
+          f"(discovery on {server.port + 1}); Ctrl-C to stop", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop_server()
+    return 0
+
+
+def _doctor_device() -> None:
+    """The CUDA cards torch sees, and nvidia-smi's name and power limit in
+    a bounded subprocess."""
+    import subprocess
+
+    import torch
+
+    print("== device ==")
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if torch.cuda.is_available():
+        print(f"  cuda devices: {torch.cuda.device_count()}")
+        for i in range(torch.cuda.device_count()):
+            print(f"  device {i}: {torch.cuda.get_device_name(i)}")
+    else:
+        print("  cuda devices: 0 (torch.cuda.is_available() is False; pass --device cpu)")
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"],
+                           timeout=30, capture_output=True, text=True)
+        lines = r.stdout.strip().splitlines() if r.returncode == 0 else []
+        for line in lines:
+            print(f"  nvidia-smi: {line}")
+        if not lines:
+            tail = (r.stderr or "").strip().splitlines()
+            print(f"  nvidia-smi failed: {tail[-1] if tail else r.returncode}")
+    except FileNotFoundError:
+        print("  nvidia-smi: not found")
+    except subprocess.TimeoutExpired:
+        print("  nvidia-smi: no answer within 30 s")
+
+
+def cmd_doctor(args) -> int:
+    """Diagnostics: device, model, network, and optionally one peer."""
+    import socket
+
+    _doctor_device()
+    print("== model ==")
+    try:
+        from pathlib import Path
+
+        from .models.tokenizer import load_tokenizer
+        from .utils.config import Config
+
+        cfg = Config(config_file=args.config, create_dirs=False)
+        model_path = cfg.get("model.path")
+        tok = load_tokenizer(cfg.get("model.vocab_dir") or model_path)
+        print(f"  tokenizer: {tok.kind}"
+              + ("" if tok.kind == "clip_bpe" else
+                 "  (DEGRADED: text search will not match real CLIP semantics — set "
+                 "model.vocab_dir to a dir with merges.txt)"))
+        has_weights = model_path is not None and Path(str(model_path)).exists()
+        print("  weights: " + (f"pretrained at {model_path}" if has_weights
+                               else "random init (no model.path)"))
+    except Exception as exc:
+        print(f"  model check failed: {exc}")
+    print("== network ==")
+    host = socket.gethostname()
+    print(f"  hostname: {host}")
+    try:
+        print(f"  ip: {socket.gethostbyname(host)}")
+    except OSError:
+        print("  ip: unresolvable")
+    for port in (args.port, args.port + 1):
+        with socket.socket() as s:
+            s.settimeout(0.5)
+            in_use = s.connect_ex(("127.0.0.1", port)) == 0
+        print(f"  port {port}: {'IN USE' if in_use else 'free'}")
+    if args.probe:
+        from .serve.p2p import NetworkClient
+
+        try:
+            h, p = args.probe.rsplit(":", 1)
+            record = NetworkClient(timeout_s=3).connect_to_server(h, int(p))
+            print(f"  probe {args.probe}: OK (node {record['info'].get('node_name')})")
+        except Exception as exc:
+            print(f"  probe {args.probe}: FAILED ({exc})")
+            return 1
+    print("== checklist ==")
+    print("  - peers must share a subnet for UDP broadcast discovery")
+    print("  - firewalls must allow the service port and port+1/udp")
+    print("  - use `share` on the serving node, `doctor --probe` from peers")
+    return 0
+
+
+def cmd_validate(args) -> int:
+    """The peer server's lifecycle self-test."""
+    import socket
+    import urllib.request
+
+    from .serve.p2p import NetworkClient, NetworkServer
+
+    port = args.port
+    if port == 0:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+    checks: list[tuple[str, bool]] = []
+    server = NetworkServer("127.0.0.1", port, node_name="validate", enable_discovery=True,
+                           device=args.device)
+    server.start_server()
+    try:
+        client = NetworkClient(timeout_s=5)
+        checks.append(("server starts", server.is_running))
+        checks.append(("/api/ping answers", client.health_check("127.0.0.1", port)))
+        info = client._get(f"http://127.0.0.1:{port}", "/api/node/info")
+        checks.append(("/api/node/info answers", "node_id" in info))
+        status = client._get(f"http://127.0.0.1:{port}", "/api/status")
+        checks.append(("/api/status running", status.get("status") == "running"))
+        checks.append(("discovery threads alive", server.discovery.is_running))
+    finally:
+        server.stop_server()
+    time.sleep(0.3)
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/api/ping", timeout=1)
+        stopped = False
+    except Exception:
+        stopped = True
+    checks.append(("clean shutdown", stopped))
+    ok = all(passed for _, passed in checks)
+    for name, passed in checks:
+        print(f"  [{'PASS' if passed else 'FAIL'}] {name}")
+    print("ALL CHECKS PASSED" if ok else "VALIDATION FAILED")
+    return 0 if ok else 1
+
+
 _COMMANDS = {"extract": cmd_extract, "filter": cmd_filter, "build": cmd_build,
              "search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate,
-             "compact": cmd_compact, "tune": cmd_tune, "serve": cmd_serve}
+             "compact": cmd_compact, "tune": cmd_tune, "serve": cmd_serve,
+             "share": cmd_share, "doctor": cmd_doctor, "validate": cmd_validate}
 
 
 def main(argv: list[str] | None = None) -> int:

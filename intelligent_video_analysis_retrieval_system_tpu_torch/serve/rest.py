@@ -26,6 +26,11 @@ methods, status codes and JSON envelopes are the JAX server's:
     POST /api/filter            {action, input_dir, ...}   (filter launcher)
     POST /api/open              {path, writable?}          (smart load)
     POST /api/maintenance       {action, ...}
+    POST /api/network/discover  {wait_s?}                  (network panel)
+    GET  /api/network/peers
+    POST /api/network/connect   {host, port}
+    POST /api/network/load_remote    {host, port, index_id}
+    POST /api/network/unload_remote  {index_id?}
     GET  /                      the console page
 
 WebSocket at /ws (``serve/websocket.py`` frames it): JSON messages
@@ -34,14 +39,15 @@ WebSocket at /ws (``serve/websocket.py`` frames it): JSON messages
 ``metadata_query`` / ``semantic_search``, ``request_id`` echoed; the server
 pushes ``build_progress`` / ``build_done`` / ``build_error`` and
 ``filter_progress`` / ``filter_done`` / ``filter_error`` to every open socket
-from the job's thread.
+from the job's thread. The same events and pushes run over the Socket.IO
+wire at ``/socket.io/`` (``serve/socketio.py``). The network panel's routes
+drive the P2P layer (``serve/p2p.py``): discovery listens without
+announcing, and a loaded peer index joins ``system.remote_indexes``.
 
-Not ported yet: the five ``/api/network/*`` routes (the P2P layer,
-``serve/p2p.py``) answer 501 with an envelope that says so, and the
-Socket.IO wire (``/socket.io/``) is absent. Where the framework alone makes
-the two servers differ: an unknown path answers 404 and a known path asked
-with another method 405, a body over the 64 MiB cap 413, each with a JSON
-envelope (aiohttp answers these in plain text). ``/ws`` has the JAX
+Where the framework alone makes the two servers differ: an unknown path
+answers 404 and a known path asked with another method 405, a body over the
+64 MiB cap 413, each with a JSON envelope (aiohttp answers these in plain
+text). ``/ws`` has the JAX
 server's heartbeat (``WS_HEARTBEAT_S``): a ping every 30 s, and a socket
 whose pong has not come half an interval later is dropped. Facade work holds one of ``api.executor_workers`` slots (default
 128), the width of the JAX server's executor.
@@ -299,79 +305,19 @@ def _match(template: list[str], segments: list[str]) -> dict[str, str] | None:
     return out
 
 
-class RetrievalServer:
-    def __init__(
-        self,
-        system: "EnhancedRetrievalSystem",
-        host: str = "0.0.0.0",
-        port: int = 5000,
-        rate_limit_per_minute: int | None = None,
-    ) -> None:
-        self.system = system
-        self.host = host
-        self.port = port
-        limit = rate_limit_per_minute or system.config.get(
-            "api.rate_limit_per_minute", 100
-        )
-        self.handler = RequestHandler(RateLimiter(limit))
-        self.batcher = None
-        if system.config.get("api.batching", False):
-            from .batching import QueryBatcher
+class HTTPApp:
+    """Routes, dispatch and connection tracking of an app served by
+    ``_HTTPServer`` (the REST server and the P2P peer server)."""
 
-            self.batcher = QueryBatcher(
-                system,
-                window_ms=float(system.config.get("api.batching_window_ms", 3.0)),
-                max_batch=int(system.config.get("api.batching_max_batch", 64)),
-            )
-            self.batcher.start()
-        # the JAX server runs facade work on a pool of this many threads;
-        # here each connection has its thread, and facade work holds a slot
-        self._slots = threading.BoundedSemaphore(
-            int(system.config.get("api.executor_workers", 128)))
+    def __init__(self) -> None:
         self._routes: list[tuple[str, list[str], Callable[[Request], Response | None]]] = []
-        self._setup_routes()
-        self._httpd: _HTTPServer | None = None
-        self._thread: threading.Thread | None = None
-        self._life = threading.Lock()
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
-        self.started_at = time.time()
-        # console build wizard state (reference GUI smart build)
-        self._ws_clients: set[wsf.WebSocket] = set()
-        self._build_lock = threading.Lock()
-        self._build_state: dict[str, Any] = {"status": "idle"}
-        self._build_thread: threading.Thread | None = None
-        self._build_cb_registered = False
 
-    # -- routes ---------------------------------------------------------------
+    def _log_exception(self, message: str) -> None:
+        import logging
 
-    def _setup_routes(self) -> None:
-        add = self._add
-        add("GET", "/api/health", self._health)
-        add("POST", "/api/search", self._search)
-        add("POST", "/api/search_batch", self._search_batch)
-        add("POST", "/api/image_search", self._image_search)
-        add("POST", "/api/chat", self._chat)
-        add("POST", "/api/translate", self._translate)
-        add("GET", "/api/metadata/{folder}/{image}", self._metadata)
-        add("GET", "/api/thumbnail/{folder}/{image}", self._thumbnail)
-        add("GET", "/api/image/{folder}/{image}", self._image)
-        add("GET", "/api/similar/{folder}/{image}", self._similar)
-        add("GET", "/api/stats", self._stats)
-        add("POST", "/api/export", self._export)
-        add("POST", "/api/build", self._build)
-        add("GET", "/api/build/status", self._build_status)
-        add("POST", "/api/filter", self._filter)
-        add("POST", "/api/open", self._open)
-        add("POST", "/api/maintenance", self._maintenance)
-        for method, path in (("POST", "/api/network/discover"),
-                             ("GET", "/api/network/peers"),
-                             ("POST", "/api/network/connect"),
-                             ("POST", "/api/network/load_remote"),
-                             ("POST", "/api/network/unload_remote")):
-            add(method, path, self._net_not_ported)
-        add("GET", "/ws", self._websocket)
-        add("GET", "/", self._console)
+        logging.getLogger(__name__).exception(message)
 
     def _add(self, method: str, path: str, fn: Callable[[Request], Response | None]) -> None:
         self._routes.append((method, path.split("/"), fn))
@@ -410,7 +356,7 @@ class RetrievalServer:
                 conn.close_connection = True
                 return
             except Exception as exc:
-                self.system.logger.exception(f"handler failed: {method} {url.path}")
+                self._log_exception(f"handler failed: {method} {url.path}")
                 resp = json_response(
                     error_envelope(f"{type(exc).__name__}: {exc}", 500), 500)
             if resp is None:   # the websocket had the connection and is done with it
@@ -419,6 +365,123 @@ class RetrievalServer:
         if not conn.drain():
             conn.close_connection = True
         conn.respond(resp, head_only=method == "HEAD")
+
+    def _track(self, sock: socket.socket, add: bool) -> None:
+        with self._conns_lock:
+            if add:
+                self._conns.add(sock)
+            else:
+                self._conns.discard(sock)
+
+    def _shutdown_connections(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
+def accept_websocket(request: Request) -> "wsf.WebSocket | Response":
+    """Answer a WebSocket upgrade on the request's connection: the open
+    socket, or a 400 where the request is no valid upgrade."""
+    headers = request.headers
+    key = headers.get("Sec-WebSocket-Key")
+    if (headers.get("Upgrade", "").lower() != "websocket"
+            or "upgrade" not in headers.get("Connection", "").lower() or not key
+            or headers.get("Sec-WebSocket-Version") != "13"):
+        return json_response(error_envelope("websocket upgrade required"), 400)
+    conn = request.conn
+    conn.send_response(101)
+    conn.send_header("Upgrade", "websocket")
+    conn.send_header("Connection", "Upgrade")
+    conn.send_header("Sec-WebSocket-Accept", wsf.accept_key(key))
+    conn.end_headers()
+    conn.connection.settimeout(None)   # an idle socket stays open
+    return wsf.WebSocket(conn.connection, conn.rfile, client=False, max_size=MAX_BODY)
+
+
+class RetrievalServer(HTTPApp):
+    def __init__(
+        self,
+        system: "EnhancedRetrievalSystem",
+        host: str = "0.0.0.0",
+        port: int = 5000,
+        rate_limit_per_minute: int | None = None,
+    ) -> None:
+        super().__init__()
+        self.system = system
+        self.host = host
+        self.port = port
+        limit = rate_limit_per_minute or system.config.get(
+            "api.rate_limit_per_minute", 100
+        )
+        self.handler = RequestHandler(RateLimiter(limit))
+        self.batcher = None
+        if system.config.get("api.batching", False):
+            from .batching import QueryBatcher
+
+            self.batcher = QueryBatcher(
+                system,
+                window_ms=float(system.config.get("api.batching_window_ms", 3.0)),
+                max_batch=int(system.config.get("api.batching_max_batch", 64)),
+            )
+            self.batcher.start()
+        # the JAX server runs facade work on a pool of this many threads;
+        # here each connection has its thread, and facade work holds a slot
+        self._slots = threading.BoundedSemaphore(
+            int(system.config.get("api.executor_workers", 128)))
+        self._discovery = None           # lazy serve.p2p.NetworkDiscovery
+        self._net_client = None          # lazy serve.p2p.NetworkClient
+        self._setup_routes()
+        self._httpd: _HTTPServer | None = None
+        self._thread: threading.Thread | None = None
+        self._life = threading.Lock()
+        self.started_at = time.time()
+        # console build wizard state (reference GUI smart build)
+        self._ws_clients: set[wsf.WebSocket] = set()
+        self._build_lock = threading.Lock()
+        self._build_state: dict[str, Any] = {"status": "idle"}
+        self._build_thread: threading.Thread | None = None
+        self._build_cb_registered = False
+
+    # -- routes ---------------------------------------------------------------
+
+    def _setup_routes(self) -> None:
+        add = self._add
+        add("GET", "/api/health", self._health)
+        add("POST", "/api/search", self._search)
+        add("POST", "/api/search_batch", self._search_batch)
+        add("POST", "/api/image_search", self._image_search)
+        add("POST", "/api/chat", self._chat)
+        add("POST", "/api/translate", self._translate)
+        add("GET", "/api/metadata/{folder}/{image}", self._metadata)
+        add("GET", "/api/thumbnail/{folder}/{image}", self._thumbnail)
+        add("GET", "/api/image/{folder}/{image}", self._image)
+        add("GET", "/api/similar/{folder}/{image}", self._similar)
+        add("GET", "/api/stats", self._stats)
+        add("POST", "/api/export", self._export)
+        add("POST", "/api/build", self._build)
+        add("GET", "/api/build/status", self._build_status)
+        add("POST", "/api/filter", self._filter)
+        add("POST", "/api/open", self._open)
+        add("POST", "/api/maintenance", self._maintenance)
+        add("POST", "/api/network/discover", self._net_discover)
+        add("GET", "/api/network/peers", self._net_peers)
+        add("POST", "/api/network/connect", self._net_connect)
+        add("POST", "/api/network/load_remote", self._net_load_remote)
+        add("POST", "/api/network/unload_remote", self._net_unload_remote)
+        add("GET", "/ws", self._websocket)
+        # the Socket.IO wire: reference clients connect to /socket.io/ unchanged
+        from .socketio import SocketIOAdapter
+
+        self._sio = SocketIOAdapter(self)
+        self._sio.register(self)
+        add("GET", "/", self._console)
+
+    def _log_exception(self, message: str) -> None:
+        self.system.logger.exception(message)
 
     @staticmethod
     def _client_id(request: Request) -> str:
@@ -881,16 +944,97 @@ class RetrievalServer:
     def _console(self, request: Request) -> Response:
         return Response(200, _CONSOLE_HTML.encode(), "text/html; charset=utf-8")
 
-    def _net_not_ported(self, request: Request) -> Response:
-        return json_response(error_envelope(
-            "the P2P network layer (serve/p2p.py) is not ported to the PyTorch package "
-            "yet", 501), 501)
+    # -- network panel (the P2P layer, serve/p2p.py) ----------------------------
+
+    def _get_net_client(self):
+        if self._net_client is None:
+            from .p2p import NetworkClient
+
+            self._net_client = NetworkClient()
+        return self._net_client
+
+    def _net_discover(self, request: Request) -> Response:
+        data = request.json() or {}
+        try:
+            wait_s = float(data.get("wait_s", 2.0))
+        except (TypeError, ValueError):
+            return json_response(error_envelope("wait_s must be a number"), 400)
+        # peers announce every 15 s, so allow waiting one full period
+        wait_s = min(max(wait_s, 0.0), 20.0)
+        if self._discovery is None:
+            from .p2p import NetworkDiscovery
+
+            # listen only: this server has no peer endpoints to announce;
+            # nodes accumulate in the background across discover calls
+            self._discovery = NetworkDiscovery(service_port=self.port, listen_only=True)
+            self._discovery.start_discovery()
+        disc = self._discovery
+
+        def probe():
+            time.sleep(wait_s)
+            return disc.get_nodes()
+
+        return json_response({"success": True, "nodes": self._run_sync(probe)}, dumps=_dumps)
+
+    def _net_peers(self, request: Request) -> Response:
+        nodes = self._discovery.get_nodes() if self._discovery else []
+        connected = list(self._net_client.connected.values()) if self._net_client else []
+        remotes = [{"index_id": r.index_id, "base": r.base, "ntotal": r.ntotal}
+                   for r in self.system.remote_indexes]
+        return json_response({"success": True, "discovered": nodes, "connected": connected,
+                              "remote_indexes": remotes}, dumps=_dumps)
+
+    def _net_connect(self, request: Request) -> Response:
+        data = request.json() or {}
+        host, port = data.get("host"), data.get("port")
+        if not host or not isinstance(port, int):
+            return json_response(error_envelope("host (str) and port (int) required"), 400)
+        client = self._get_net_client()
+        try:
+            info = self._run_sync(client.connect_to_server, host, port)
+            indexes = self._run_sync(client.list_remote_indexes, host, port)
+        except Exception as exc:
+            return json_response(error_envelope(f"connect failed: {exc}"), 502)
+        return json_response({"success": True, "node": info, "indexes": indexes},
+                             dumps=_dumps)
+
+    def _net_load_remote(self, request: Request) -> Response:
+        data = request.json() or {}
+        host, port = data.get("host"), data.get("port")
+        index_id = data.get("index_id")
+        if not host or not isinstance(port, int) or not index_id:
+            return json_response(error_envelope("host, port, index_id required"), 400)
+        base = f"http://{host}:{port}"
+        for r in self.system.remote_indexes:
+            if r.base == base and r.index_id == index_id:
+                return json_response({"success": True, "already_loaded": True,
+                                      "ntotal": r.ntotal})
+        client = self._get_net_client()
+        try:
+            remote = self._run_sync(client.load_remote_index, host, port, index_id)
+        except Exception as exc:
+            return json_response(error_envelope(f"load failed: {exc}"), 502)
+        self.system.remote_indexes.append(remote)
+        return json_response({"success": True, "index_id": index_id, "ntotal": remote.ntotal},
+                             dumps=_dumps)
+
+    def _net_unload_remote(self, request: Request) -> Response:
+        data = request.json() or {}
+        index_id = data.get("index_id")
+        before = len(self.system.remote_indexes)
+        if index_id:
+            self.system.remote_indexes[:] = [r for r in self.system.remote_indexes
+                                             if r.index_id != index_id]
+        else:
+            self.system.remote_indexes.clear()
+        return json_response({"success": True,
+                              "removed": before - len(self.system.remote_indexes)})
 
     # -- build wizard -----------------------------------------------------------
 
     def _broadcast(self, payload: dict[str, Any]) -> None:
-        """Push an event to every open WebSocket, from any thread (each
-        socket's send lock keeps the frame whole)."""
+        """Push an event to every open WebSocket and every Socket.IO session,
+        from any thread (each socket's send lock keeps the frame whole)."""
         with self._conns_lock:
             clients = list(self._ws_clients)
         for client in clients:
@@ -899,6 +1043,7 @@ class RetrievalServer:
             except OSError:
                 with self._conns_lock:
                     self._ws_clients.discard(client)
+        self._sio.broadcast(payload.get("event", "message"), payload)
 
     def _on_build_progress(self, **payload: Any) -> None:
         self._build_state.update(status="running", **payload)
@@ -1045,20 +1190,9 @@ class RetrievalServer:
     # -- websocket (the socketio event surface) ---------------------------------
 
     def _websocket(self, request: Request) -> Response | None:
-        headers = request.headers
-        key = headers.get("Sec-WebSocket-Key")
-        if (headers.get("Upgrade", "").lower() != "websocket"
-                or "upgrade" not in headers.get("Connection", "").lower() or not key
-                or headers.get("Sec-WebSocket-Version") != "13"):
-            return json_response(error_envelope("websocket upgrade required"), 400)
-        conn = request.conn
-        conn.send_response(101)
-        conn.send_header("Upgrade", "websocket")
-        conn.send_header("Connection", "Upgrade")
-        conn.send_header("Sec-WebSocket-Accept", wsf.accept_key(key))
-        conn.end_headers()
-        conn.connection.settimeout(None)   # an idle socket stays open
-        sock = wsf.WebSocket(conn.connection, conn.rfile, client=False, max_size=MAX_BODY)
+        sock = accept_websocket(request)
+        if isinstance(sock, Response):
+            return sock
         with self._conns_lock:
             self._ws_clients.add(sock)
         stop = threading.Event()
@@ -1206,13 +1340,6 @@ class RetrievalServer:
 
     # -- lifecycle ----------------------------------------------------------------
 
-    def _track(self, sock: socket.socket, add: bool) -> None:
-        with self._conns_lock:
-            if add:
-                self._conns.add(sock)
-            else:
-                self._conns.discard(sock)
-
     def run(self, block: bool = True) -> None:
         """Start serving: in this thread until :meth:`stop` (``block``), or
         in a thread of its own. The socket is bound before this returns
@@ -1241,11 +1368,15 @@ class RetrievalServer:
                     httpd.server_close()
 
     def stop(self) -> None:
-        """Stop the batcher, stop accepting, close every open connection
-        (WebSockets with 1001) and release the port; :meth:`run` may start
+        """Stop the batcher and the network panel's discovery, stop
+        accepting, close every open connection (WebSockets with 1001) and
+        every Socket.IO session, and release the port; :meth:`run` may start
         the server again."""
         if self.batcher is not None:
             self.batcher.stop()
+        if self._discovery is not None:
+            self._discovery.stop_discovery()
+            self._discovery = None
         with self._life:
             httpd, self._httpd = self._httpd, None
             thread, self._thread = self._thread, None
@@ -1260,14 +1391,10 @@ class RetrievalServer:
     def _close_connections(self) -> None:
         with self._conns_lock:
             sockets, self._ws_clients = list(self._ws_clients), set()
-            conns = list(self._conns)
         for ws_sock in sockets:
             ws_sock.close(1001, "server shutting down")
-        for conn in conns:
-            try:
-                conn.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
+        self._sio.close()
+        self._shutdown_connections()
 
 
 # the console page: the JAX server's, byte for byte

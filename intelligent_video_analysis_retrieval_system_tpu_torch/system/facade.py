@@ -24,12 +24,13 @@ Everything runs on the facade's explicit ``torch.device`` (default
 kernels' plain versions); the embedder, the index and video ingest share
 it; with a ``mesh`` (``parallel.create_mesh``) every index it builds or
 loads shards its rows over the mesh's devices instead (the embedder stays on
-``device``). ``start_server`` serves the system over REST and WebSocket
+``device``). ``start_server`` serves the system over REST, WebSocket and Socket.IO
 (``serve/rest.py``, on the standard library), ``start_gui`` the web console
-the same way, and ``cleanup`` stops the server. Not ported yet, raising
-``NotImplementedError`` that names the later change: the LLM processor
-(``enable_llm``); P2P fan-in over remote indexes comes with the P2P layer
-(``remote_indexes`` stays empty until then).
+the same way, and ``cleanup`` stops the server. ``enable_llm`` attaches the
+conversational agent (``agents.LLMProcessor``: ``chat`` and the query
+expansion of ``llm_enhanced``); with no provider it answers offline. Peers'
+indexes appended to ``remote_indexes`` (``serve.p2p.RemoteUnifiedIndex``)
+are searched beside the local rows and merged by score.
 """
 
 from __future__ import annotations
@@ -108,9 +109,8 @@ class EnhancedRetrievalSystem:
         self.config = config or Config(config_file=None)
         self.device = resolve_device(device)
         self.mesh = mesh
-        # P2P peers' indexes (serve/p2p.py in the JAX package): none until the
-        # P2P layer is ported
-        self.remote_indexes: list[Any] = []
+        self.llm_processor: Any | None = None  # agents.LLMProcessor, lazy
+        self.remote_indexes: list[Any] = []    # serve.p2p.RemoteUnifiedIndex
         self.logger = logger or get_logger(
             "ivars",
             logs_dir=self.config.path("logs_dir")
@@ -441,11 +441,18 @@ class EnhancedRetrievalSystem:
 
     def _search_llm_enhanced(self, query: str, clip_query: str,
                              options: SearchOptions) -> list[dict]:
-        """Query expansion with the translator's keyword variants,
-        max-merged (the LLM expansion is ported with chat later)."""
+        """Query expansion, max-merged: an attached LLM processor's
+        ``expand_query`` variants (at most 4), else the translator's keyword
+        variants."""
         variants = [clip_query]
-        for kw in self.translator.translate_query(query).keywords[:2]:
-            variants.append(f"a photo of {kw}")
+        if self.llm_processor is not None:
+            try:
+                variants = self.llm_processor.expand_query(query)[:4] or variants
+            except Exception:
+                pass
+        else:
+            for kw in self.translator.translate_query(query).keywords[:2]:
+                variants.append(f"a photo of {kw}")
         qvecs = self.embedder.encode_text(variants)
         merged = [self._vector_search(qvecs[i], options) for i in range(len(variants))]
         return self.dp.merge_results(merged, limit=options.limit)
@@ -460,7 +467,17 @@ class EnhancedRetrievalSystem:
     def _vector_search(self, qvec: np.ndarray, options: SearchOptions) -> list[dict]:
         hits = self.index.search(qvec, top_k=options.limit,
                                  filter_fn=self._folder_filter(options))
-        return [h.to_dict("rich") for h in hits]
+        if not self.remote_indexes:
+            return [h.to_dict("rich") for h in hits]
+        # remote fan-in: the local hits, then each peer's, merged by score; a
+        # peer that fails is skipped
+        merged: list[list[dict]] = [[h.to_dict("rich") for h in hits]]
+        for remote in list(self.remote_indexes):
+            try:
+                merged.append(remote.search_vector(qvec, top_k=options.limit))
+            except Exception:
+                self.logger.warning("remote index failed; skipping")
+        return self.dp.merge_results(merged, limit=options.limit)
 
     def _post_process(self, results: list[dict], options: SearchOptions,
                       translation: Any) -> list[dict]:
@@ -495,15 +512,15 @@ class EnhancedRetrievalSystem:
                      options: SearchOptions | None = None) -> list[list[dict[str, Any]]]:
         """Batched text search: one text-tower forward and one top-k sweep
         for the whole batch. Per-query results equal :meth:`search` in
-        ``clip_only`` mode; other modes run per query. Never raises on a
-        search failure (``[]`` per query)."""
+        ``clip_only`` mode; other modes, and a system with remote indexes,
+        run per query. Never raises on a search failure (``[]`` per query)."""
         options = options or SearchOptions(
             limit=self.config.get("retrieval.default_top_k", 20))
         options.validate()
         queries = [q.strip() for q in queries]
         if not queries:
             return []
-        if options.mode != "clip_only":
+        if options.mode != "clip_only" or self.remote_indexes:
             return [self.search(q, options) for q in queries]
         try:
             with self.perf.timer("search_batch", n_queries=len(queries)):
@@ -623,12 +640,6 @@ class EnhancedRetrievalSystem:
         )
         return {"extract": extract_reports, **build}
 
-    # -- not ported yet -------------------------------------------------------
-
-    def enable_llm(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError("the LLM processor is ported with the agents in a later "
-                                  "change")
-
     # -- serving / gui ----------------------------------------------------------
 
     def start_server(self, host: str | None = None, port: int | None = None,
@@ -652,17 +663,22 @@ class EnhancedRetrievalSystem:
         served at the server's root."""
         self.start_server(block=True)
 
-    # -- chat (no LLM processor yet: the greeting, then chat_search) -----------
+    # -- chat (the greeting, the LLM processor, then chat_search) --------------
 
     def chat(self, message: str, context_frames: Sequence[dict] | None = None) -> dict:
-        """Conversational entry: a greeting short-circuits; anything else is
-        answered by :meth:`chat_search` (the reference's chain falls back to
-        it where no LLM processor is attached, as here)."""
+        """Conversational entry: a greeting short-circuits; then the attached
+        LLM processor answers (its own chain ends in :meth:`chat_search`);
+        without one, or where it raises, :meth:`chat_search` does."""
         message = message.strip()
         if message.lower() in {"hi", "hello", "hey", "xin chào", "chào", "chào bạn"}:
             return {"response": ("Hello! Ask me to find scenes, e.g. 'a red car at night', "
                                  "or ask about selected frames."),
                     "search_results": [], "method": "greeting"}
+        if self.llm_processor is not None:
+            try:
+                return self.llm_processor.chat_with_user(message, context_frames)
+            except Exception:
+                self.logger.exception("llm chat failed; falling back")
         return self.chat_search(message)
 
     def chat_search(self, message: str) -> dict:
@@ -677,6 +693,28 @@ class EnhancedRetrievalSystem:
             response = ("I couldn't find matching keyframes. Try different wording "
                         "or check that an index is loaded.")
         return {"response": response, "search_results": results, "method": "search"}
+
+    def enable_llm(self, complete_fn: Any | None = None) -> Any:
+        """Attach the conversational agent (chat and the ``llm_enhanced``
+        expansion). ``complete_fn`` is the provider (the OpenAI
+        chat-completions shape); without one the processor takes
+        ``OPENAI_API_KEY`` or ``llm.api_key`` where set, else answers
+        offline. The ``llm.*`` config keys set its limits."""
+        from ..agents import LLMConfig, LLMProcessor
+
+        sec = self.config.section("llm")
+        self.llm_processor = LLMProcessor(
+            self,
+            complete_fn=complete_fn,
+            config=LLMConfig(
+                model=sec.get("model", "gpt-4o"),
+                timeout_base_s=sec.get("timeout_base_s", 15.0),
+                timeout_per_image_s=sec.get("timeout_per_image_s", 8.0),
+                max_images=sec.get("max_images", 5),
+                session_clear_every=sec.get("session_clear_every", 5),
+            ),
+        )
+        return self.llm_processor
 
     # -- export -----------------------------------------------------------------
 

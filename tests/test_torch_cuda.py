@@ -1438,3 +1438,55 @@ def test_trainer_checkpoint_roundtrip_on_card(cuda_device, tmp_path):
     _, _, live = card.train_step(params, opt_state, *_tiny_batch())
     _, _, restored = card.train_step(params2, opt2, *_tiny_batch())
     assert float(live["loss"]) == float(restored["loss"])
+
+
+def test_peer_remote_search_on_the_card_equals_the_exact_reference(cuda_device):
+    """A port ``NetworkServer`` on the card shares a bf16 index of 4,096
+    seeded rows (kept on the card); ``RemoteUnifiedIndex.search_vector``
+    over loopback launches B1 once a query and answers the exact reference
+    over the same device rows (tie-aware); a vector of the wrong length
+    answers 400."""
+    import socket
+    import urllib.error
+
+    import numpy as np
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.bench.data import (
+        MemoryContainer,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.index.unified import (
+        UnifiedIndex,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve.p2p import (
+        NetworkClient,
+        NetworkServer,
+    )
+
+    rows = torch.from_numpy(np.random.default_rng(1).standard_normal((4096, 32),
+                                                                     dtype=np.float32))
+    index = UnifiedIndex(device=cuda_device)
+    index.attach_container(MemoryContainer(
+        rows.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    peer = NetworkServer("127.0.0.1", port, enable_discovery=False, device=cuda_device)
+    peer.register_index("card", index)
+    peer.start_server()
+    try:
+        remote = NetworkClient().load_remote_index("127.0.0.1", port, "card")
+        assert (remote.ntotal, remote.dim) == (4096, 32)
+        for seed in range(3):
+            qvec = np.random.default_rng(10 + seed).standard_normal(32).astype(np.float32)
+            before = ttopk.chunk_max_sweep.launches
+            hits = remote.search_vector(qvec, top_k=20)
+            assert ttopk.chunk_max_sweep.launches == before + 1
+            q = torch.from_numpy(qvec / np.linalg.norm(qvec)).to(cuda_device, torch.bfloat16)
+            ref = ttopk.topk_exact_reference(index._dev_x[:index.ntotal], q[None], 20)
+            tie_aware_equal([h["row_id"] for h in hits], [h["similarity_score"] for h in hits],
+                            ref.indices[0].cpu().numpy(), ref.scores[0].cpu().numpy())
+        with pytest.raises(urllib.error.HTTPError) as err:
+            remote.search_vector(np.zeros(31, np.float32))
+        assert err.value.code == 400
+    finally:
+        peer.stop_server()

@@ -11,6 +11,9 @@ JAX package, nor the server libraries the card's machine lacks.
 - The copies the port keeps of the JAX package's framework-free modules
   name their originals and have not drifted from them; the REST server's
   console page is the JAX server's, byte for byte.
+- The P2P layer and the Socket.IO wire import with ``aiohttp``, ``socketio``
+  and ``openai`` blocked; the agents import ``openai`` only inside
+  ``LLMProcessor._build_provider``, where an API key is set.
 """
 
 import ast
@@ -73,7 +76,8 @@ def test_no_source_line_imports_them(path):
 COPIES = ["utils/__init__.py", "utils/cache.py", "utils/config.py", "utils/dataproc.py",
           "utils/files.py", "utils/logging.py", "utils/paths.py", "utils/perf.py",
           "native/__init__.py", "native/ivars_native.cpp", "serve/batching.py",
-          "serve/handlers.py", "index/metacols.py", "index/portable.py", "ingest/video.py"]
+          "serve/handlers.py", "index/metacols.py", "index/portable.py", "ingest/video.py",
+          "agents/__init__.py", "agents/llm.py", "agents/manager.py", "agents/tools.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -97,7 +101,57 @@ def test_the_bench_and_the_index_open_modules_are_walked():
             "retrieval/temporal.py", "ingest/__init__.py", "ingest/frames.py",
             "ingest/pipeline.py", "ingest/video.py", "ops/quality.py", "ops/phash.py",
             "ops/dedup.py", "models/dino.py", "serve/rest.py", "serve/websocket.py",
-            "bench/served.py", "parallel/train.py"} <= names
+            "bench/served.py", "parallel/train.py", "serve/p2p.py", "serve/socketio.py",
+            "agents/__init__.py", "agents/llm.py", "agents/manager.py",
+            "agents/tools.py"} <= names
+
+
+_IMPORT_SERVE = r"""
+import sys
+for name in ("aiohttp", "socketio", "openai", "jax",
+             "intelligent_video_analysis_retrieval_system_tpu"):
+    sys.modules[name] = None
+from intelligent_video_analysis_retrieval_system_tpu_torch.serve import p2p, rest, socketio
+from intelligent_video_analysis_retrieval_system_tpu_torch import agents
+from intelligent_video_analysis_retrieval_system_tpu_torch.system.facade import (
+    EnhancedRetrievalSystem,
+)
+system = EnhancedRetrievalSystem(device="cpu")
+proc = system.enable_llm()               # no key, no provider: offline, openai untouched
+assert not proc.available and system.chat("hello")["method"] == "greeting"
+server = p2p.NetworkServer("127.0.0.1", 0, enable_discovery=False, device="cpu")
+server.start_server()
+assert p2p.NetworkClient().health_check("127.0.0.1", server.port)
+server.stop_server()
+print("SERVED", socketio.PING_INTERVAL_S, len(agents.__all__))
+"""
+
+
+def test_p2p_socketio_and_agents_run_with_aiohttp_socketio_and_openai_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "OPENAI_API_KEY"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SERVE], capture_output=True,
+                          text=True, cwd=tmp_path, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SERVED 25.0 8" in proc.stdout
+
+
+def test_openai_is_imported_only_where_a_key_builds_the_provider():
+    found = []
+    for path in _sources():
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef):
+                for inner in ast.walk(node):
+                    if isinstance(inner, ast.Import) and any(
+                            a.name.split(".")[0] == "openai" for a in inner.names):
+                        found.append((path.relative_to(PORT).as_posix(), node.name))
+            elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("openai"):
+                found.append((str(path), "from-import"))
+    assert found == [("agents/llm.py", "_build_provider")]
+    source = (PORT / "agents" / "llm.py").read_text()
+    provider = source[source.index("def _build_provider"):source.index("def available")]
+    assert provider.index("if not api_key:") < provider.index("import openai")
 
 
 def test_the_console_page_is_the_jax_servers():

@@ -19,8 +19,9 @@ port with a JSON envelope) the statuses are compared. Also here: the ``/ws``
 events, the build wizard with its progress pushed on the port's socket, the
 filter tool's refine, ``/api/open`` and ``/api/maintenance`` on indexes of
 their own, the admin gate, the rate limit, keep-alive across error paths,
-the network routes' 501 (port only), ``start_server`` / ``stop`` /
-``cleanup`` and ``cli serve``.
+the network panel's routes against a P2P peer of each package,
+``start_server`` / ``stop`` / ``cleanup`` and ``cli serve``. The Socket.IO
+wire of the same two servers is ``tests/test_torch_socketio.py``.
 """
 
 import base64
@@ -187,9 +188,9 @@ class Pair:
         self.tsys.cleanup()
 
 
-@pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
-    root = tmp_path_factory.mktemp("rest")
+def make_corpus(root: Path) -> dict:
+    """Seeded JPEG keyframes under ``root``, indexed by the JAX facade; the
+    JAX embedder and the port's carrying the same tower weights."""
     keyframes = root / "keyframes"
     rng = np.random.default_rng(2)
     for f in range(FOLDERS):
@@ -209,6 +210,11 @@ def corpus(tmp_path_factory):
     rvdb = Path(builder.build_system(keyframes)["index_path"])
     builder.cleanup()
     return {"root": root, "keyframes": keyframes, "jemb": jemb, "temb": temb, "rvdb": rvdb}
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    return make_corpus(tmp_path_factory.mktemp("rest"))
 
 
 @pytest.fixture(scope="module")
@@ -288,6 +294,17 @@ CASES = [
     ("unknown_route", "GET", "/api/nope", None, True),
     ("wrong_method", "POST", "/api/health", None, True),
     ("websocket_without_upgrade", "GET", "/ws", None, True),
+    ("network_discover_now", "POST", "/api/network/discover", {"wait_s": 0}, False),
+    ("network_discover_bad_wait", "POST", "/api/network/discover", {"wait_s": "abc"}, False),
+    ("network_peers", "GET", "/api/network/peers", None, False),
+    ("network_connect_missing", "POST", "/api/network/connect", {"host": "127.0.0.1"}, False),
+    ("network_connect_port_not_int", "POST", "/api/network/connect",
+     {"host": "127.0.0.1", "port": "80"}, False),
+    ("network_load_remote_missing", "POST", "/api/network/load_remote",
+     {"host": "127.0.0.1", "port": 1}, False),
+    ("network_unload_remote_unknown", "POST", "/api/network/unload_remote",
+     {"index_id": "nope"}, False),
+    ("network_unload_remote_all", "POST", "/api/network/unload_remote", None, False),
 ]
 
 
@@ -326,8 +343,8 @@ def test_a_body_over_64_mib_answers_413(pair):
 
 def test_keep_alive_survives_the_error_paths(pair):
     """One persistent connection: a 400 whose body was read, a 401 and a 413
-    whose bodies were not (drained), a 404 and a 501 leave it usable; so
-    does a body sent in chunks."""
+    whose bodies were not (drained), a 404 and a 502 (a peer that is not
+    there) leave it usable; so does a body sent in chunks."""
     tsys = pair.tsys
     conn = http.client.HTTPConnection("127.0.0.1", pair.tport, timeout=60)
     tsys.config.set("api.admin_token", "tok")
@@ -336,7 +353,9 @@ def test_keep_alive_survives_the_error_paths(pair):
         for path, body in (("/api/search", b"{not json"),
                            ("/api/open", json.dumps({"path": "/x"}).encode()),
                            ("/api/search", b"x" * (rest.MAX_BODY + 1)),
-                           ("/api/nope", b"{}"), ("/api/network/peers", None),
+                           ("/api/nope", b"{}"),
+                           ("/api/network/connect", json.dumps(
+                               {"host": "127.0.0.1", "port": free_port()}).encode()),
                            ("/api/search", json.dumps({"query": "a person",
                                                        "limit": 2}).encode())):
             conn.request("GET" if body is None else "POST", path, body,
@@ -349,7 +368,7 @@ def test_keep_alive_survives_the_error_paths(pair):
                 sock = conn.sock
             assert conn.sock is sock                   # the same TCP connection
             answers.append((resp.status, json.loads(data)))
-        assert [a[0] for a in answers] == [400, 401, 413, 404, 501, 200]
+        assert [a[0] for a in answers] == [400, 401, 413, 404, 502, 200]
         assert answers[-1][1]["count"] == 2
         conn.request("POST", "/api/search", iter([b'{"query": "a per', b'son", "limit": 3}']),
                      {"Content-Type": "application/json"}, encode_chunked=True)
@@ -415,12 +434,112 @@ def test_admin_gate_and_open_root(pair, tmp_path):
 
 
 def test_network_routes_answer_501_and_socketio_is_absent(pair):
-    for method, path in (("POST", "/api/network/discover"), ("GET", "/api/network/peers"),
-                         ("POST", "/api/network/connect"), ("POST", "/api/network/load_remote"),
-                         ("POST", "/api/network/unload_remote")):
-        status, body = parsed(call(pair.tport, method, path, {}))
-        assert status == 501 and "not ported" in body["error"]["message"]
-    assert call(pair.tport, "GET", "/socket.io/?EIO=4&transport=polling")[0] == 404
+    """The state this test pinned is gone: the five network routes answer as
+    the JAX server's (none of them 501), and ``/socket.io/`` answers the
+    Engine.IO handshake as the JAX server's does."""
+    for method, path, payload, ok in (
+            ("POST", "/api/network/discover", {"wait_s": 0}, True),
+            ("GET", "/api/network/peers", None, True),
+            ("POST", "/api/network/connect", {}, False),
+            ("POST", "/api/network/load_remote", {}, False),
+            ("POST", "/api/network/unload_remote", {"index_id": "x"}, True)):
+        body = assert_same(*pair.both(method, path, payload))
+        assert body["success"] is ok
+    for port in (pair.jport, pair.tport):
+        status, ctype, data = call(port, "GET", "/socket.io/?EIO=4&transport=polling")
+        hello = json.loads(data.decode()[1:])
+        assert status == 200 and ctype.startswith("text/plain") and data.startswith(b"0")
+        assert hello["upgrades"] == ["websocket"] and hello["pingInterval"] == 25000
+
+
+# -- twins of the JAX package's network panel tests ---------------------------------
+
+
+@pytest.fixture()
+def peers_of_both(corpus):
+    """A P2P peer of each package sharing the corpus's index as ``sharedB``."""
+    from intelligent_video_analysis_retrieval_system_tpu.serve.p2p import (
+        NetworkServer as JaxNetworkServer,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.serve.p2p import NetworkServer
+
+    jpeer = JaxNetworkServer("127.0.0.1", free_port(), node_name="peerB",
+                             enable_discovery=False)
+    tpeer = NetworkServer("127.0.0.1", free_port(), node_name="peerB", enable_discovery=False,
+                          device="cpu")
+    for peer in (jpeer, tpeer):
+        peer.register_index_file("sharedB", str(corpus["rvdb"]))
+        peer.start_server()
+    yield jpeer, tpeer
+    jpeer.stop_server()
+    tpeer.stop_server()
+
+
+def test_network_panel_roundtrip(pair, peers_of_both):
+    """connect -> load_remote (then again: already_loaded) -> peers ->
+    a search that fans in -> unload_remote, on each server against its own
+    package's peer, with the same answers."""
+    answers = []
+    for port, system, peer in ((pair.jport, pair.jsys, peers_of_both[0]),
+                               (pair.tport, pair.tsys, peers_of_both[1])):
+        got = {}
+        peer_at = {"host": "127.0.0.1", "port": peer.port}
+        got["connect"] = call(port, "POST", "/api/network/connect", peer_at)
+        status, body = parsed(got["connect"])
+        assert status == 200 and body["success"], body
+        assert body["indexes"][0]["index_id"] == "sharedB"
+        assert body["node"]["info"]["node_name"] == "peerB"
+        got["load"] = call(port, "POST", "/api/network/load_remote",
+                           {**peer_at, "index_id": "sharedB"})
+        status, body = parsed(got["load"])
+        assert status == 200 and body["success"] and body["ntotal"] == FOLDERS * PER_FOLDER
+        got["again"] = call(port, "POST", "/api/network/load_remote",
+                            {**peer_at, "index_id": "sharedB"})
+        assert parsed(got["again"])[1].get("already_loaded")
+        got["peers"] = call(port, "GET", "/api/network/peers")
+        body = parsed(got["peers"])[1]
+        assert body["remote_indexes"] == [{"index_id": "sharedB", "ntotal": 16,
+                                           "base": f"http://127.0.0.1:{peer.port}"}]
+        assert len(system.remote_indexes) == 1
+        got["search"] = call(port, "POST", "/api/search",
+                             {"query": "a person", "limit": 6, "detail_level": "rich"})
+        got["unload"] = call(port, "POST", "/api/network/unload_remote",
+                             {"index_id": "sharedB"})
+        assert parsed(got["unload"])[1]["removed"] == 1 and not system.remote_indexes
+        answers.append(got)
+    for key in answers[0]:
+        assert_same(answers[0][key], answers[1][key])
+    # the fan-in: each local keyframe came back twice (the peer shares the
+    # same index), merged into one hit per keyframe
+    hits = parsed(answers[1]["search"])[1]["results"]
+    assert len({(h["folder"], h["image"]) for h in hits}) == len(hits) == 6
+
+
+def test_network_discover_validates_wait_s(pair):
+    for port in (pair.jport, pair.tport):
+        status, body = parsed(call(port, "POST", "/api/network/discover", {"wait_s": "abc"}))
+        assert status == 400 and not body["success"]
+        status, body = parsed(call(port, "POST", "/api/network/discover", {"wait_s": -5}))
+        assert status == 200 and body["success"] and isinstance(body["nodes"], list)
+    assert pair.tserver._discovery.listen_only and pair.tserver._discovery.is_running
+
+
+def test_console_escapes_peer_controlled_html(pair):
+    for port in (pair.jport, pair.tport):
+        html = call(port, "GET", "/")[2].decode()
+        assert "&quot;" in html and "esc(n.node_name" in html
+        assert "onclick=\"loadRemote('" not in html
+
+
+def test_network_connect_failure_is_502(pair):
+    dead = {"host": "127.0.0.1", "port": free_port()}
+    jax_answer, port_answer = pair.both("POST", "/api/network/connect", dead)
+    (js, jb), (ps, pb) = parsed(jax_answer), parsed(port_answer)
+    assert ps == js == 502 and not pb["success"]
+    assert pb["error"]["message"].startswith("connect failed:")
+    jax_answer, port_answer = pair.both("POST", "/api/network/load_remote",
+                                        {**dead, "index_id": "x"})
+    assert port_answer[0] == jax_answer[0] == 502
 
 
 WS_CASES = [

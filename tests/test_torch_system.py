@@ -453,10 +453,15 @@ def test_cli_stats_and_ann_evaluate(tmp_path, monkeypatch, capsys):
     assert out["search"] == "ann" and out["ann"]["nlist"] >= 64 and out["dtype"] == "int8"
 
 
-def test_unported_entry_points_raise(tmp_path):
+def test_unported_entry_points_raise(tmp_path, monkeypatch):
     system = create_system(torch_device="cpu", paths={"cache_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError):
-        system.enable_llm()
+    # ported: the LLM processor (tests/test_torch_agents.py); with no provider
+    # and no key it answers offline
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    proc = system.enable_llm()
+    assert system.llm_processor is proc and not proc.available
+    assert system.chat("a red car")["method"] == "search"
+    system.llm_processor = None
     # ported: the mesh (tests/test_torch_parallel.py)
     from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import create_mesh
 
