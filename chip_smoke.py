@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the serving, REST, P2P, agent, Socket.IO, IVF, index-build, W8A8, ingest, multi-device search and training paths on one GPU.
+"""Chip smoke of the PyTorch port: the serving, REST, P2P, agent, Socket.IO, IVF, index-build, W8A8, ingest, multi-device search and training paths (in one process and across four) on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # PERF.md section 5's breakdown instead
@@ -269,6 +269,24 @@ non-zero):
             ``CLIPEmbedder.load_params``, ``encode_images`` of 8 of the
             batch's images against the trainer's ``encode_image`` of the
             same normalized pixels (cosine >= 0.999).
+13b. train-mp  the same training across processes: this script again as
+            four ranks (``--train-rank``; the kernels are built before they
+            start, so none runs nvcc), each joining one gloo group (NCCL
+            refuses two ranks on one card) and owning one logical shard of
+            ``cuda:0`` of a ``(2, 2)`` mesh, so data and model parallelism
+            both cross the processes. ``init(0)`` and 2 steps on phase
+            13's batch: the first step's loss within 2e-3 and its gradients
+            at cosine >= 0.998 per tower of phase 13's one-process ``(2,
+            2)`` step; the metrics of both steps and every shard after them
+            equal on every rank that holds it; the ranks' checkpoint
+            restored here by a one-process ``(2, 2)`` trainer equal to their
+            shards; B3 launches per rank 48 a step (24 layers, twice with
+            the recompute, each launch over half the heads). Prints the
+            step ms, the peak memory per rank and the launches per rank.
+13c. entry  ``graft_entry.entry()``: the seeded ViT-L/14 image tower in
+            bf16 over (4, 224, 224, 3) zeros and the f32 normalize: shape
+            (4, 768), finite, unit norms, cosine >= 0.999 to the same call
+            with B3 on its plain version, B3 launched 24 times; timed.
 14. numbers p50/p95 text-query latency (encode + search, 24 warm queries)
             of both serving slices, images/s of the build, kernel vs plain
             vs library-call times (CUDA events) beside each kernel's bound.
@@ -281,8 +299,9 @@ B5 carry the ingest path's launches and their DINO shapes beside, and B1,
 B3 and B5 the serve phase's (``serve_launches``) and the P2P phase's
 (``p2p_launches``) and the int8_static
 facade's (``w8a8_launches``), B1 and B2 the mesh phase's
-(``mesh_launches``), B3 the training steps' (``train_launches``) and its
-training shapes (``train``). The
+(``mesh_launches``), B3 the training steps' (``train_launches``), its
+training shapes (``train``), each rank's launches across processes
+(``train_multiproc_launches``) and ``entry()``'s (``entry_launches``). The
 IVF phase counts ``ops.ann.ivf_topk.calls`` beside B1's and B3's launches.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -4611,13 +4630,19 @@ def train_setup(device, cfg, batch: int):
     mesh = create_mesh(spec) if device.type == "cuda" else create_mesh(spec, devices=[device])
     trainer = CLIPTrainer(cfg, mesh)
     params, opt_state = trainer.init(0)
+    return (trainer, params, opt_state) + train_batch(cfg, batch)
+
+
+def train_batch(cfg, batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """One seeded batch from ``default_rng(0)``: raw pixels and tokens
+    ending in the EOT id, the largest, as the reference's tests build them."""
     rng = np.random.default_rng(0)
     size = cfg.vision.image_size
     pixels = rng.standard_normal((batch, size, size, 3)).astype(np.float32)
     eot = cfg.text.vocab_size - 1
     tokens = rng.integers(1, eot, (batch, cfg.text.max_length)).astype(np.int32)
     tokens[:, -1] = eot
-    return trainer, params, opt_state, pixels, tokens
+    return pixels, tokens
 
 
 def run_train_phase(device, require_kernels: bool, timer: Timer, config=None,
@@ -4748,9 +4773,13 @@ def run_train_phase(device, require_kernels: bool, timer: Timer, config=None,
     launches22 = attention.fused_mha.launches
     if require_kernels and launches22 != per_step * 4:
         raise AssertionError(f"(2, 2) mesh: {launches22} B3 launches, not {per_step * 4}")
-    out["mesh22"] = compare("(2, 2) mesh, bf16", loss_f, g_f, loss22, t22.state_dict(g22),
+    sd22 = t22.state_dict(g22)
+    out["mesh22"] = compare("(2, 2) mesh, bf16", loss_f, g_f, loss22, sd22,
                             TOL_TRAIN_LOSS, COS_TRAIN_GRAD_ROUNDING)
     out["mesh22"]["launches"] = launches22
+    # the reference of phase 13b's first step across processes, on the host
+    out["ref22"] = {"loss": float(loss22), "grads": {k: v.cpu() for k, v in sd22.items()}}
+    del sd22
     zeros = {name: [torch.zeros_like(s) for s in shards] for name, shards in p22.items()}
     p22, _ = t22.apply_gradients(p22, g22, {"count": 0, "mu": zeros, "nu": zeros})
     if not all(bool(torch.isfinite(s).all()) for shards in p22.values() for s in shards):
@@ -4818,6 +4847,309 @@ def run_train_phase(device, require_kernels: bool, timer: Timer, config=None,
         f"against the trainer's encode_image: min cosine {out['deploy_cos_min']:.6f}; phase "
         f"{out['seconds']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13b: training across processes (four gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+
+TRAIN_MP_WORLD = 4       # ranks of one logical shard each, on a (2, 2) mesh
+TRAIN_MP_STEPS = 2
+TRAIN_MP_TIMEOUT_S = 420  # all ranks, from the spawn to the last exit
+
+
+def _config_from(d: dict):
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import (
+        CLIPConfig,
+        CLIPTextConfig,
+        CLIPVisionConfig,
+    )
+
+    return CLIPConfig(vision=CLIPVisionConfig(**d["vision"]), text=CLIPTextConfig(**d["text"]),
+                      logit_scale_init=d["logit_scale_init"])
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().cpu().view(-1).numpy().tobytes()).hexdigest()
+
+
+def train_rank(rank: int, port: int, workdir: Path) -> int:
+    """One rank of phase 13b (``chip_smoke.py --train-rank R``): joins the
+    gloo group, trains ``steps`` steps on its shard of the ``(2, 2)`` mesh
+    from ``init(0)`` and the seeded batch, and writes what it saw to
+    ``workdir``: the gathered first-step gradients (rank 0), a digest of
+    every shard it holds after the last step, the step walls, its B3
+    launches and peak memory, and the checkpoint (written by rank 0)."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention, kernels
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        CLIPTrainer,
+        MeshSpec,
+        collectives,
+        create_mesh,
+    )
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+
+    job = json.loads((workdir / "job.json").read_text())
+    device, world = torch.device(job["device"]), job["world"]
+    on_card = device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo on the one card (NCCL refuses two ranks on one device); the port's
+    # initialize_distributed then finds the group and keeps it
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=world, rank=rank)
+    info = initialize_distributed()
+    if (info["process_index"], info["process_count"]) != (rank, world):
+        raise AssertionError(f"rank {rank}: process group {info}")
+    if on_card:
+        kernels.load()
+        if kernels.last_build_seconds() is not None:
+            raise AssertionError(f"rank {rank} ran nvcc: the parent builds the kernels")
+    cfg = _config_from(job["config"])
+    mesh = create_mesh(MeshSpec(("data", "model"), (2, 2)), devices=[device])
+    trainer = CLIPTrainer(cfg, mesh)
+    params, opt_state = trainer.init(0)
+    pixels, tokens = train_batch(cfg, job["batch"])
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # the rate of the tensor-parallel collective alone: one vision activation
+    # of a data position gathered over the position's two ranks
+    act = torch.zeros((job["batch"] // 2, cfg.vision.num_patches + 1, cfg.vision.hidden_size),
+                      dtype=trainer.dtype, device=device)
+    group = trainer._row_groups[trainer._rows[0]]
+    collectives.all_gather(act, group)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        collectives.all_gather(act, group)
+    sync()
+    gather_ms = (time.perf_counter() - t0) * 1e3 / 5
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    attention.fused_mha.launches = 0       # the training path starts here
+    wall, metrics_seen = [], []
+    for step in range(job["steps"]):
+        t0 = time.perf_counter()
+        if step == 0:   # train_step, with the gradients kept for the check
+            _, metrics, grads = trainer.value_and_grad(params, pixels, tokens)
+            params, opt_state = trainer.apply_gradients(params, grads, opt_state)
+        else:
+            params, opt_state, metrics = trainer.train_step(params, opt_state, pixels, tokens)
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        metrics_seen.append({k: float(v) for k, v in metrics.items()})
+    launches = attention.fused_mha.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    t0 = time.perf_counter()
+    full = trainer.state_dict(grads)
+    gather_s = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({"loss": metrics_seen[0]["loss"],
+                    "grads": {k: v.cpu() for k, v in full.items()}}, workdir / "first_step.pt")
+    del full, grads
+    digests = {f"{name}/{j}": _digest(s) for name, shards in params.items()
+               for j, s in zip(trainer._held(name), shards)}
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(workdir / "ckpt", params, opt_state, step=job["steps"])
+    ckpt_s = time.perf_counter() - t0
+    (workdir / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "rows": trainer._rows, "cols": trainer._cols, "launches": launches,
+        "step_ms": wall, "metrics": metrics_seen, "peak_gb": peak_gb,
+        "gather_mb": act.numel() * act.element_size() / 1e6, "gather_ms": gather_ms,
+        "gather_grads_s": gather_s, "ckpt_s": ckpt_s, "digests": digests}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_train_multiproc_phase(device, require_kernels: bool, ref: dict, config=None,
+                              batch: int = TRAIN_BATCH, steps: int = TRAIN_MP_STEPS,
+                              workdir: Path | None = None) -> dict:
+    """Phase 13b: ``CLIPTrainer`` across processes. Four ranks (this
+    script with ``--train-rank``; the kernels built here first, so no rank
+    runs nvcc), one logical shard of ``device`` each, a gloo group, a
+    ``(2, 2)`` mesh: data and model both cross the processes. ``steps``
+    steps from ``init(0)`` on phase 13's batch. The first step's loss and
+    gradients against phase 13's one-process ``(2, 2)`` step (``ref``;
+    ``TOL_TRAIN_LOSS``, ``COS_TRAIN_GRAD_ROUNDING``); the metrics of every
+    step and every shard after the last equal on every rank that holds it;
+    the ranks' checkpoint restored here by a one-process ``(2, 2)`` trainer
+    equal to their shards; B3 launches per rank = 2 x vision layers a step.
+    Each rank also times one all_gather of a vision activation over its
+    data position's two ranks alone (the transfer a step repeats in every
+    layer). A rank that fails, or outlives ``TRAIN_MP_TIMEOUT_S``, fails the
+    phase."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.clip import CLIPConfig
+    from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import (
+        CLIPTrainer,
+        MeshSpec,
+        create_mesh,
+    )
+
+    cfg = config or CLIPConfig.vit_l_14()
+    on_card = device.type == "cuda"
+    workdir = workdir or ROOT / "build" / "chip_smoke" / "train_multiproc"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    (workdir / "job.json").write_text(json.dumps({
+        "config": dataclasses.asdict(cfg), "batch": batch, "steps": steps,
+        "device": "cuda:0" if on_card else str(device), "world": TRAIN_MP_WORLD}))
+    if on_card:
+        torch.cuda.empty_cache()
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for r in range(TRAIN_MP_WORLD):
+            logs.append(open(workdir / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--train-rank", str(r),
+                 "--port", str(port), "--workdir", str(workdir)],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TRAIN_MP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t_phase
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- rank {r}:\n" + (workdir / f"rank{r}.log").read_text()[-3000:]
+                          for r in failed)
+        raise AssertionError(f"phase 13b: ranks {failed} failed\n{tails}")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
+             for r in range(TRAIN_MP_WORLD)]
+    if [(r["rows"], r["cols"]) for r in ranks] != [([0], [0]), ([0], [1]), ([1], [0]),
+                                                   ([1], [1])]:
+        raise AssertionError(f"phase 13b: layout {[(r['rows'], r['cols']) for r in ranks]}")
+
+    # B3 on every rank: each launch over half the heads of a vision layer
+    per_step = 2 * cfg.vision.num_layers
+    launches = [r["launches"] for r in ranks]
+    if require_kernels and launches != [per_step * steps] * TRAIN_MP_WORLD:
+        raise AssertionError(f"phase 13b: B3 launches per rank {launches}, not "
+                             f"{per_step} a step")
+
+    # every rank alike: the metrics of each step, and each shard among its holders
+    for r in ranks[1:]:
+        if r["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"phase 13b: rank {r['rank']} metrics {r['metrics']} vs "
+                                 f"rank 0's {ranks[0]['metrics']}")
+    digests: dict = {}
+    for r in ranks:
+        for key, h in r["digests"].items():
+            digests.setdefault(key, set()).add(h)
+    differ = sorted(k for k, hs in digests.items() if len(hs) > 1)
+    if differ:
+        raise AssertionError(f"phase 13b: shards differ between ranks: {differ[:5]}")
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 13b: losses {losses}")
+
+    # the first step against phase 13's one-process (2, 2) step
+    first = torch.load(workdir / "first_step.pt", weights_only=True)
+    rel = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+    cos = tower_cosines(ref["grads"], first["grads"])
+    if rel > TOL_TRAIN_LOSS or min(cos.values()) < COS_TRAIN_GRAD_ROUNDING:
+        raise AssertionError(f"phase 13b: first loss {first['loss']} vs one process "
+                             f"{ref['loss']} (rel {rel:.3e}), gradient cosines {cos}")
+    del first
+
+    # the ranks' checkpoint, restored in this process
+    t22 = CLIPTrainer(cfg, create_mesh(MeshSpec(("data", "model"), (2, 2)),
+                                       devices=[device] * 4))
+    r_params, r_opt, r_step = t22.restore_checkpoint(workdir / "ckpt")
+    if r_step != steps or r_opt["count"] != steps:
+        raise AssertionError(f"phase 13b: checkpoint step {r_step}, count {r_opt['count']}")
+    back = {f"{name}/{j}": _digest(s) for name, shards in r_params.items()
+            for j, s in zip(t22._held(name), shards)}
+    if set(back) != set(digests) or any({back[k]} != digests[k] for k in back):
+        raise AssertionError("phase 13b: the restored checkpoint differs from the ranks' "
+                             "shards")
+    del r_params, r_opt, t22
+    shutil.rmtree(workdir / "ckpt", ignore_errors=True)
+    (workdir / "first_step.pt").unlink()
+    if on_card:
+        torch.cuda.empty_cache()
+    step_ms = [float(np.percentile([r["step_ms"][i] for r in ranks], 50))
+               for i in range(steps)]
+    out = {"launches": launches, "losses": losses, "step_ms": [r["step_ms"] for r in ranks],
+           "step_ms_p50": float(np.percentile([ms for r in ranks for ms in r["step_ms"]], 50)),
+           "peak_gb": [r["peak_gb"] for r in ranks], "rel": rel, "cos": cos,
+           "gather_grads_s": [r["gather_grads_s"] for r in ranks],
+           "tp_gather_mb": ranks[0]["gather_mb"], "tp_gather_ms": [r["gather_ms"] for r in ranks],
+           "ckpt_s": [r["ckpt_s"] for r in ranks], "ranks_s": ranks_s,
+           "seconds": time.perf_counter() - t_phase}
+    log("train-mp", f"{TRAIN_MP_WORLD} gloo ranks, (2, 2) mesh of one shard each, bf16, remat, "
+        f"B3, batch {batch}: losses {losses}; step ms per rank {out['step_ms']} (median by "
+        f"step {step_ms}); peak memory per rank {out['peak_gb']} GB; B3 launches per rank "
+        f"{launches} ({per_step} a step expected); first step against one process: loss "
+        f"rel {rel:.3e} (<= {TOL_TRAIN_LOSS}), gradient cosine per tower {cos} (>= "
+        f"{COS_TRAIN_GRAD_ROUNDING}); metrics and every shard equal on every rank; "
+        f"checkpoint ({out['ckpt_s']} s a rank) restored here equal to the ranks' shards; "
+        f"gradients gathered in {out['gather_grads_s']} s; one TP all_gather of "
+        f"{out['tp_gather_mb']:.1f} MB over 2 ranks alone {out['tp_gather_ms']} ms; ranks "
+        f"{ranks_s:.1f} s, phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def run_entry_phase(device, require_kernels: bool, timer: Timer) -> dict:
+    """``graft_entry.entry()``: the seeded ViT-L/14 image tower in bf16 over
+    four 224 x 224 images of zeros, then the f32 L2 normalize. One call
+    counted (B3 once per vision layer), its output of shape (4, 768), finite
+    and of unit norm, held to the same call with B3 on its plain version
+    (cosine >= ``COS_TOWER``); then timed."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.graft_entry import entry
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
+
+    t0 = time.perf_counter()
+    fn, (model, pixels) = entry(device)
+    setup_s = time.perf_counter() - t0
+    attention.fused_mha.launches = 0
+    out = fn(model, pixels)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = attention.fused_mha.launches
+    layers = model.config.vision.num_layers
+    if require_kernels and launches != layers:
+        raise AssertionError(f"entry(): B3 launched {launches} times, not {layers}")
+    norms = torch.linalg.norm(out, dim=-1)
+    if (out.shape != (4, model.config.vision.projection_dim) or out.dtype != torch.float32
+            or not bool(torch.isfinite(out).all()) or float((norms - 1).abs().max()) > 1e-5):
+        raise AssertionError(f"entry(): output {tuple(out.shape)} {out.dtype}, norms {norms}")
+    with b3_plain_version():
+        plain = fn(model, pixels)
+    cos = float((out * plain).sum(-1).min())
+    if cos < COS_TOWER:
+        raise AssertionError(f"entry(): cosine to the plain version {cos} < {COS_TOWER}")
+    ms = timer(lambda: fn(model, pixels), iters=10)
+    res = {"launches": launches, "cos_plain": cos, "ms": ms, "setup_s": setup_s}
+    log("entry", f"graft_entry.entry(): ViT-L/14 image tower bf16 over (4, 224, 224, 3) zeros "
+        f"-> {tuple(out.shape)} f32, unit norms, cosine to B3's plain version {cos:.6f}; B3 "
+        f"launches {launches}; {ms:.3f} ms a call; set-up {setup_s:.1f} s")
+    del model
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5170,7 +5502,13 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="print the per-phase time breakdown instead of the smoke")
+    # one rank of phase 13b, spawned by the smoke itself
+    parser.add_argument("--train-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.train_rank is not None:
+        return train_rank(args.train_rank, args.port, Path(args.workdir))
     import torch
 
     if not torch.cuda.is_available():
@@ -5255,6 +5593,13 @@ def main(argv: list[str] | None = None) -> int:
     p1, p2, p3 = benched["probes"]
     torch.cuda.empty_cache()
     train = run_train_phase(device, require_kernels=True, timer=timer)
+    ref22 = train.pop("ref22")
+    torch.cuda.empty_cache()
+    train_mp = run_train_multiproc_phase(device, require_kernels=True, ref=ref22)
+    del ref22
+    torch.cuda.empty_cache()
+    entered = run_entry_phase(device, require_kernels=True, timer=timer)
+    torch.cuda.empty_cache()
 
     record = {"kernels": [
         {"name": "chunk_max_sweep (B1)", "route": "cuda",
@@ -5275,7 +5620,9 @@ def main(argv: list[str] | None = None) -> int:
          "ingest_launches": ingested["launches"]["b3"],
          "serve_launches": serve["launches"]["b3"], "p2p_launches": p2p["launches"]["b3"],
          "w8a8_launches": w8a8["launches"]["b3"],
-         "train_launches": train["launches"], "train": train["b3"]},
+         "train_launches": train["launches"], "train": train["b3"],
+         "train_multiproc_launches": train_mp["launches"],
+         "entry_launches": entered["launches"]},
         {"name": "fused_ln_mlp (B4)", "route": "cuda",
          "source": "intelligent_video_analysis_retrieval_system_tpu_torch/csrc/ln_mlp.cu",
          "replaces": "intelligent_video_analysis_retrieval_system_tpu/ops/block.py:78",
@@ -5314,6 +5661,10 @@ def main(argv: list[str] | None = None) -> int:
         f"{train['step_ms_p50']:.1f} ms, {train['pairs_per_s']:.1f} pairs/s, peak "
         f"{train['peak_gb']:.2f} GB, B3 {train['launches_per_step']:g} launches a step; "
         f"checkpoint {train['ckpt']}; phase {train['seconds']:.1f} s")
+    log("train-mp", f"across {TRAIN_MP_WORLD} processes: step p50 {train_mp['step_ms_p50']:.1f} "
+        f"ms, peak {train_mp['peak_gb']} GB a rank, B3 {train_mp['launches']} launches a rank; "
+        f"phase {train_mp['seconds']:.1f} s; entry() {entered['ms']:.3f} ms, B3 "
+        f"{entered['launches']} launches")
     log("open", f"1M-row int8 facade open: {opened}")
     log("mesh", f"bf16 facade on the one-device mesh: p50 {mesh1['p50_ms']:.3f} ms, p95 "
         f"{mesh1['p95_ms']:.3f} ms (single device {result['p50_ms']:.3f} / "

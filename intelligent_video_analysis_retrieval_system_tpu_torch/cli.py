@@ -76,7 +76,13 @@ network and ports, and with ``--probe host:port`` a peer:
     python -m intelligent_video_analysis_retrieval_system_tpu_torch validate \
         [--port 0] [--device cuda]
 
-``parity`` (the HF weights check) is not ported yet.
+``parity`` — the real-weight gate: the tokenizer's ids and both towers'
+embeddings against HF ``transformers`` on a local ``openai/clip-vit-*``
+checkpoint directory (weights and vocab; nothing is downloaded); exit code 0
+when every check passes (cosine >= ``--threshold``), else 1:
+
+    python -m intelligent_video_analysis_retrieval_system_tpu_torch parity \
+        --weights clip-vit-large-patch14/ [--threshold 0.999] [--device cuda]
 """
 
 from __future__ import annotations
@@ -255,6 +261,17 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="pick the smallest nprobe reaching this recall@k target before "
                          "evaluating (implies --search ann; prints the tested ladder)")
     ev.add_argument("--device", default="cuda")
+
+    pa = sub.add_parser(
+        "parity",
+        help="validate real HF CLIP weights + vocab against our towers "
+        "(cosine >= 0.999 gate)",
+    )
+    pa.add_argument("--weights", required=True,
+                    help="local openai/clip-vit-* checkpoint directory")
+    pa.add_argument("--threshold", type=float, default=0.999)
+    pa.add_argument("--device", default="cuda",
+                    help="torch device of the port's towers (default cuda)")
     return p
 
 
@@ -673,6 +690,14 @@ def cmd_doctor(args) -> int:
     return 0
 
 
+def cmd_parity(args) -> int:
+    from .models.parity import run_parity
+
+    report = run_parity(args.weights, threshold=args.threshold, device=args.device)
+    print(report.summary())
+    return 0 if report.ok else 1
+
+
 def cmd_validate(args) -> int:
     """The peer server's lifecycle self-test."""
     import socket
@@ -717,7 +742,8 @@ def cmd_validate(args) -> int:
 _COMMANDS = {"extract": cmd_extract, "filter": cmd_filter, "build": cmd_build,
              "search": cmd_search, "stats": cmd_stats, "evaluate": cmd_evaluate,
              "compact": cmd_compact, "tune": cmd_tune, "serve": cmd_serve,
-             "share": cmd_share, "doctor": cmd_doctor, "validate": cmd_validate}
+             "share": cmd_share, "doctor": cmd_doctor, "validate": cmd_validate,
+             "parity": cmd_parity}
 
 
 def main(argv: list[str] | None = None) -> int:

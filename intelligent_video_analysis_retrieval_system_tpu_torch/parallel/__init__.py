@@ -8,7 +8,9 @@ buckets over the same shards (``sharded_ann.py``); a process group spans
 hosts (``distributed.py``). This replaces the reference's LAN fan-out of
 queries to peer nodes. ``train.py`` (``CLIPTrainer``, ``TrainConfig``)
 fine-tunes the CLIP towers contrastively with data and tensor parallelism
-over a ``("data", "model")`` mesh.
+over a ``("data", "model")`` mesh, in one process or across the ranks of a
+process group (``collectives.py``: the differentiable collectives that take
+the place of the one-process moves between devices).
 """
 
 from .mesh import Mesh, MeshSpec, create_mesh, device_info

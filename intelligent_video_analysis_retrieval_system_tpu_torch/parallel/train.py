@@ -35,11 +35,30 @@ collectives; here it is held and computed explicitly over the port's
 - Checkpoints are one ``torch.save`` file per step (no orbax on the card's
   machine): the gathered parameters and optimizer state in HF names.
 
+**Across processes.** A mesh whose devices belong to several ranks of a
+``torch.distributed`` process group (``mesh.process_ids``) trains as the
+reference's multi-process trainer does: every rank calls :meth:`train_step`
+with the same global batch and runs the data positions and model shards
+whose devices it owns; the metrics and the updated params come out the same
+on every rank. A rank holds the shards of the model columns it owns (on its
+first device in the column) and every replicated tensor. The four moves of
+the one-process code become collectives (``collectives.py``): the input of
+each column-parallel region (Megatron's "f") and the row-parallel partial
+sums (its "g", added in shard order) over the ranks of a data position; the
+embeddings gathered for the global loss, each rank's gradient its own rows;
+the data-parallel sum of each gradient over the ranks that hold it, in rank
+order. A replicated tensor's gradient counts once per data position (the
+position's rank of model shard 0 keeps it, the others drop theirs) and
+``logit_scale``'s once (rank 0); the global norm counts each
+shard once. :meth:`state_dict` and :meth:`save_checkpoint` gather the
+shards (rank 0 writes, then every rank meets at a barrier), so a checkpoint
+moves between one process and several either way. Every rank of the world
+must own part of the mesh: the process groups are built collectively.
+
 Params and their gradients are ``{name: [shard, ...]}`` (one entry for a
-replicated tensor), f32; the optimizer state is ``{"count": int, "mu": ...,
-"nu": ...}`` in the params' layout. A mesh whose devices belong to several
-processes is refused: training across processes needs differentiable
-collectives, a later change.
+replicated tensor; a rank's own model columns, in order, for a split one),
+f32; the optimizer state is ``{"count": int, "mu": ..., "nu": ...}`` in the
+params' layout.
 """
 
 from __future__ import annotations
@@ -58,7 +77,8 @@ import torch.nn.functional as F
 
 from ..models.clip import CLIPConfig, attention, patch_embed, quick_gelu, run_blocks
 from ..models.convert import empty_model, load_clip
-from .mesh import Mesh
+from . import collectives
+from .mesh import Mesh, _rank_world
 
 __all__ = ["TrainConfig", "CLIPTrainer", "param_spec", "clip_by_global_norm"]
 
@@ -141,14 +161,17 @@ def param_spec(name: str, tensor: torch.Tensor, model_axis: str = "model") -> tu
     return ()
 
 
-def clip_by_global_norm(grads: Params, max_norm: float, device: torch.device) -> Params:
+def clip_by_global_norm(grads: Params, max_norm: float, device: torch.device,
+                        norm: torch.Tensor | None = None) -> Params:
     """``optax.clip_by_global_norm``: the L2 norm over every gradient shard
-    in f32 (summed on ``device``); where it is at least ``max_norm`` each
+    in f32 (summed on ``device``; or ``norm``, where the caller counted the
+    shards of other ranks too); where it is at least ``max_norm`` each
     gradient becomes ``(g / norm) * max_norm``. Not
     ``torch.nn.utils.clip_grad_norm_``, which scales by ``max_norm / (norm
     + 1e-6)`` clamped to 1."""
-    flat = [g for shards in grads.values() for g in shards]
-    norm = torch.sqrt(torch.stack([torch.sum(g * g).to(device) for g in flat]).sum())
+    if norm is None:
+        flat = [g for shards in grads.values() for g in shards]
+        norm = torch.sqrt(torch.stack([torch.sum(g * g).to(device) for g in flat]).sum())
     if bool(norm < max_norm):
         return grads
     return {name: [(g / norm.to(g.device)) * max_norm for g in shards]
@@ -173,10 +196,7 @@ def _layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 def _in_order(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
     """The row-parallel partial sums added in shard order on ``device``."""
-    out = parts[0].to(device)
-    for part in parts[1:]:
-        out = out + part.to(device)
-    return out
+    return collectives.sum_in_order([part.to(device) for part in parts])
 
 
 def _steps(root: Path) -> list[int]:
@@ -196,13 +216,27 @@ class CLIPTrainer:
         if sorted(mesh.axis_names) != sorted((tc.data_axis, tc.model_axis)):
             raise ValueError(f"the trainer needs a mesh with axes ({tc.data_axis!r}, "
                              f"{tc.model_axis!r}), got {mesh.axis_names}")
-        if np.unique(mesh.process_ids).size > 1:
-            raise NotImplementedError(
-                "training over a mesh that spans processes needs differentiable collectives "
-                "(ROADMAP A8, 'training across processes'); use one process's devices")
-        grid = mesh.devices if mesh.axis_names[0] == tc.data_axis else mesh.devices.T
+        data_first = mesh.axis_names[0] == tc.data_axis
+        grid = mesh.devices if data_first else mesh.devices.T
+        owners = mesh.process_ids if data_first else mesh.process_ids.T
         self._grid = [[torch.device(d) for d in row] for row in grid]   # [data][model]
+        self._owners = [[int(r) for r in row] for row in owners]
         self.n_data, self.n_model = len(self._grid), len(self._grid[0])
+        ranks = sorted({r for row in self._owners for r in row})
+        self._multi = len(ranks) > 1
+        if self._multi:
+            dist = torch.distributed
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError(
+                    f"the mesh's devices belong to ranks {ranks}: training across processes "
+                    "needs an initialized process group (parallel.distributed."
+                    "initialize_distributed) on every one of them")
+            if ranks != list(range(dist.get_world_size())):
+                raise ValueError(
+                    f"the mesh's devices belong to ranks {ranks}, but the process group has "
+                    f"{dist.get_world_size()}: every rank must own part of the mesh")
+        self._ranks = ranks
+        self._rank = _rank_world()[0] if self._multi else ranks[0]
         for tower, cfg in (("vision_model", config.vision), ("text_model", config.text)):
             if cfg.num_heads % self.n_model:
                 raise ValueError(f"{tower}.encoder.layers.*.self_attn: {cfg.num_heads} heads do "
@@ -215,7 +249,30 @@ class CLIPTrainer:
         self.mesh = mesh
         self.tc = tc
         self.dtype = dtype
-        self.device = self._grid[0][0]   # replicated tensors and the loss
+        # what this rank computes: its data positions, and in each its model
+        # columns; a position's activations live on its first such device
+        me = self._rank
+        self._rows = [i for i in range(self.n_data) if me in self._owners[i]]
+        self._row_cols = {i: [j for j in range(self.n_model) if self._owners[i][j] == me]
+                          for i in self._rows}
+        self._home = {i: self._grid[i][cols[0]] for i, cols in self._row_cols.items()}
+        # what it holds: its columns' shards, each on its first device in the column
+        self._cols = sorted({j for cols in self._row_cols.values() for j in cols})
+        self._col_home = {j: self._grid[min(i for i in self._rows if j in self._row_cols[i])][j]
+                          for j in self._cols}
+        self.device = self._home[self._rows[0]]   # replicated tensors and the loss
+        self._row_groups: dict[int, collectives.Group] = {}
+        self._col_groups: dict[int, collectives.Group] = {}
+        self._world: collectives.Group | None = None
+        if self._multi:   # built in one order on every rank: new_group is collective
+            for i in range(self.n_data):
+                if len(set(self._owners[i])) > 1:
+                    self._row_groups[i] = collectives.new_group(set(self._owners[i]))
+            for j in range(self.n_model):
+                holders = {row[j] for row in self._owners}
+                if len(holders) > 1:
+                    self._col_groups[j] = collectives.new_group(holders)
+            self._world = collectives.new_group(ranks)
         self._shapes: dict[str, tuple[int, ...]] = {}
         self._split: dict[str, int | None] = {}   # the dimension split over the model axis
         for name, p in empty_model(config, "meta").named_parameters():
@@ -242,16 +299,51 @@ class CLIPTrainer:
             if dim is None:
                 out[name] = [_place(t, self.device)]
             else:
-                out[name] = [_place(c, self._grid[0][j])
-                             for j, c in enumerate(t.chunk(self.n_model, dim))]
+                chunks = t.chunk(self.n_model, dim)
+                out[name] = [_place(chunks[j], self._col_home[j]) for j in self._cols]
         return out
+
+    def _keeper(self, name: str, j: int) -> int:
+        """The rank whose copy of shard ``j`` of ``name`` is read where one
+        copy is needed (a gather, the global norm): the lowest holder."""
+        if self._split[name] is None:
+            return self._ranks[0]
+        return min(row[j] for row in self._owners)
+
+    def _held(self, name: str) -> list[int]:
+        """The shards of ``name`` this rank holds (its params' list), by column."""
+        return [0] if self._split[name] is None else self._cols
 
     def state_dict(self, params: Params) -> dict[str, torch.Tensor]:
         """The shards gathered into one HF-named state dict on the first
-        device (for ``CLIPEmbedder.load_params``: train -> deploy)."""
-        return {name: shards[0] if len(shards) == 1
-                else torch.cat([s.to(self.device) for s in shards], self._split[name])
-                for name, shards in params.items()}
+        device (for ``CLIPEmbedder.load_params``: train -> deploy). Across
+        processes every rank calls it and gets the whole state dict: the
+        ranks of a data position hold every model column between them, so
+        each column's shards come from its rank there (one ``all_gather``
+        of a column's shards, flat, per position the rank computes), and a
+        replicated tensor is the rank's own copy."""
+        if not self._multi:
+            return {name: shards[0] if len(shards) == 1
+                    else torch.cat([s.to(self.device) for s in shards], self._split[name])
+                    for name, shards in params.items()}
+        split = {name: k for k, name in enumerate(n for n in params if self._split[n] is not None)}
+        sizes = [params[name][0].numel() for name in split]
+        columns = None
+        for i in self._rows:   # every group this rank is in takes part, in order
+            mine = [torch.cat([params[name][self._cols.index(j)].reshape(-1) for name in split])
+                    for j in self._row_cols[i]]
+            group = self._row_groups.get(i)
+            flats = mine if group is None else collectives.gather_items(
+                mine, self._owners[i], group, mine[0], self.device)
+            columns = columns or [f.to(self.device).split(sizes) for f in flats]
+        out = {}
+        for name, shards in params.items():
+            if self._split[name] is None:
+                out[name] = shards[0]
+            else:
+                out[name] = torch.cat([col[split[name]].view_as(shards[0]) for col in columns],
+                                      self._split[name])
+        return out
 
     def shard_opt_state(self, opt_state: Mapping[str, Any]) -> dict[str, Any]:
         """``{"count", "mu", "nu"}`` with full state dicts (a checkpoint's,
@@ -277,10 +369,36 @@ class CLIPTrainer:
 
     def _view(self, params: Params, i: int) -> Params:
         """Every shard as data position ``i`` reads it: shard j on the
-        position's j-th device, a replicated tensor on its first."""
-        row = self._grid[i]
-        return {name: [s.to(row[j]) for j, s in enumerate(shards)]
-                for name, shards in params.items()}
+        position's j-th device (``None`` for a column of another rank), a
+        replicated tensor on the position's first device of this rank, its
+        gradient dropped where another rank keeps the position's gradient of
+        it (``collectives.counted_elsewhere``)."""
+        row, home = self._grid[i], self._home[i]
+        keep = self._owners[i][0] == self._rank
+        view: Params = {}
+        for name, shards in params.items():
+            if self._split[name] is None:
+                t = shards[0] if keep else collectives.counted_elsewhere(shards[0])
+                view[name] = [t.to(home)]
+            else:
+                full = [None] * self.n_model
+                for j in self._row_cols[i]:
+                    full[j] = shards[self._cols.index(j)].to(row[j])
+                view[name] = full
+        return view
+
+    def _enter(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """The input of data position ``i``'s column-parallel shards."""
+        group = self._row_groups.get(i)
+        return h if group is None else collectives.enter_parallel(h, group)
+
+    def _reduce(self, parts: list[torch.Tensor], i: int, device: torch.device) -> torch.Tensor:
+        """Data position ``i``'s row-parallel partial sums (this rank's
+        shards' in ``parts``) added in shard order on ``device``."""
+        group = self._row_groups.get(i)
+        if group is None:
+            return _in_order(parts, device)
+        return collectives.reduce_in_order(parts, self._owners[i], group, device)
 
     def _block(self, view: Params, prefix: str, heads: int, i: int, x: torch.Tensor,
                mask: torch.Tensor | None) -> torch.Tensor:
@@ -292,21 +410,23 @@ class CLIPTrainer:
             return view[f"{prefix}.{name}"]
 
         attn, mlp = [], []
-        h = _layer_norm(x, p("layer_norm1.weight")[0], p("layer_norm1.bias")[0])
-        for j, dev in enumerate(self._grid[i]):
+        h = self._enter(_layer_norm(x, p("layer_norm1.weight")[0], p("layer_norm1.bias")[0]), i)
+        for j in self._row_cols[i]:
+            dev = self._grid[i][j]
             hj, mj = h.to(dev), None if mask is None else mask.to(dev)
             q, k, v = (_linear(hj, p(f"self_attn.{n}.weight")[j], p(f"self_attn.{n}.bias")[j])
                        for n in ("q_proj", "k_proj", "v_proj"))
             a = attention(q, k, v, heads, mj, fused_attn=self.tc.fused_attn)
             attn.append(_linear(a, p("self_attn.out_proj.weight")[j],
                                 p("self_attn.out_proj.bias")[0] if j == 0 else None))
-        x = x + _in_order(attn, x.device)
-        h = _layer_norm(x, p("layer_norm2.weight")[0], p("layer_norm2.bias")[0])
-        for j, dev in enumerate(self._grid[i]):
+        x = x + self._reduce(attn, i, x.device)
+        h = self._enter(_layer_norm(x, p("layer_norm2.weight")[0], p("layer_norm2.bias")[0]), i)
+        for j in self._row_cols[i]:
+            dev = self._grid[i][j]
             a = quick_gelu(_linear(h.to(dev), p("mlp.fc1.weight")[j], p("mlp.fc1.bias")[j]))
             mlp.append(_linear(a, p("mlp.fc2.weight")[j],
                                p("mlp.fc2.bias")[0] if j == 0 else None))
-        return x + _in_order(mlp, x.device)
+        return x + self._reduce(mlp, i, x.device)
 
     def _encoder(self, view: Params, tower: str, x: torch.Tensor, mask: torch.Tensor | None,
                  i: int) -> torch.Tensor:
@@ -323,7 +443,7 @@ class CLIPTrainer:
         def p(name):
             return view[f"vision_model.{name}"][0]
 
-        x = patch_embed(pixels.to(self._grid[i][0], dt),
+        x = patch_embed(pixels.to(self._home[i], dt),
                         p("embeddings.patch_embedding.weight").to(dt))
         cls = p("embeddings.class_embedding").to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)
@@ -336,7 +456,7 @@ class CLIPTrainer:
     def _encode_text(self, view: Params, tokens: torch.Tensor, i: int) -> torch.Tensor:
         """``models.clip.CLIPTextTower`` (EOT = the largest id) +
         ``text_projection``."""
-        dev, dt = self._grid[i][0], self.dtype
+        dev, dt = self._home[i], self.dtype
 
         def p(name):
             return view[f"text_model.{name}"][0]
@@ -354,8 +474,11 @@ class CLIPTrainer:
     def encode_image(self, params: Params, pixels: Any) -> torch.Tensor:
         """(B, H, W, 3) pixels -> (B, projection_dim) unnormalized, in
         ``dtype``, on the first data position (the reference's
-        ``model.apply(..., method=CLIPModel.encode_image)``)."""
-        return self._encode_image(self._view(params, 0), torch.as_tensor(pixels), 0)
+        ``model.apply(..., method=CLIPModel.encode_image)``). Across
+        processes every rank calls it and computes on its own first data
+        position."""
+        i = self._rows[0]
+        return self._encode_image(self._view(params, i), torch.as_tensor(pixels), i)
 
     # -- loss / step ------------------------------------------------------------
 
@@ -372,14 +495,24 @@ class CLIPTrainer:
                              f"evenly over {self.n_data} data positions")
         per = b // self.n_data
         imgs, txts = [], []
-        for i in range(self.n_data):
+        for i in self._rows:
             view, rows = self._view(params, i), slice(i * per, (i + 1) * per)
             imgs.append(self._encode_image(view, pixels[rows], i).float().to(self.device))
             txts.append(self._encode_text(view, tokens[rows], i).float().to(self.device))
-        img, txt = torch.cat(imgs), torch.cat(txts)
+        if self._multi:   # every position's embeddings, from its rank of shard 0
+            both = collectives.gather_rows(
+                [torch.cat(pair, -1) for pair in zip(imgs, txts)], self._rows,
+                [row[0] for row in self._owners], self._world, self.device)
+            img, txt = both.split([imgs[0].shape[-1], txts[0].shape[-1]], -1)
+        else:
+            img, txt = torch.cat(imgs), torch.cat(txts)
         img = img / torch.linalg.norm(img, dim=-1, keepdim=True)
         txt = txt / torch.linalg.norm(txt, dim=-1, keepdim=True)
-        scale = torch.exp(torch.clamp(params["logit_scale"][0], 0.0, math.log(100.0)))
+        # every rank computes this loss alike: one keeps logit_scale's gradient
+        logit_scale = params["logit_scale"][0]
+        if self._rank != self._keeper("logit_scale", 0):
+            logit_scale = collectives.counted_elsewhere(logit_scale)
+        scale = torch.exp(torch.clamp(logit_scale, 0.0, math.log(100.0)))
         logits = scale * img @ txt.T
         labels = torch.arange(b, device=self.device)
         loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
@@ -389,15 +522,55 @@ class CLIPTrainer:
     def value_and_grad(self, params: Params, pixels: Any, tokens: Any
                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor], Params]:
         """``(loss, metrics, grads)``, the gradients of :meth:`loss_fn` in the
-        params' layout (``jax.value_and_grad(loss_fn, has_aux=True)``)."""
+        params' layout (``jax.value_and_grad(loss_fn, has_aux=True)``).
+        Across processes each gradient is summed over the ranks that hold its
+        tensor, so every rank returns the same ones."""
         leaves = {name: [s.detach().requires_grad_(True) for s in shards]
                   for name, shards in params.items()}
+        flat_leaves = [s for shards in leaves.values() for s in shards]
         with torch.enable_grad():
             loss, metrics = self.loss_fn(leaves, pixels, tokens)
-            flat = torch.autograd.grad(loss, [s for shards in leaves.values() for s in shards])
-        it = iter(flat)
+            # across processes a rank may drop a tensor's every gradient
+            flat = torch.autograd.grad(loss, flat_leaves, allow_unused=self._multi)
+        it = (torch.zeros_like(s) if g is None else g for s, g in zip(flat_leaves, flat))
         grads = {name: [next(it) for _ in shards] for name, shards in leaves.items()}
+        if self._multi:
+            grads = self._sum_data_parallel(grads)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def _sum_data_parallel(self, grads: Params) -> Params:
+        """Each gradient summed over the ranks that hold its tensor (a
+        column's holders, or every rank for a replicated tensor), in rank
+        order: one flat ``all_gather`` per group."""
+        members: dict[int | None, list[tuple[str, int]]] = {}
+        for name in grads:
+            for k, j in enumerate(self._held(name)):
+                key = None if self._split[name] is None else j
+                members.setdefault(key, []).append((name, k))
+        out = {name: list(shards) for name, shards in grads.items()}
+        for key, items in members.items():
+            group = self._world if key is None else self._col_groups.get(key)
+            if group is None:
+                continue
+            parts = [grads[name][k] for name, k in items]
+            total = collectives.sum_over(torch.cat([g.reshape(-1) for g in parts]), group)
+            for (name, k), g in zip(items, total.split([g.numel() for g in parts])):
+                out[name][k] = g.view_as(grads[name][k])
+        return out
+
+    def _global_norm(self, grads: Params) -> torch.Tensor:
+        """The L2 norm of the gradients over every shard of every rank, each
+        counted once (its keeper's copy), summed in the one-process order."""
+        keepers, mine = [], []
+        for name, shards in grads.items():
+            held = dict(zip(self._held(name), shards))
+            for j in ([0] if self._split[name] is None else range(self.n_model)):
+                keepers.append(self._keeper(name, j))
+                if keepers[-1] == self._rank:
+                    mine.append(torch.sum(held[j] * held[j]).to(self.device))
+        sums = collectives.gather_items(mine, keepers, self._world,
+                                        torch.zeros((), device=self.device), self.device)
+        return torch.sqrt(torch.stack(sums).sum())
 
     def apply_gradients(self, params: Params, grads: Params, opt_state: dict[str, Any]
                         ) -> tuple[Params, dict[str, Any]]:
@@ -408,7 +581,8 @@ class CLIPTrainer:
         from 0 leaves the first step's params unchanged); ``eps`` outside the
         square root, ``eps_root`` 0; decoupled weight decay on every tensor."""
         tc = self.tc
-        grads = clip_by_global_norm(grads, tc.max_grad_norm, self.device)
+        grads = clip_by_global_norm(grads, tc.max_grad_norm, self.device,
+                                    self._global_norm(grads) if self._multi else None)
         count = int(opt_state["count"])
         lr = self._schedule(count) if callable(self._schedule) else self._schedule
         # 1 - b**t in f32, as optax computes it; tensors, so that a division
@@ -443,30 +617,36 @@ class CLIPTrainer:
                         step: int, keep: int = 3) -> str:
         """``<ckpt_dir>/<step>/state.pt``: the gathered params and optimizer
         state in HF names, written to a temporary name, flushed to disk and
-        moved into place; then only the newest ``keep`` steps stay."""
+        moved into place; then only the newest ``keep`` steps stay. Across
+        processes every rank calls it: rank 0 writes (``ckpt_dir`` must be
+        one directory for all), then all meet at a barrier."""
         if keep < 1:
             raise ValueError(f"keep must be at least 1, got {keep}")
         root = Path(ckpt_dir).resolve()
         folder = root / str(int(step))
-        folder.mkdir(parents=True, exist_ok=True)
         state = {"step": int(step), "params": self.state_dict(params),
                  "opt_state": {"count": int(opt_state["count"]),
                                "mu": self.state_dict(opt_state["mu"]),
                                "nu": self.state_dict(opt_state["nu"])}}
-        tmp = folder / f"{_CKPT_FILE}.tmp"
-        with open(tmp, "wb") as f:
-            torch.save(state, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, folder / _CKPT_FILE)
-        for old in _steps(root)[:-keep]:
-            shutil.rmtree(root / str(old))
+        if self._rank == self._ranks[0]:
+            folder.mkdir(parents=True, exist_ok=True)
+            tmp = folder / f"{_CKPT_FILE}.tmp"
+            with open(tmp, "wb") as f:
+                torch.save(state, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, folder / _CKPT_FILE)
+            for old in _steps(root)[:-keep]:
+                shutil.rmtree(root / str(old))
+        if self._multi:
+            torch.distributed.barrier(group=self._world.pg)
         return str(folder)
 
     def restore_checkpoint(self, ckpt_dir: str | Path, step: int | None = None
                            ) -> tuple[Params, dict[str, Any], int]:
         """``(params, opt_state, step)`` of ``step`` (default: the latest),
-        every shard back on this trainer's devices."""
+        every shard back on this trainer's devices (across processes: each
+        rank reads the file and takes its own shards)."""
         root = Path(ckpt_dir).resolve()
         if step is None:
             steps = _steps(root)

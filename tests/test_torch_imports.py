@@ -14,6 +14,9 @@ JAX package, nor the server libraries the card's machine lacks.
 - The P2P layer and the Socket.IO wire import with ``aiohttp``, ``socketio``
   and ``openai`` blocked; the agents import ``openai`` only inside
   ``LLMProcessor._build_provider``, where an API key is set.
+- The trainer's collectives, the parity gate and the twin of
+  ``__graft_entry__.py`` import with ``transformers`` blocked as well; the
+  gate imports ``transformers`` only inside ``run_parity``.
 """
 
 import ast
@@ -103,7 +106,8 @@ def test_the_bench_and_the_index_open_modules_are_walked():
             "ops/dedup.py", "models/dino.py", "serve/rest.py", "serve/websocket.py",
             "bench/served.py", "parallel/train.py", "serve/p2p.py", "serve/socketio.py",
             "agents/__init__.py", "agents/llm.py", "agents/manager.py",
-            "agents/tools.py"} <= names
+            "agents/tools.py", "parallel/collectives.py", "models/parity.py",
+            "graft_entry.py"} <= names
 
 
 _IMPORT_SERVE = r"""
@@ -168,3 +172,41 @@ def test_native_copy_builds_into_its_own_cache_directory():
     assert tnative._build_dir().name == "ivars_torch_native"
     assert tnative._build_dir() != jnative._build_dir()
     assert tnative._SRC.parent == PORT / "native"
+
+
+_IMPORT_LAST = r"""
+import sys
+for name in sys.argv[1].split(",") + ["transformers"]:
+    sys.modules[name] = None
+from intelligent_video_analysis_retrieval_system_tpu_torch import graft_entry
+from intelligent_video_analysis_retrieval_system_tpu_torch.models import parity
+from intelligent_video_analysis_retrieval_system_tpu_torch.parallel import collectives, train
+report = parity.run_parity(sys.argv[2], device="cpu")
+assert not report.ok and report.errors[0].startswith("torch/transformers unavailable"), report
+print("LAST", len(collectives.__all__), len(graft_entry.__all__), train.CLIPTrainer.__name__)
+"""
+
+
+def test_collectives_parity_and_graft_entry_import_with_transformers_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_LAST, ",".join(BLOCKED),
+                           str(tmp_path)], capture_output=True, text=True, cwd=tmp_path,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LAST 10 2 CLIPTrainer" in proc.stdout
+
+
+def test_transformers_is_imported_only_inside_run_parity():
+    tree = ast.parse((PORT / "models" / "parity.py").read_text())
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef):
+            for inner in ast.walk(node):
+                if isinstance(inner, ast.Import) and any(
+                        a.name.split(".")[0] == "transformers" for a in inner.names):
+                    found.append(node.name)
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("transformers"):
+            found.append("from-import")
+    assert found == ["run_parity"]
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert all("transformers" not in ast.dump(n) for n in top)

@@ -405,5 +405,7 @@ def test_trainer_refuses_what_it_cannot_lay_out():
         ttrain.CLIPTrainer(CFG, tmesh.create_mesh(devices=["cpu"] * 2))
     two_ranks = tmesh.Mesh(np.array([[torch.device("cpu")] * 2], dtype=object),
                            ("data", "model"), process_ids=np.array([[0, 1]]))
-    with pytest.raises(NotImplementedError, match="training across processes"):
+    # a mesh that spans ranks trains across processes (tests/test_torch_train_multiproc.py),
+    # but only inside a process group that covers them
+    with pytest.raises(RuntimeError, match="needs an initialized process group"):
         ttrain.CLIPTrainer(CFG, two_ranks)
