@@ -60,7 +60,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, trace
 from ..ops import ann
 from ..ops.quant import quantize_rows_int8, topk_search_int8
 from ..ops.topk import TILE_N, topk_search
@@ -1013,88 +1013,105 @@ class UnifiedIndex:
         ``over_fetch`` x ``top_k`` candidates. With ``int8_rescore`` on an
         int8 container that keeps its bf16 rows, ``int8_rescore_factor`` x
         as many candidates are fetched and rescored at full precision.
-        """
-        with self._lock:
-            if (self._dev_x is None and self._sharded is None) or self._n_valid == 0:
-                return [[] for _ in range(len(np.atleast_2d(query_vectors)))]
-            q = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
-            q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
-            fetch = min(self._n_valid, top_k * over_fetch if filter_fn else top_k)
-            rescore_fp = (self.config.int8_rescore and self._container is not None
-                          and self._container.dtype == "int8"
-                          and getattr(self._container, "has_fp_rows", False))
-            want = fetch
-            if rescore_fp:
-                fetch = min(self._n_valid,
-                            fetch * max(int(self.config.int8_rescore_factor), 1))
-            use_ann = (not exact and self._ann is not None
-                       and (nprobe is not None or len(q) <= self.config.ann_max_batch))
-            if nprobe is None:
-                nprobe_eff = self.config.ann_nprobe
-            elif int(nprobe) <= 0:
-                raise ValueError(f"nprobe must be positive, got {nprobe}")
-            else:
-                nprobe_eff = int(nprobe)
-            if use_ann and self._sharded is not None:
-                # the sharded IVF: equal to the single-device IVF's answer
-                result = self._sharded.search_ann(q, fetch, nprobe=nprobe_eff)
-            elif use_ann:  # IVF latency mode
-                result = ann.ivf_topk(
-                    self._dev_x,
-                    self._ann,
-                    torch.from_numpy(q).to(self.device),
-                    fetch,
-                    nprobe=nprobe_eff,
-                    n_valid=self._n_valid,
-                    deleted=self._dev_deleted,
-                    x_scales=self._dev_scales,
-                )
-            elif self._sharded is not None:  # the mesh
-                result = self._sharded.search(q, fetch)
-            elif self._dev_scales is not None:  # int8
-                result = topk_search_int8(
-                    self._dev_x,
-                    self._dev_scales,
-                    torch.from_numpy(q).to(self.device),
-                    fetch,
-                    n_valid=self._n_valid,
-                    deleted=self._dev_deleted,
-                )
-            else:
-                result = topk_search(
-                    self._dev_x,
-                    torch.from_numpy(q).to(self.device, self._dev_x.dtype),
-                    fetch,
-                    n_valid=self._n_valid,
-                    deleted=self._dev_deleted,
-                )
-            scores = result.scores.float().cpu().numpy()
-            indices = result.indices.cpu().numpy()
-            if rescore_fp:
-                scores, indices = self._rescore_fp_host(q, scores, indices, want)
-            # snapshot the metadata INSIDE the lock: a concurrent reload
-            # swaps self._metadata, and row ids must meet the metadata of
-            # the rows they were computed on
-            metadata = self._metadata
 
-        out: list[list[SearchResult]] = []
-        for b in range(len(q)):
-            hits: list[SearchResult] = []
-            for score, row in zip(scores[b], indices[b]):
-                if not np.isfinite(score):
-                    break  # -inf tail: masked rows (k > live rows)
-                if row < 0 or row >= len(metadata):
-                    continue
-                meta = metadata[row]
-                if filter_fn is not None and not filter_fn(meta):
-                    continue
-                hits.append(SearchResult(metadata=meta,
-                                         similarity_score=float(score),
-                                         rank=len(hits) + 1, source="local"))
-                if len(hits) >= top_k:
-                    break
-            out.append(hits)
-        return out
+        Spans (:mod:`..trace`): ``index.search`` around the call (``queries``,
+        ``top_k``, ``path``), and under it ``index.dispatch`` (normalize,
+        upload, the path's launches), ``index.readback`` (the host waiting
+        for the scores) and ``index.results`` (building the
+        ``SearchResult``s, counted in ``index.hits``).
+        """
+        with trace.span("index.search", top_k=top_k) as call:
+            with self._lock:
+                if (self._dev_x is None and self._sharded is None) or self._n_valid == 0:
+                    return [[] for _ in range(len(np.atleast_2d(query_vectors)))]
+                with trace.span("index.dispatch"):
+                    q = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
+                    q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+                    fetch = min(self._n_valid, top_k * over_fetch if filter_fn else top_k)
+                    rescore_fp = (self.config.int8_rescore and self._container is not None
+                                  and self._container.dtype == "int8"
+                                  and getattr(self._container, "has_fp_rows", False))
+                    want = fetch
+                    if rescore_fp:
+                        fetch = min(self._n_valid,
+                                    fetch * max(int(self.config.int8_rescore_factor), 1))
+                    use_ann = (not exact and self._ann is not None
+                               and (nprobe is not None or len(q) <= self.config.ann_max_batch))
+                    if nprobe is None:
+                        nprobe_eff = self.config.ann_nprobe
+                    elif int(nprobe) <= 0:
+                        raise ValueError(f"nprobe must be positive, got {nprobe}")
+                    else:
+                        nprobe_eff = int(nprobe)
+                    if use_ann and self._sharded is not None:
+                        # the sharded IVF: equal to the single-device IVF's answer
+                        call.note(queries=len(q), path="mesh.ivf")
+                        result = self._sharded.search_ann(q, fetch, nprobe=nprobe_eff)
+                    elif use_ann:  # IVF latency mode
+                        call.note(queries=len(q), path="ivf")
+                        result = ann.ivf_topk(
+                            self._dev_x,
+                            self._ann,
+                            torch.from_numpy(q).to(self.device),
+                            fetch,
+                            nprobe=nprobe_eff,
+                            n_valid=self._n_valid,
+                            deleted=self._dev_deleted,
+                            x_scales=self._dev_scales,
+                        )
+                    elif self._sharded is not None:  # the mesh
+                        call.note(queries=len(q), path="mesh")
+                        result = self._sharded.search(q, fetch)
+                    elif self._dev_scales is not None:  # int8
+                        call.note(queries=len(q), path="int8")
+                        result = topk_search_int8(
+                            self._dev_x,
+                            self._dev_scales,
+                            torch.from_numpy(q).to(self.device),
+                            fetch,
+                            n_valid=self._n_valid,
+                            deleted=self._dev_deleted,
+                        )
+                    else:
+                        call.note(queries=len(q), path="bf16")
+                        result = topk_search(
+                            self._dev_x,
+                            torch.from_numpy(q).to(self.device, self._dev_x.dtype),
+                            fetch,
+                            n_valid=self._n_valid,
+                            deleted=self._dev_deleted,
+                        )
+                # the host waits here for the card to finish the call's work
+                with trace.span("index.readback"):
+                    scores = result.scores.float().cpu().numpy()
+                    indices = result.indices.cpu().numpy()
+                if rescore_fp:
+                    scores, indices = self._rescore_fp_host(q, scores, indices, want)
+                # snapshot the metadata INSIDE the lock: a concurrent reload
+                # swaps self._metadata, and row ids must meet the metadata of
+                # the rows they were computed on
+                metadata = self._metadata
+
+            with trace.span("index.results"):
+                out: list[list[SearchResult]] = []
+                for b in range(len(q)):
+                    hits: list[SearchResult] = []
+                    for score, row in zip(scores[b], indices[b]):
+                        if not np.isfinite(score):
+                            break  # -inf tail: masked rows (k > live rows)
+                        if row < 0 or row >= len(metadata):
+                            continue
+                        meta = metadata[row]
+                        if filter_fn is not None and not filter_fn(meta):
+                            continue
+                        hits.append(SearchResult(metadata=meta,
+                                                 similarity_score=float(score),
+                                                 rank=len(hits) + 1, source="local"))
+                        if len(hits) >= top_k:
+                            break
+                    out.append(hits)
+                trace.count("index.hits", sum(map(len, out)))
+            return out
 
     def search(
         self,

@@ -53,6 +53,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import trace
 from . import kernels
 from .topk import (
     _PLAIN_ROWS,
@@ -331,7 +332,8 @@ def topk_search_int8(
     ``q`` is full precision, (B, D), and is quantized per row here.
     ``x_i8`` (N_pad, D) int8 padded to a TILE_N multiple with its ``(N_pad,)``
     f32 scales, for the two-phase search; ``deleted`` optional (N,) or
-    (N_pad, 1) int8 tombstones.
+    (N_pad, 1) int8 tombstones. The two-phase search records the spans
+    ``quant.phase1`` (counting B2's ``launches``) and ``quant.phase2``.
     """
     b = q.shape[0]
     n_live = int(x_i8.shape[0]) if n_valid is None else int(n_valid)
@@ -358,21 +360,25 @@ def topk_search_int8(
     # run at the bucketed k, slice the exact top-k prefix (ops.topk.bucket_k)
     k_run = min(bucket_k(k), n_live)
     k_chunks = min(k_run, n_pad // CHUNK)
-    # ONE quantized query for both phases: with one integer metric the
-    # chunk-containment guarantee holds with no ulp slack
-    q_i8, q_scales = _quantize_q(q)
-    chunk_max = int8_chunk_max_sweep(x_i8, xs, q_i8, n_live, dead)   # (NC, b)
-    _, chunk_ids = topk_lowest_index_first(chunk_max.T, k_chunks)     # (b, kc)
-    row_ids = (
-        chunk_ids[:, :, None] * CHUNK
-        + torch.arange(CHUNK, device=x_i8.device)[None, None, :]
-    ).reshape(b, k_chunks * CHUNK)
-    valid = row_ids < n_live
-    if dead is not None:
-        valid &= dead[row_ids] == 0
-    scores = _rescore(x_i8, xs, q_i8, q_scales, row_ids, valid)
-    top_scores, pos = topk_lowest_index_first(scores, min(k_run, scores.shape[1]))
-    top_ids = torch.gather(row_ids, 1, pos)
+    with trace.span("quant.phase1"):
+        launches = int8_chunk_max_sweep.launches
+        # ONE quantized query for both phases: with one integer metric the
+        # chunk-containment guarantee holds with no ulp slack
+        q_i8, q_scales = _quantize_q(q)
+        chunk_max = int8_chunk_max_sweep(x_i8, xs, q_i8, n_live, dead)   # (NC, b)
+        trace.count("launches", int8_chunk_max_sweep.launches - launches)
+    with trace.span("quant.phase2"):
+        _, chunk_ids = topk_lowest_index_first(chunk_max.T, k_chunks)     # (b, kc)
+        row_ids = (
+            chunk_ids[:, :, None] * CHUNK
+            + torch.arange(CHUNK, device=x_i8.device)[None, None, :]
+        ).reshape(b, k_chunks * CHUNK)
+        valid = row_ids < n_live
+        if dead is not None:
+            valid &= dead[row_ids] == 0
+        scores = _rescore(x_i8, xs, q_i8, q_scales, row_ids, valid)
+        top_scores, pos = topk_lowest_index_first(scores, min(k_run, scores.shape[1]))
+        top_ids = torch.gather(row_ids, 1, pos)
     return TopKResult(top_scores[:, :k], top_ids[:, :k])
 
 

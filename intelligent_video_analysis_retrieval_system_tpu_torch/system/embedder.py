@@ -29,6 +29,11 @@ kernel B3).
   such keyword (there only ``Transformer(fused_mlp=True)`` reaches the
   kernel); without one no entry point of the port would. It is off by
   default and is no ``Config`` key.
+- Spans (:mod:`..trace`, recorded only while it is enabled): ``embed.load``
+  around ``ensure_loaded`` and its self-test; ``embed.images`` and
+  ``embed.text`` around a call, and under them ``embed.upload`` (a chunk's
+  host-to-device copy and B5's launch), ``embed.dispatch`` (the tower's
+  launches) and ``embed.readback`` (the host waiting for the embeddings).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..index.unified import resolve_device
 from ..utils.logging import Logger
 
@@ -81,7 +87,9 @@ def _flatten_scale_tree(tree: Any, prefix: tuple = ()):
 def _normalized_f32(out: torch.Tensor) -> np.ndarray:
     out = out.float()
     out = out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-12)
-    return out.cpu().numpy()
+    # the host waits here for the card to finish the tower
+    with trace.span("embed.readback"):
+        return out.cpu().numpy()
 
 
 class CLIPEmbedder:
@@ -152,28 +160,29 @@ class CLIPEmbedder:
         with self._lock:
             if self._loaded:
                 return
-            t0 = time.perf_counter()
-            from ..models.convert import load_clip
-            from ..models.tokenizer import load_tokenizer
+            with trace.span("embed.load"):
+                t0 = time.perf_counter()
+                from ..models.convert import load_clip
+                from ..models.tokenizer import load_tokenizer
 
-            cfg, sd = load_clip(self.model_path, config=self._config_override,
-                                device=self.device)
-            self.using_pretrained = (
-                self.model_path is not None and Path(str(self.model_path)).exists()
-            )
-            self.config = cfg
-            self.model = self._build_model(cfg, sd)
-            vocab = self.vocab_dir or (
-                self.model_path if self.using_pretrained else None)
-            self.tokenizer = load_tokenizer(vocab, vocab_size=cfg.text.vocab_size)
-            self._loaded = True
-            self.load_time_s = time.perf_counter() - t0
-            if self.logger:
-                self.logger.log_performance(
-                    "clip_model_load", self.load_time_s,
-                    pretrained=self.using_pretrained,
+                cfg, sd = load_clip(self.model_path, config=self._config_override,
+                                    device=self.device)
+                self.using_pretrained = (
+                    self.model_path is not None and Path(str(self.model_path)).exists()
                 )
-            self.self_test()
+                self.config = cfg
+                self.model = self._build_model(cfg, sd)
+                vocab = self.vocab_dir or (
+                    self.model_path if self.using_pretrained else None)
+                self.tokenizer = load_tokenizer(vocab, vocab_size=cfg.text.vocab_size)
+                self._loaded = True
+                self.load_time_s = time.perf_counter() - t0
+                if self.logger:
+                    self.logger.log_performance(
+                        "clip_model_load", self.load_time_s,
+                        pretrained=self.using_pretrained,
+                    )
+                self.self_test()
 
     def self_test(self) -> bool:
         """One text and one all-black image through the towers at load;
@@ -267,11 +276,15 @@ class CLIPEmbedder:
                 model, calibrating = self._tower_model(tower)
                 if calibrating:
                     with torch.inference_mode(), record_act_stats(model) as stats:
-                        out = _normalized_f32(fn(model))
+                        with trace.span("embed.dispatch"):
+                            out = fn(model)
+                        out = _normalized_f32(out)
                     self._accumulate_cal(tower, stats[tower])
                     return out
         with torch.inference_mode():
-            return _normalized_f32(fn(model))
+            with trace.span("embed.dispatch"):
+                out = fn(model)
+            return _normalized_f32(out)
 
     def _accumulate_cal(self, tower: str, stats_tree: Any) -> None:
         """Merge one calibration batch's maxima; freeze the tower's scales
@@ -360,19 +373,20 @@ class CLIPEmbedder:
         if len(texts) == 0:
             return np.zeros((0, self.config.text.projection_dim), np.float32)
         t0 = time.perf_counter()
-        tokens = self.tokenizer(list(texts), self.config.text.max_length)
-        eot = self.tokenizer.eot_positions(tokens)
-        b = len(texts)
-        b_pad = _bucket(b)
-        if b_pad != b:
-            pad_tok = np.zeros((b_pad - b, tokens.shape[1]), tokens.dtype)
-            pad_tok[:, 0] = self.tokenizer.sot_id
-            pad_tok[:, 1] = self.tokenizer.eot_id
-            tokens = np.concatenate([tokens, pad_tok])
-            eot = np.concatenate([eot, np.ones(b_pad - b, eot.dtype)])
-        tok_d = torch.from_numpy(tokens).to(self.device)
-        eot_d = torch.from_numpy(eot).to(self.device)
-        result = self._encode("text", lambda m: m.encode_text(tok_d, eot_d))[:b]
+        with trace.span("embed.text", texts=len(texts)):
+            tokens = self.tokenizer(list(texts), self.config.text.max_length)
+            eot = self.tokenizer.eot_positions(tokens)
+            b = len(texts)
+            b_pad = _bucket(b)
+            if b_pad != b:
+                pad_tok = np.zeros((b_pad - b, tokens.shape[1]), tokens.dtype)
+                pad_tok[:, 0] = self.tokenizer.sot_id
+                pad_tok[:, 1] = self.tokenizer.eot_id
+                tokens = np.concatenate([tokens, pad_tok])
+                eot = np.concatenate([eot, np.ones(b_pad - b, eot.dtype)])
+            tok_d = torch.from_numpy(tokens).to(self.device)
+            eot_d = torch.from_numpy(eot).to(self.device)
+            result = self._encode("text", lambda m: m.encode_text(tok_d, eot_d))[:b]
         if self.logger:
             self.logger.log_performance(
                 "clip_text_encoding", time.perf_counter() - t0, batch=b)
@@ -399,23 +413,24 @@ class CLIPEmbedder:
         s = self.config.vision.image_size
         dtype = _COMPUTE_DTYPES[self.compute_dtype]
         outs = []
-        for start in range(0, n, self.image_batch_size):
-            chunk = images[start:start + self.image_batch_size]
-            b = len(chunk)
-            b_pad = _bucket(b)
-            if b_pad != b:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((b_pad - b, *chunk.shape[1:]), chunk.dtype)])
-            with torch.inference_mode():
-                px = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-                if preprocessed:
-                    px = px.to(dtype)
-                elif px.shape[1] == s and px.shape[2] == s:
-                    px = normalize_images(px, dtype=dtype)
-                else:
-                    px = preprocess_images(px, image_size=s, dtype=dtype)
-            outs.append(self._encode("vision", lambda m: m.encode_image(px))[:b])
-        result = np.concatenate(outs)
+        with trace.span("embed.images", images=n):
+            for start in range(0, n, self.image_batch_size):
+                chunk = images[start:start + self.image_batch_size]
+                b = len(chunk)
+                b_pad = _bucket(b)
+                if b_pad != b:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((b_pad - b, *chunk.shape[1:]), chunk.dtype)])
+                with trace.span("embed.upload", bytes=chunk.nbytes), torch.inference_mode():
+                    px = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+                    if preprocessed:
+                        px = px.to(dtype)
+                    elif px.shape[1] == s and px.shape[2] == s:
+                        px = normalize_images(px, dtype=dtype)
+                    else:
+                        px = preprocess_images(px, image_size=s, dtype=dtype)
+                outs.append(self._encode("vision", lambda m: m.encode_image(px))[:b])
+            result = np.concatenate(outs)
         if self.logger:
             self.logger.log_performance(
                 "clip_image_encoding", time.perf_counter() - t0, batch=n)
