@@ -20,10 +20,14 @@ non-zero):
             (atol = rtol = 2e-2); B2 (int8 chunk-max sweep) over 10,000,000 x
             768 int8 rows made on the card in blocks from a seeded
             ``torch.Generator`` and quantized by ``symmetric_int8`` (7.68 GB),
-            B in {1, 8, 32}, n_valid = N - 1000, 0.1% tombstones, a group of
-            exactly tied rows: chunk maxima ``torch.equal`` to the plain
+            B in {1, 8, 32, 512}, n_valid = N - 1000, 0.1% tombstones, a group
+            of exactly tied rows: chunk maxima ``torch.equal`` to the plain
             version, ``topk_search_int8`` at k = 20 and 100 equal to the
-            blockwise ``int8_reference`` (tie-aware with atol 0). Then the IVF
+            blockwise ``int8_reference`` (tie-aware with atol 0); B=8 and
+            B=512 timed over those rows and over 10,000,000 x 512 (B2's
+            sweeps ``int8_sweep_plan`` gives, each beside its bound: the
+            larger of the products at the int8 peak and one read of the rows
+            per sweep). Then the IVF
             mode below the facade over the same rows: ``build_ivf`` with the
             bench's parameters (nlist 8192, 48 sample rows per list, 6
             k-means iterations), answers at nprobe 16 and 64, B = 1 and 8,
@@ -173,7 +177,7 @@ non-zero):
             phase, over its 10,000,000 int8 rows (padded to split in 4):
             ``sharded_topk_int8`` at B = 1 and 8 ``torch.equal`` to the
             single-device ``topk_search_int8`` (tombstones, n_valid), B2
-            launches a call (shards x ceil(B_pad / 64)), B=1 p50/p95 beside
+            launches a call (shards x the sweeps of ``int8_sweep_plan``), B=1 p50/p95 beside
             the single-device search's; ``sharded_ivf_topk`` on that phase's
             structure partitioned over the 4 shards, nprobe 16 and 64, B = 1
             and 8, ``torch.equal`` to ``ivf_topk``, p50 beside it. After the
@@ -559,6 +563,60 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
     return b1, mha
 
 
+def int8_rows(device, n_rows: int, dim: int, gen):
+    """``n_rows`` unit rows of ``dim`` from ``gen``, quantized per row by
+    ``symmetric_int8`` in blocks on the device, and their f32 scales; padded
+    (with zero rows and scales) so that they also split into MESH_SHARDS
+    shards of TILE_N multiples: the mesh phase's shards are views of them."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
+
+    n_pad = -(-n_rows // (topk.TILE_N * MESH_SHARDS)) * topk.TILE_N * MESH_SHARDS
+    x_i8 = torch.zeros((n_pad, dim), dtype=torch.int8, device=device)
+    xs = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    for s in range(0, n_rows, 262_144):
+        e = min(s + 262_144, n_rows)
+        blk = torch.randn(e - s, dim, generator=gen, device=device)
+        q8, sc = quant.symmetric_int8(blk / blk.norm(dim=-1, keepdim=True), dim=-1)
+        x_i8[s:e] = q8
+        xs[s:e] = sc[:, 0]
+    return x_i8, xs
+
+
+def b2_bound(n_pad: int, dim: int, b: int, sweeps: int) -> dict:
+    """B2's least time for ``b`` queries over ``n_pad`` int8 rows in
+    ``sweeps`` launches: the larger of the products at the int8 peak and,
+    for every sweep, one read of the rows, their scales and tombstones (with
+    the queries and the chunk maxima written)."""
+    one = n_pad * dim + n_pad * 4 + n_pad + b * dim + n_pad // 128 * b * 4
+    return bound(sweeps * one, 2.0 * n_pad * dim * b, "int8")
+
+
+def b2_sweep_row(timer, x_i8, xs, n_valid, dead, q) -> dict:
+    """B2 timed over the rows for the queries ``q`` (quantized here), with
+    its sweeps, their query group and its bound."""
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
+
+    q_i8 = quant.symmetric_int8(q, dim=-1)[0]
+    n_pad, dim = x_i8.shape
+    b = q_i8.shape[0]
+    plan = quant.int8_sweep_plan(topk.bucket_b(b), dim)
+    before = quant.int8_chunk_max_sweep.launches
+    ms = timer(lambda: quant.int8_chunk_max_sweep(x_i8, xs, q_i8, n_valid, dead),
+               iters=20 if b <= 64 else 5)
+    launches = quant.int8_chunk_max_sweep.launches - before
+    row = {"rows": n_pad, "dim": dim, "b": b, "sweeps": len(plan),
+           "group": plan[0]["group"], "ms": ms, **b2_bound(n_pad, dim, b, len(plan))}
+    if launches % len(plan):
+        raise AssertionError(f"B2 B={b} D={dim}: {launches} launches, not whole calls of "
+                             f"{len(plan)} sweeps")
+    log("numbers", f"B2 sweeps {n_pad} x {dim} int8, B={b}: {len(plan)} sweep(s) of up to "
+        f"{plan[0]['group']} queries, {ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f}% of it")
+    return row
+
+
 def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: bool,
                        keep: dict | None = None):
     """B2 against its plain version, and the two-phase int8 search against
@@ -569,18 +627,9 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops import quant, topk
 
     gen = torch.Generator(device=device).manual_seed(0)
-    # padded so that the rows also split into MESH_SHARDS shards of TILE_N
-    # multiples: the mesh phase's shards are views of these rows
-    n_pad = -(-n_rows // (topk.TILE_N * MESH_SHARDS)) * topk.TILE_N * MESH_SHARDS
-    x_i8 = torch.zeros((n_pad, dim), dtype=torch.int8, device=device)
-    xs = torch.zeros((n_pad,), dtype=torch.float32, device=device)
     t0 = time.perf_counter()
-    for s in range(0, n_rows, 262_144):
-        e = min(s + 262_144, n_rows)
-        blk = torch.randn(e - s, dim, generator=gen, device=device)
-        q8, sc = quant.symmetric_int8(blk / blk.norm(dim=-1, keepdim=True), dim=-1)
-        x_i8[s:e] = q8
-        xs[s:e] = sc[:, 0]
+    x_i8, xs = int8_rows(device, n_rows, dim, gen)
+    n_pad = x_i8.shape[0]
     # a group of exactly tied rows spread over the corpus
     src = n_rows // 2 + 17
     ties = [5, n_rows // 10 + 3, n_rows - 2000]
@@ -594,7 +643,7 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
     log("kernels", f"B2 rows: {n_rows} x {dim} int8 (pad {n_pad}, "
         f"{n_pad * dim / 1e9:.2f} GB) made on {device} in {time.perf_counter() - t0:.1f} s")
     queries, errs = {}, {}
-    for b in (1, 8, 32):
+    for b in (1, 8, 32, 512):
         q = torch.randn(b, dim, generator=gen, device=device)
         q[0] = x_i8[src].float()        # lands on the tie group
         queries[b] = q
@@ -610,7 +659,9 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
         if not torch.equal(got, ref):
             raise AssertionError(f"B2 B={b}: chunk maxima differ from the plain version by "
                                  f"{errs[b]}")
-        for k in (20, 100):
+        del got, ref, fin
+        # the blockwise reference at 512 queries would take minutes
+        for k in () if b == 512 else (20, 100):
             res = quant.topk_search_int8(x_i8, xs, q, k, n_valid=n_valid, deleted=dead)
             oracle = quant.int8_reference(x_i8[:n_valid], xs[:n_valid], q, k, deleted=dead)
             for i in range(b):
@@ -620,9 +671,9 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
             if sorted(res.indices[0, :4].tolist()) != sorted(ties + [src]):
                 raise AssertionError(f"B2 B={b} k={k}: the tie group is not the top 4")
         log("kernels", f"B2 int8_chunk_max_sweep N={n_rows} (pad {n_pad}) D={dim} int8 B={b}: "
-            f"max_abs_err={errs[b]:.3e}, chunk maxima equal to plain (torch.equal); "
-            "topk_search_int8 k=20,100 equal to int8_reference (tie-aware, atol 0), tie "
-            "group on top")
+            f"max_abs_err={errs[b]:.3e}, chunk maxima equal to plain (torch.equal)"
+            + ("" if b == 512 else "; topk_search_int8 k=20,100 equal to int8_reference "
+               "(tie-aware, atol 0), tie group on top"))
     b2 = {"max_abs_err": max(errs.values())}
     for b in (1, 8, 32):
         q_i8 = quant.symmetric_int8(queries[b], dim=-1)[0]
@@ -646,10 +697,25 @@ def check_int8_kernels(device, n_rows: int, dim: int, timer: Timer, require_kern
                                                      b).amax(dim=1)
                 lib = timer(int_mm, iters=5)
             b2.update(ms=ms, plain_ms=plain, library_ms=lib,
-                      **bound(n_pad * dim + n_pad * 4 + b * dim + n_pad
-                              + n_pad // topk.CHUNK * b * 4, 2.0 * n_pad * dim * b, "int8"))
+                      **b2_bound(n_pad, dim, b, 1))
             log("numbers", f"B2 B=8: bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}), "
                 f"library _int_mm + scale + amax {lib} ms")
+    # B2's sweeps at a served batch and at the k-NN call's 512, over rows of 768
+    # and of 512
+    b2["sweeps"] = [b2_sweep_row(timer, x_i8, xs, n_valid, dead, queries[b]) for b in (8, 512)]
+    del queries
+    x512, xs512 = int8_rows(device, n_rows, 512, gen)
+    q512 = torch.randn(512, 512, generator=gen, device=device)
+    got = quant.int8_chunk_max_sweep(x512, xs512, quant.symmetric_int8(q512, dim=-1)[0],
+                                     n_valid, dead)
+    if not torch.equal(got, quant.int8_chunk_max_plain(
+            x512, xs512, quant.symmetric_int8(q512, dim=-1)[0], n_valid, dead)):
+        raise AssertionError("B2 B=512 D=512: chunk maxima differ from the plain version")
+    del got
+    b2["sweeps"] += [b2_sweep_row(timer, x512, xs512, n_valid, dead, q512[:b]) for b in (8, 512)]
+    del x512, xs512, q512
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     if require_kernels and quant.int8_chunk_max_sweep.launches == 0:
         raise AssertionError("the B2 comparison ran without launching its kernel")
     if keep is not None:
@@ -3516,7 +3582,7 @@ def run_mesh_int8(device, rows: dict, require_kernels: bool, k: int = 20) -> dic
             before = quant.int8_chunk_max_sweep.launches
             got = sharded_topk_int8(mesh, xsh, ssh, q, k, n_valid, deleted_sharded=dsh)
             per_call[b] = quant.int8_chunk_max_sweep.launches - before
-            want = n_sh * -(-bucket_b(b) // quant._SWEEP_QUERIES)
+            want = n_sh * len(quant.int8_sweep_plan(bucket_b(b), dim))
             if require_kernels and per_call[b] != want:
                 raise AssertionError(f"int8 mesh of {n_sh}: {per_call[b]} B2 launches for B={b}, "
                                      f"not {want}")

@@ -394,7 +394,8 @@ def int8_10M(device: torch.device, embedder: CLIPEmbedder, rows: int,
            "latency_10M_int8_1chip_p95_ms": round(t["p95_ms"], 3),
            "latency_10M_int8_device_p50_ms": t["device_p50_ms"],
            "queries_10M": CALLS}
-    # B2 scores 64 queries a launch: a batch of 128 sweeps the rows twice
+    # B2 sweeps the rows once per query group (ops.quant.int8_sweep_plan): a
+    # batch of 128 at the index's 768 is one sweep
     for b in (128, 32):
         tb = timed(rows, x10, s10, b)
         qps = b / (tb["p50_ms"] / 1e3)

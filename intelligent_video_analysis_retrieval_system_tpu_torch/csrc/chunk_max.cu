@@ -129,15 +129,6 @@ inline long long blocks_x(const PlanBf16& p, long long n_chunks, int groups, int
   return bx < n_chunks ? bx : n_chunks;
 }
 
-// multiprocessors of the current device
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 1;
-  return sms;
-}
-
 // grid = (blocks along the chunks, b_pad / QG); shared memory as plan_bf16.
 template <int QG>
 __global__ void __launch_bounds__(kThreadsB, 2)
@@ -374,7 +365,8 @@ cudaError_t launch_bf16(const void* x, const void* q, const int8_t* dead, float*
   if (err != cudaSuccess) return err;
   const long long n_chunks = n_pad / kChunk;
   const int groups = b_pad / QG;
-  const dim3 grid((unsigned)blocks_x(plan, n_chunks, groups, sm_count()), (unsigned)groups);
+  const dim3 grid((unsigned)blocks_x(plan, n_chunks, groups, device_sm_count()),
+                  (unsigned)groups);
   kernel<<<grid, kThreadsB, plan.smem, stream>>>(map_x, map_q, dead, out, d, b_pad, n_valid,
                                                  (int)n_chunks, plan.stages);
   return cudaGetLastError();
@@ -405,7 +397,8 @@ extern "C" void ivars_chunk_max_plan(long long n_pad, int d, int b_pad, int sms,
   *group = p.group;
   *stages = p.stages;
   *blocks_per_sm = p.blocks_per_sm;
-  *blocks = p.group ? blocks_x(p, n_pad / kChunk, b_pad / p.group, sms > 0 ? sms : sm_count()) : 0;
+  if (sms <= 0) sms = device_sm_count();
+  *blocks = p.group ? blocks_x(p, n_pad / kChunk, b_pad / p.group, sms) : 0;
   *smem_bytes = (long long)p.smem;
 }
 

@@ -1,23 +1,24 @@
 // Hopper primitives for the kernels that run on `wgmma` (ln_mlp.cu,
-// chunk_max.cu): shared-memory barriers (`mbarrier`), bulk tensor copies
-// (TMA) and the host-side encoding of their tensor maps, thread-block
-// clusters and distributed shared memory, and the warpgroup matrix product.
-// The device side is inline PTX for sm_90a; nothing here is a finished
-// kernel.
+// chunk_max.cu, int8_sweep.cu): shared-memory barriers (`mbarrier`), bulk
+// tensor copies (TMA) and the host-side encoding of their tensor maps,
+// thread-block clusters and distributed shared memory, and the warpgroup
+// matrix product.  The device side is inline PTX for sm_90a; nothing here is
+// a finished kernel.
 //
 // Layout convention used throughout: an operand tile is K-major with the
-// 128-byte swizzle, stored as blocks of [rows][64 bf16] (128 bytes a row);
-// within a block the 16-byte group `c` of row `r` sits at group `c ^ (r % 8)`.
-// That is what a TMA box of {64, rows} with CU_TENSOR_MAP_SWIZZLE_128B
-// writes, what `swizzled_offset` computes for threads that write a tile
-// themselves, and what `smem_desc` describes to `wgmma` (8-row groups 1,024
-// bytes apart).  Tiles start on 1,024-byte boundaries; a k-step of 16 values
-// advances the descriptor's start address by 32 bytes.
+// 128-byte swizzle, stored as blocks of [rows][128 bytes] (64 bf16 or 128
+// int8 a row); within a block the 16-byte group `c` of row `r` sits at group
+// `c ^ (r % 8)`.  That is what a TMA box of {128 bytes, rows} with
+// CU_TENSOR_MAP_SWIZZLE_128B writes, what `swizzled_offset` computes for
+// threads that write a bf16 tile themselves, and what `smem_desc` describes
+// to `wgmma` (8-row groups 1,024 bytes apart).  Tiles start on 1,024-byte
+// boundaries; a k-step (16 bf16 or 32 int8 values) advances the descriptor's
+// start address by 32 bytes.
 //
-// Accumulator layout of `wgmma.m64nNk16` (f32): thread `tid` of the
-// warpgroup holds rows `16 * (tid / 32) + (tid % 32) / 4` (registers 4j, 4j+1)
-// and that row + 8 (registers 4j+2, 4j+3) at columns `8j + 2 * (tid % 4)` and
-// the next, for j in [0, N/8).
+// Accumulator layout of `wgmma.m64nNk16` (f32) and `wgmma.m64nNk32` (s32):
+// thread `tid` of the warpgroup holds rows `16 * (tid / 32) + (tid % 32) / 4`
+// (registers 4j, 4j+1) and that row + 8 (registers 4j+2, 4j+3) at columns
+// `8j + 2 * (tid % 4)` and the next, for j in [0, N/8).
 
 #pragma once
 
@@ -181,25 +182,44 @@ static inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major (rows, cols) bf16 matrix read in boxes of
-// box_rows x 64 columns with the 128-byte swizzle (the operand layout above).
-// Boxes that reach past the last row or column are filled with zeros, and
-// still complete with the box's full byte count.  The map holds the base
-// pointer and the shape: encode one for every launch.  cols % 8 == 0 and a
-// 16-byte-aligned base (TMA's stride and address rules); false if libcuda
-// refuses it.
-static inline bool tma_map_bf16(CUtensorMap* map, const void* base, unsigned long long rows,
-                                int cols, int box_rows) {
+// The tensor map of a row-major (rows, cols) matrix of `elem_bytes`-byte
+// values read in boxes of box_rows x 128 bytes with the 128-byte swizzle (the
+// operand layout above).  Boxes that reach past the last row or column are
+// filled with zeros, and still complete with the box's full byte count.  The
+// map holds the base pointer and the shape: encode one for every launch.
+// cols * elem_bytes % 16 == 0 and a 16-byte-aligned base (TMA's stride and
+// address rules); false if libcuda refuses it.
+static inline bool tma_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                              const void* base, unsigned long long rows, int cols, int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+// bf16 values, boxes of box_rows x 64
+static inline bool tma_map_bf16(CUtensorMap* map, const void* base, unsigned long long rows,
+                                int cols, int box_rows) {
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_rows);
+}
+// int8 values (as bytes), boxes of box_rows x 128
+static inline bool tma_map_s8(CUtensorMap* map, const void* base, unsigned long long rows,
+                              int cols, int box_rows) {
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, box_rows);
+}
+
+// multiprocessors of the current device (1 if the runtime cannot say)
+static inline int device_sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return sms;
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -222,6 +242,7 @@ static __device__ __forceinline__ void wgmma_wait() {
 // keeps the compiler from moving reads or writes of an accumulator across a
 // point where the asynchronous product may still own it
 static __device__ __forceinline__ void acc_fence(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+static __device__ __forceinline__ void acc_fence(int& r) { asm volatile("" : "+r"(r) :: "memory"); }
 
 // d (64 x N f32, this warpgroup's registers) = or += A (64 x 16, shared) .
 // B^T (N x 16, shared); scale_d = 0 overwrites d
@@ -326,6 +347,174 @@ struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// d (64 x N s32, this warpgroup's registers) = or += A (64 x 32 s8, shared) .
+// B^T (N x 32 s8, shared); scale_d = 0 overwrites d.  Integer products take
+// both operands K-major and have no scale or transpose immediates.  The sum
+// is exact while it stays inside int32.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<8> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+        "%0, %1, %2, %3}, "
+        "%4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87,"
+        "%88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103,"
+        "%104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+          "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+          "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+          "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+          "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+          "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };

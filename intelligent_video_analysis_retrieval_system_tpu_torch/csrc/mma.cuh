@@ -1,5 +1,6 @@
-// Warp-level tensor-core products shared by the sweep kernels (chunk_max.cu,
-// int8_sweep.cu, probes.cu).  Fragment maps (g = lane / 4, t = lane % 4):
+// Warp-level tensor-core products of the bench probes (probes.cu), and
+// `neg_inf` for every kernel that masks.  Fragment maps (g = lane / 4,
+// t = lane % 4):
 //
 // m16n8k16 bf16: A holds rows g and g + 8 at k = {2t, 2t+1} (a0, a1) and
 // {2t+8, 2t+9} (a2, a3); B holds query g at the same k (b0, b1); C holds

@@ -9,8 +9,9 @@
 //         (float)(X[r] . Q[j]) * xs[r]      X, Q int8, the dot in int32,
 //     rows r >= n_valid at -inf.  No tombstones, and the query's own scale
 //     is not applied (it commutes with the max and is applied outside).  It
-//     is B2 (int8_sweep.cu) without the tombstone load and with 8 queries;
-//     `rows_per_block` (128, 256, 512) is what the TPU kernel's tile was.
+//     computes B2's function (int8_sweep.cu) without the tombstone load, for
+//     8 queries, in B2's first design (below); `rows_per_block` (128, 256,
+//     512) is what the TPU kernel's tile was.
 // P2  the same with the rows widened to bf16 in registers and a bf16 query:
 //     bf16 products accumulated in f32 by `mma.sync.m16n8k16`.
 // P3  reads every byte of x once and writes the first 8 x 128 elements of
@@ -21,16 +22,16 @@
 // cores' rate; P2 adds 16 int8 -> bf16 conversions per thread per 16 bytes
 // on the CUDA cores, which is what it measures.
 //
-// Design of P1 and P2: B1's and B2's (chunk_max.cu, int8_sweep.cu).  One
-// block of 8 warps walks `rows_per_block / 128` chunks; each warp owns 16
-// rows of the chunk; a thread reads 16 contiguous bytes of each of its two
-// rows per 64 columns straight into registers (four steps in flight,
-// evict-first: X is read once), and the dot product's k order is permuted
-// so that those bytes are the thread's own A-fragment elements.  P2 widens
-// the 16 bytes to eight bf16 pairs in registers: word w of the 16 bytes
-// (columns 16t + 4w ..+3) feeds product w, its first two columns at k
-// slots {2t, 2t+1} and its last two at {2t+8, 2t+9}, and the query's
-// columns take the same slots (two 16-byte loads of the query row).
+// Design of P1 and P2: the first designs of B1 and B2, before both moved to
+// a TMA ring and `wgmma`.  One block of 8 warps walks `rows_per_block / 128`
+// chunks; each warp owns 16 rows of the chunk; a thread reads 16 contiguous
+// bytes of each of its two rows per 64 columns straight into registers (four
+// steps in flight, evict-first: X is read once), and the dot product's k
+// order is permuted so that those bytes are the thread's own A-fragment
+// elements.  P2 widens the 16 bytes to eight bf16 pairs in registers: word w
+// of the 16 bytes (columns 16t + 4w ..+3) feeds product w, its first two
+// columns at k slots {2t, 2t+1} and its last two at {2t+8, 2t+9}, and the
+// query's columns take the same slots (two 16-byte loads of the query row).
 //
 // Design of P3: a grid-stride loop of 16-byte evict-first loads, four in
 // flight per thread, folded into a per-thread XOR that is stored only if it

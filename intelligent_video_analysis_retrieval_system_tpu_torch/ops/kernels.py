@@ -73,6 +73,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ivars_chunk_max_plan.argtypes = [i64, i32, i32, i32, p, p, p, p, p]
     lib.ivars_int8_chunk_max.restype = i32
     lib.ivars_int8_chunk_max.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64, p]
+    lib.ivars_int8_chunk_max_plan.restype = None
+    lib.ivars_int8_chunk_max_plan.argtypes = [i64, i32, i32, i32, p, p, p, p, p, p]
     lib.ivars_mha_fwd.restype = i32
     lib.ivars_mha_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
     lib.ivars_mha_smem_bytes.restype = i64

@@ -9,7 +9,8 @@ with the same scheme and the same results, bit for bit:
   time); queries quantize the same way per query row at search time
   (:func:`symmetric_int8`, torch: f32, ``max(|x|, eps) / 127.0``, a divide,
   round half to even, clip);
-- phase 1 (kernel B2, ``csrc/int8_sweep.cu``): int8 rows x int8 queries
+- phase 1 (kernel B2, ``csrc/int8_sweep.cu``, one sweep of the rows per
+  query group of :func:`int8_sweep_plan`): int8 rows x int8 queries
   accumulate in int32, ``(float)acc * s_row``, rows past ``n_valid`` and
   tombstoned rows at -inf, max per 128-row chunk. The per-query scale is
   left out: chunk selection does not change under a positive scale;
@@ -56,7 +57,10 @@ import torch
 from .. import trace
 from . import kernels
 from .topk import (
+    _CONSUMER_WARPS,
     _PLAIN_ROWS,
+    _SMEM_BLOCK,
+    _SMEM_SM,
     CHUNK,
     TILE_N,
     TopKResult,
@@ -73,14 +77,13 @@ __all__ = [
     "pad_rows_int8",
     "int8_chunk_max_sweep",
     "int8_chunk_max_plain",
+    "int8_sweep_plan",
     "topk_search_int8",
     "int8_reference",
     "quantize_weight_int8",
     "w8a8_dense",
 ]
 
-# queries one B2 launch scores; larger batches sweep the rows again
-_SWEEP_QUERIES = 64
 # f32 elements of gathered candidate rows rescored per step (256 MB)
 _RESCORE_ELEMS = 1 << 26
 
@@ -233,6 +236,54 @@ def int8_chunk_max_plain(
     return out
 
 
+# kernel B2's launches (csrc/int8_sweep.cu `max_group` and `plan_for`, which
+# compute the same): a ring of stages of 128 rows x 128 int8 columns and the
+# query tiles staged for the block's life, within B1's shared-memory limits
+_I8_STAGE_BYTES = CHUNK * 128
+_I8_MIN_STAGES, _I8_MAX_STAGES = 4, 8
+_I8_WIDTHS = (256, 128, 64, 32, 16, 8)
+
+
+def _i8_fixed_bytes(width: int, d: int) -> int:
+    # alignment slack, query tiles, two buffers of the warps' maxima, barriers
+    return 1024 + -(-d // 128) * width * 128 + 2 * _CONSUMER_WARPS * width * 4 + 256
+
+
+def int8_sweep_plan(b_pad: int, d: int) -> list[dict]:
+    """The launches of kernel B2 for ``b_pad`` queries (a multiple of 8) over
+    int8 rows of width ``d``, one sweep of every row each, in order: the
+    first query ``q0`` and ``group`` of queries of each, the ``width`` of its
+    query tiles (the power of two at or above the group; rows past the group
+    are zeros), ring ``stages`` of 16 KB, ``blocks_per_sm`` and
+    ``smem_bytes`` of dynamic shared memory per block.
+
+    A group is the largest multiple of 8 that is at most 256, at most the
+    queries left, and whose tiles and a ring of 4 stages fit in a block's
+    shared memory (256 queries at ``d`` = 512, 128 at 768): 512 queries at
+    ``d`` = 512 are two sweeps, 8 one. Two blocks a multiprocessor where the
+    width is at most 64 and each still gets 4 stages. Raises ValueError
+    where ``d`` is too wide for a group of 8."""
+    if b_pad <= 0 or b_pad % 8 or d <= 0 or d % 16:
+        raise ValueError(f"int8_sweep_plan: b_pad={b_pad}, d={d}")
+    fits = [w for w in _I8_WIDTHS
+            if _i8_fixed_bytes(w, d) + _I8_MIN_STAGES * _I8_STAGE_BYTES <= _SMEM_BLOCK]
+    if not fits:
+        raise ValueError(f"int8_sweep_plan: rows of {d} int8 are too wide for kernel B2's "
+                         "shared memory")
+    launches = []
+    for q0 in range(0, b_pad, fits[0]):
+        group = min(fits[0], b_pad - q0)
+        width = 1 << max(3, (group - 1).bit_length())
+        fixed = _i8_fixed_bytes(width, d)
+        fit2 = max(0, (_SMEM_SM // 2 - 1024 - fixed) // _I8_STAGE_BYTES)
+        per_sm = 2 if width <= 64 and fit2 >= _I8_MIN_STAGES else 1
+        stages = min(_I8_MAX_STAGES,
+                     fit2 if per_sm == 2 else (_SMEM_BLOCK - fixed) // _I8_STAGE_BYTES)
+        launches.append({"q0": q0, "group": group, "width": width, "stages": stages,
+                         "blocks_per_sm": per_sm, "smem_bytes": fixed + stages * _I8_STAGE_BYTES})
+    return launches
+
+
 def int8_chunk_max_sweep(
     x_i8: torch.Tensor, x_scales: torch.Tensor, q_i8: torch.Tensor, n_valid: int,
     deleted: torch.Tensor | None = None,
@@ -241,9 +292,10 @@ def int8_chunk_max_sweep(
     to a TILE_N multiple, their f32 scales and int8 queries ``q_i8``.
 
     CPU tensors take :func:`int8_chunk_max_plain`. CUDA tensors launch kernel
-    B2 (``csrc/int8_sweep.cu``) on PyTorch's current stream, once per 64
-    queries of the padded batch; the count of those launches is
-    ``int8_chunk_max_sweep.launches``.
+    B2 (``csrc/int8_sweep.cu``) on PyTorch's current stream, once per query
+    group of :func:`int8_sweep_plan` for the padded batch; the count of those
+    launches is ``int8_chunk_max_sweep.launches``, and the largest group of
+    the last call on a card ``int8_chunk_max_sweep.group``.
     """
     n_pad, d = x_i8.shape
     if n_pad % TILE_N != 0:
@@ -276,25 +328,32 @@ def int8_chunk_max_sweep(
     if dead is not None and dead.device != x_i8.device:
         raise ValueError("int8_chunk_max_sweep: tombstones on another device")
     b_pad = q_p.shape[0]
+    plan = int8_sweep_plan(b_pad, d)
+    # every launch reads `width` query rows: zeros past the batch
+    rows = plan[-1]["q0"] + plan[-1]["width"]
+    if rows > b_pad:
+        q_p = torch.cat([q_p, q_p.new_zeros((rows - b_pad, d))])
     out = torch.empty((n_pad // CHUNK, b_pad), dtype=torch.float32, device=x_i8.device)
     lib = kernels.load()
     with torch.cuda.device(x_i8.device):
         stream = kernels.stream_of(x_i8)
-        for q0 in range(0, b_pad, _SWEEP_QUERIES):
-            nq = min(_SWEEP_QUERIES, b_pad - q0)
+        for launch in plan:
+            q0 = launch["q0"]
             rc = lib.ivars_int8_chunk_max(
                 ctypes.c_void_p(x_i8.data_ptr()), ctypes.c_void_p(xs.data_ptr()),
                 ctypes.c_void_p(q_p.data_ptr() + q0 * d),
                 ctypes.c_void_p(dead.data_ptr() if dead is not None else None),
                 ctypes.c_void_p(out.data_ptr() + q0 * out.element_size()),
-                n_pad, d, nq, b_pad, int(n_valid), stream,
+                n_pad, d, launch["group"], b_pad, int(n_valid), stream,
             )
             kernels.check_launch(rc, "int8_chunk_max")
             int8_chunk_max_sweep.launches += 1
+    int8_chunk_max_sweep.group = plan[0]["group"]
     return out[:, :b]
 
 
 int8_chunk_max_sweep.launches = 0
+int8_chunk_max_sweep.group = 0
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +392,8 @@ def topk_search_int8(
     ``x_i8`` (N_pad, D) int8 padded to a TILE_N multiple with its ``(N_pad,)``
     f32 scales, for the two-phase search; ``deleted`` optional (N,) or
     (N_pad, 1) int8 tombstones. The two-phase search records the spans
-    ``quant.phase1`` (counting B2's ``launches``) and ``quant.phase2``.
+    ``quant.phase1`` (counting B2's ``launches``; on a card noting the
+    largest query ``group`` they ran) and ``quant.phase2``.
     """
     b = q.shape[0]
     n_live = int(x_i8.shape[0]) if n_valid is None else int(n_valid)
@@ -360,13 +420,16 @@ def topk_search_int8(
     # run at the bucketed k, slice the exact top-k prefix (ops.topk.bucket_k)
     k_run = min(bucket_k(k), n_live)
     k_chunks = min(k_run, n_pad // CHUNK)
-    with trace.span("quant.phase1"):
+    with trace.span("quant.phase1") as phase1:
         launches = int8_chunk_max_sweep.launches
         # ONE quantized query for both phases: with one integer metric the
         # chunk-containment guarantee holds with no ulp slack
         q_i8, q_scales = _quantize_q(q)
         chunk_max = int8_chunk_max_sweep(x_i8, xs, q_i8, n_live, dead)   # (NC, b)
-        trace.count("launches", int8_chunk_max_sweep.launches - launches)
+        launched = int8_chunk_max_sweep.launches - launches
+        trace.count("launches", launched)
+        if launched:
+            phase1.note(group=int8_chunk_max_sweep.group)
     with trace.span("quant.phase2"):
         _, chunk_ids = topk_lowest_index_first(chunk_max.T, k_chunks)     # (b, kc)
         row_ids = (

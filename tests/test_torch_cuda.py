@@ -373,8 +373,8 @@ def _int8_rows(gen, n, d, device):
     return x_i8, xs[:, 0].contiguous()
 
 
-@pytest.mark.parametrize("b", [1, 8, 20, 33, 64, 128, 160])
-@pytest.mark.parametrize("d", [768, 64])
+@pytest.mark.parametrize("b", [1, 8, 20, 33, 64, 128, 160, 256, 512, 520])
+@pytest.mark.parametrize("d", [768, 512, 64])
 def test_int8_chunk_max_kernel_matches_plain(cuda_device, b, d):
     gen = torch.Generator(device=cuda_device).manual_seed(b * d)
     x_i8, xs = _int8_rows(gen, 8192, d, cuda_device)
@@ -383,12 +383,39 @@ def test_int8_chunk_max_kernel_matches_plain(cuda_device, b, d):
     before = tq.int8_chunk_max_sweep.launches
     got = tq.int8_chunk_max_sweep(x_i8, xs, q_i8, 8000, dead)
     torch.cuda.synchronize()
-    # one launch per 64 queries of the padded batch
-    assert tq.int8_chunk_max_sweep.launches == before + -(-ttopk.bucket_b(b) // 64)
+    # one launch per query group of the padded batch
+    plan = tq.int8_sweep_plan(ttopk.bucket_b(b), d)
+    assert tq.int8_chunk_max_sweep.launches == before + len(plan)
+    assert tq.int8_chunk_max_sweep.group == plan[0]["group"]
     assert got.shape == (8192 // ttopk.CHUNK, b)
     want = tq.int8_chunk_max_plain(x_i8, xs, q_i8, 8000, dead)
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
     assert torch.equal(got, want)
+
+
+def test_int8_sweep_plan_matches_the_library(cuda_device):
+    import ctypes
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    top, width, stages, per_sm = (ctypes.c_int() for _ in range(4))
+    blocks, smem = ctypes.c_longlong(), ctypes.c_longlong()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n_pad in (2048, 100_663_296):
+        for d in (16, 48, 64, 512, 768, 1024, 1280, 4096):
+            for b_pad in (8, 16, 32, 64, 72, 128, 160, 256, 512, 544):
+                for p in tq.int8_sweep_plan(b_pad, d):
+                    for count in (0, 64, sms):   # 0: the library asks the device
+                        lib.ivars_int8_chunk_max_plan(
+                            n_pad, d, p["group"], count, ctypes.byref(top), ctypes.byref(width),
+                            ctypes.byref(stages), ctypes.byref(per_sm), ctypes.byref(blocks),
+                            ctypes.byref(smem))
+                        want_blocks = min(n_pad // ttopk.CHUNK, (count or sms) * p["blocks_per_sm"])
+                        assert (top.value, width.value, stages.value, per_sm.value, blocks.value,
+                                smem.value) == (tq.int8_sweep_plan(256, d)[0]["group"],
+                                                p["width"], p["stages"], p["blocks_per_sm"],
+                                                want_blocks, p["smem_bytes"]), (n_pad, d, p)
 
 
 @pytest.mark.parametrize("k", [1, 10, 100])
@@ -1287,7 +1314,7 @@ def test_sharded_b2_equals_single_device(cuda_device, n_shards, b):
     got = sharded_topk_int8(mesh, place_rows(mesh, x8, n_pad), place_rows(mesh, xs, n_pad), q,
                             20, n)
     assert tq.int8_chunk_max_sweep.launches - before == \
-        n_shards * -(-ttopk.bucket_b(b) // tq._SWEEP_QUERIES)
+        n_shards * len(tq.int8_sweep_plan(ttopk.bucket_b(b), d))
     ref = tq.topk_search_int8(x8, xs, q, 20, n_valid=n)
     assert torch.equal(got.indices, ref.indices) and torch.equal(got.scores, ref.scores)
     assert got.indices[0, :5].tolist() == [3, 7, 5000, 9000, 20000]

@@ -222,6 +222,51 @@ def test_tie_order_matches_lax_top_k():
     assert ti[0, :4].tolist() == [7, 10, 2500, 4000]
 
 
+# kernel B2's launches: (first query, group) per sweep of the rows
+_SWEEPS = {
+    (8, 512): [(0, 8)], (64, 512): [(0, 64)], (72, 512): [(0, 72)], (256, 512): [(0, 256)],
+    (512, 512): [(0, 256), (256, 256)], (520, 512): [(0, 256), (256, 256), (512, 8)],
+    (8, 768): [(0, 8)], (64, 768): [(0, 64)], (72, 768): [(0, 72)],
+    (256, 768): [(0, 128), (128, 128)], (512, 768): [(q, 128) for q in range(0, 512, 128)],
+    (520, 768): [(q, 128) for q in range(0, 512, 128)] + [(512, 8)],
+}
+
+
+@pytest.mark.parametrize("b_pad", [8, 64, 72, 256, 512, 520])
+@pytest.mark.parametrize("d", [512, 768])
+def test_int8_sweep_plan_covers_every_query_once(b_pad, d):
+    plan = tq.int8_sweep_plan(b_pad, d)
+    assert [(p["q0"], p["group"]) for p in plan] == _SWEEPS[b_pad, d]
+    covered = [q for p in plan for q in range(p["q0"], p["q0"] + p["group"])]
+    assert covered == list(range(b_pad))
+    tiles = -(-d // 128) * 128      # a query row's bytes in shared memory
+    for p in plan:
+        assert p["group"] % 8 == 0 and p["group"] <= 256
+        # the tiles are the power of two at or above the group
+        assert p["width"] >= p["group"] and p["width"] & (p["width"] - 1) == 0
+        assert p["width"] < 2 * p["group"] or p["width"] == 8
+        # the queries, a ring of at least 4 stages of 16 KB and the maxima fit
+        # in a block's 227 KB; blocks a multiprocessor fit in its 228 KB
+        assert 4 <= p["stages"] <= 8
+        assert p["smem_bytes"] >= p["width"] * tiles + p["stages"] * 16384
+        assert p["smem_bytes"] <= 232_448
+        assert p["blocks_per_sm"] * (p["smem_bytes"] + 1024) <= 233_472
+    # every group but the last is the widest that fits, so a wider one would not
+    widest = plan[0]["group"]
+    if widest < 256 and b_pad > widest:
+        assert 2 * widest * tiles + 4 * 16384 > 232_448
+
+
+def test_int8_sweep_plan_group_follows_the_width_alone():
+    assert [p["group"] for p in tq.int8_sweep_plan(512, 64)] == [256, 256]
+    assert [p["group"] for p in tq.int8_sweep_plan(512, 1280)] == [64] * 8
+    with pytest.raises(ValueError):   # no group of 8 fits
+        tq.int8_sweep_plan(8, 32768)
+    for bad in ((0, 512), (12, 512), (8, 24)):
+        with pytest.raises(ValueError):
+            tq.int8_sweep_plan(*bad)
+
+
 def test_non_cpu_tensor_never_takes_the_plain_version():
     x = torch.zeros((ttopk.TILE_N, 16), dtype=torch.int8, device="meta")
     xs = torch.zeros((ttopk.TILE_N,), device="meta")

@@ -7,7 +7,8 @@ stops at its cap and counts what it drops, and ``take()`` clears it. The
 paths: a CPU ``UnifiedIndex.search_vectors`` and a tiny-config CPU
 ``CLIPEmbedder.encode_images`` leave the spans their docstrings name, in
 order; the int8 two-phase search counts its B2 launches in
-``quant.phase1`` (on the card, 8 for 512 queries). The file imports no
+``quant.phase1`` and notes their query group (on the card, 8 launches of
+64 for 512 queries of 1,280 int8, 2 of 256 at 64). The file imports no
 JAX, so the card case runs where there is none:
 
     python -m pytest --noconftest tests/test_torch_trace.py -q -m cuda
@@ -286,12 +287,16 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_phase1_counts_eight_b2_launches_for_512_queries(recorder, cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    x = torch.randn(8192, 64, generator=gen, device=cuda_device)
-    x_i8, xs = tq.symmetric_int8(x, dim=-1)
-    q = torch.randn(512, 64, generator=gen, device=cuda_device)
-    tq.topk_search_int8(x_i8, xs, q, 20)
-    torch.cuda.synchronize()
-    spans = _by_name(trace.take())
-    assert spans["quant.phase1"][0].counts == {"launches": 8}
-    assert spans["quant.phase1"][0].end <= spans["quant.phase2"][0].start
+    # rows of 1,280 take groups of 64 queries (8 sweeps for 512), rows of 64
+    # groups of 256 (2 sweeps): the group follows the shapes
+    for d, launches, group in ((1280, 8, 64), (64, 2, 256)):
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        x = torch.randn(8192, d, generator=gen, device=cuda_device)
+        x_i8, xs = tq.symmetric_int8(x, dim=-1)
+        q = torch.randn(512, d, generator=gen, device=cuda_device)
+        tq.topk_search_int8(x_i8, xs, q, 20)
+        torch.cuda.synchronize()
+        spans = _by_name(trace.take())
+        assert spans["quant.phase1"][0].counts == {"launches": launches}
+        assert spans["quant.phase1"][0].attrs == {"group": group}
+        assert spans["quant.phase1"][0].end <= spans["quant.phase2"][0].start
