@@ -15,9 +15,14 @@ non-zero):
             plain torch version (atol 1e-3) and the full top-k against the
             exact reference (tie-aware, atol 5e-4), timed with matmul + amax
             by CUDA-graph replay at each B; B3 (fused attention) at
-            ViT-L/14 shapes, B in {1, 8}, and at the bench's ViT-B/32 shape
-            (B = 256, T = 50, D = 768, 12 heads), against its plain version
-            (atol = rtol = 2e-2); B2 (int8 chunk-max sweep) over 10,000,000 x
+            ViT-L/14 shapes, B in {1, 8}, at the bench's ViT-B/32 shape
+            (B = 256, T = 50, D = 768, 12 heads) and at SigLIP so400m/14's
+            two (B = 256, D = 1152, 16 heads of 72: T = 729, the two-pass
+            stream variant, and T = 64, the text tower), against its plain
+            version (atol = rtol = 2e-2); then SigLIP's text tower at its
+            published widths in bf16 on 8 texts against the f32 reference
+            of the benchmark (``perfbench/reference/siglip.py``, cosine >=
+            0.995); B2 (int8 chunk-max sweep) over 10,000,000 x
             768 int8 rows made on the card in blocks from a seeded
             ``torch.Generator`` and quantized by ``symmetric_int8`` (7.68 GB),
             B in {1, 8, 32, 512}, n_valid = N - 1000, 0.1% tombstones, a group
@@ -363,6 +368,7 @@ N_REQUESTS = 8
 N_LATENCY = 24
 ATOL_CHUNK = 1e-3  # chunk maxima: summation order differs
 TOL_MHA = 2e-2     # bf16 attention output
+COS_SIGLIP_TEXT = 0.995   # SigLIP's text tower in bf16 over 27 layers against f32
 TOL_LN_MLP = 1e-2  # bf16 LN+MLP: max abs difference over the output's max abs
 ATOL_LN_MLP_F32 = 5e-5  # f32 LN+MLP: sums in another order, rsqrtf
 N_FRAMES = 4096    # the build phase: keyframes, in N_FOLDERS video folders
@@ -551,16 +557,71 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
     main = mha_case(8, t_l, d_l, h_l, timed=True)           # image queries, self-test
     big = mha_case(256 if not narrow else 4, t_l, d_l, h_l, timed=True)   # the build's batch
     b32 = mha_case(256 if not narrow else 4, 50, 768 if not narrow else 48, 12, timed=True)
+    # SigLIP so400m/14: head dim 72 (padded to 96), 729 tokens (stream) and 64
+    d_s, h_s = (1152, 16) if not narrow else (144, 2)
+    so400m = mha_case(256 if not narrow else 4, 729, d_s, h_s, timed=True)
+    so400m_text = mha_case(256 if not narrow else 4, 64, d_s, h_s, timed=True)
     ragged = [mha_case(2, t, 256 if not narrow else 64, 4, timed=False)
               for t in (1, 16, 17, 197, 273, 320)]
     mha = {k_: v_ for k_, v_ in main.items() if k_ != "shape"}
-    mha["max_abs_err"] = max(c["max_abs_err"] for c in (main, big, b32, *ragged))
+    mha["max_abs_err"] = max(c["max_abs_err"]
+                             for c in (main, big, b32, so400m, so400m_text, *ragged))
     mha["vit_l_14_b256"] = big
     mha["vit_b_32"] = b32
+    mha["siglip_so400m_b256"] = so400m
+    mha["siglip_text_b256"] = so400m_text
+    mha["siglip_text_tower"] = check_siglip_text(device, timer, narrow)
     if require_kernels and (topk.chunk_max_sweep.launches == 0
                             or attention.fused_mha.launches == 0):
         raise AssertionError("a kernel comparison ran without launching its kernel")
     return b1, mha
+
+
+def check_siglip_text(device, timer: Timer, narrow: bool) -> dict:
+    """SigLIP so400m/14's text tower (``models.siglip``, bf16, B3 at 64
+    tokens) on 8 hash-tokenized texts against the benchmark's f32 reference
+    over the same seeded weights (``narrow``: the tiny test widths)."""
+    import torch
+
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models import siglip
+    from intelligent_video_analysis_retrieval_system_tpu_torch.models.tokenizer import (
+        load_tokenizer)
+    from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
+    from perfbench import weights_siglip
+    from perfbench.drivers.encode_siglip import siglip_config
+    from perfbench.reference import siglip as ref
+
+    cfg = json.loads((ROOT / "perfbench" / "configs" / "siglip-so400m-patch14-384.json").read_text())
+    if narrow:
+        cfg["text_config"].update(vocab_size=512, max_position_embeddings=16, hidden_size=48,
+                                  intermediate_size=136, num_hidden_layers=2,
+                                  num_attention_heads=4)
+    text = siglip_config(cfg).text
+    sd = {k: v for k, v in weights_siglip.make(cfg, 20_260_314, device).items()
+          if k.startswith("text_model.")}
+    with torch.device("meta"):
+        model = siglip.SiglipTextTower(text)
+    model = model.to_empty(device=device)
+    model.load_state_dict({k[len("text_model."):]: v for k, v in sd.items()}, strict=True)
+    tok = load_tokenizer(None, vocab_size=text.vocab_size)
+    ids = torch.from_numpy(tok([f"a keyframe of scene {i}" for i in range(8)],
+                               text.max_length)).to(device)
+    launches = attention.fused_mha.launches
+    with torch.no_grad():
+        got = model(ids, torch.bfloat16).float()
+    moved = attention.fused_mha.launches - launches
+    want = ref.text_embed(sd, cfg, ids.long())
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min())
+    if cos < COS_SIGLIP_TEXT or (device.type == "cuda" and moved != text.num_layers):
+        raise AssertionError(f"SigLIP text tower: cosine {cos} (at least {COS_SIGLIP_TEXT}), "
+                             f"B3 launches {moved}")
+    out = {"cosine_min": cos, "b3_launches": moved,
+           "ms": timer(lambda: model(ids, torch.bfloat16), iters=10)}
+    log("kernels", f"SigLIP text tower bf16, 8 texts of {text.max_length} tokens: cosine "
+        f"with the f32 reference {cos:.6f} (at least {COS_SIGLIP_TEXT}), B3 {moved} launches, "
+        f"{out['ms']:.3f} ms a call")
+    del model, sd
+    return out
 
 
 def int8_rows(device, n_rows: int, dim: int, gen):

@@ -39,6 +39,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..ops.preprocess import fit_image
 from ..retrieval.results import KeyframeMetadata
 from ..utils.files import FileManager, natural_key
 from .container import IndexContainer
@@ -92,12 +93,15 @@ class RAGBuilder:
         progress_fn: Callable[[str, int, int], None] | None = None,
         mesh: Any | None = None,
         device: torch.device | str = "cuda",
+        center_crop: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         self.mesh = mesh  # parallel.Mesh: the returned index shards over it
         self.embed_fn = embed_fn
         self.embed_dim = embed_dim
         self.input_size = input_size
+        # the tower's processor: CLIP crops the center, SigLIP resizes straight
+        self.center_crop = center_crop
         self.config = config or UnifiedIndexConfig()
         self.decode_workers = decode_workers
         self.fm = file_manager or FileManager()
@@ -362,23 +366,16 @@ class RAGBuilder:
     def _decode_one(self, path: Path) -> tuple[np.ndarray, bytes]:
         """PIL decode -> HF-style resize/crop to input_size + thumbnail JPEG.
 
-        Host-side resize matches HF CLIPImageProcessor (shortest side to S,
-        bicubic antialias, center crop) so folder builds and the on-device
+        Host-side resize matches the tower's HF processor (``center_crop``:
+        CLIP's shortest side to S, bicubic, center crop; else SigLIP's
+        bicubic resize straight to S x S) so folder builds and the on-device
         video path produce the same embeddings.
         """
         from PIL import Image
 
         with Image.open(path) as img:
-            img = img.convert("RGB")
             s = self.input_size
-            w, h = img.size
-            if w <= h:
-                nw, nh = s, max(s, round(h * s / w))
-            else:
-                nw, nh = max(s, round(w * s / h)), s
-            img = img.resize((nw, nh), Image.BICUBIC)
-            left, top = (nw - s) // 2, (nh - s) // 2
-            img = img.crop((left, top, left + s, top + s))
+            img = fit_image(img.convert("RGB"), s, self.center_crop)
             pixels = np.asarray(img, dtype=np.uint8)
             thumb = b""
             if self.config.store_thumbnails:

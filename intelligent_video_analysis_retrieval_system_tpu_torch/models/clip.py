@@ -48,7 +48,7 @@ towers' pieces that ``parallel.train`` calls on each tensor-parallel shard.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Sequence
+from typing import Callable, ClassVar, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_mha
 from ..ops.block import activation, fused_ln_mlp, supports_fused_ln_mlp
+from ..ops.preprocess import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 from ..ops.quant import quantize_weight_int8, symmetric_int8, w8a8_dense
 
 __all__ = [
@@ -95,6 +96,11 @@ class CLIPVisionConfig:
     def num_patches(self) -> int:
         return (self.image_size // self.patch_size) ** 2
 
+    @property
+    def seq_len(self) -> int:
+        """Tokens through the blocks per image: the class token and the patches."""
+        return self.num_patches + 1
+
 
 @dataclass(frozen=True)
 class CLIPTextConfig:
@@ -112,6 +118,11 @@ class CLIPConfig:
     vision: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
     text: CLIPTextConfig = field(default_factory=CLIPTextConfig)
     logit_scale_init: float = 2.6592  # ln(1/0.07), CLIP's published init
+    # HF CLIPImageProcessor: shortest side to the input size, center crop,
+    # OpenAI's mean and std
+    image_mean: ClassVar[tuple] = CLIP_IMAGE_MEAN
+    image_std: ClassVar[tuple] = CLIP_IMAGE_STD
+    center_crop: ClassVar[bool] = True
 
     @classmethod
     def vit_l_14(cls) -> "CLIPConfig":
@@ -360,9 +371,11 @@ class _MLP(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN residual block, HF ``CLIPEncoderLayer`` names: attention, then
     the MLP half (LN -> fc1 -> act -> fc2 -> residual), either as the
-    unfused chain or, with ``fused_mlp``, through kernel B4."""
+    unfused chain or, with ``fused_mlp``, through kernel B4. ``mlp_dim`` is
+    the MLP's width (CLIP and DINO: ``dim * mlp_ratio``; SigLIP's 4,304 is
+    no multiple of its 1,152)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int,
                  precision: str = "default", act: str = "quick_gelu",
                  ln_eps: float = 1e-5, fused_attn: bool = True,
                  fused_mlp: bool = False, w8a8: bool = False,
@@ -374,11 +387,11 @@ class TransformerBlock(nn.Module):
                                             w8a8=w8a8, w8a8_static=w8a8_static,
                                             int8_attn=int8_attn)
         self.layer_norm2 = LayerNorm(dim, eps=ln_eps)
-        self.mlp = _MLP(dim, dim * mlp_ratio, act, w8a8=w8a8, w8a8_static=w8a8_static)
+        self.mlp = _MLP(dim, mlp_dim, act, w8a8=w8a8, w8a8_static=w8a8_static)
         # the reference's gate: opt-in, throughput mode, shapes the kernel
         # takes; a W8A8 block returns before it
         self.fused_mlp = (fused_mlp and not w8a8 and precision != "highest"
-                          and supports_fused_ln_mlp(dim, dim * mlp_ratio, act))
+                          and supports_fused_ln_mlp(dim, mlp_dim, act))
 
     def _fused_mlp_half(self, x: torch.Tensor) -> torch.Tensor:
         # the weights in the compute dtype come from the Dense layers' own
@@ -418,7 +431,7 @@ def run_blocks(blocks: Sequence[Callable], x: torch.Tensor, mask: torch.Tensor |
 class Transformer(nn.Module):
     """A stack of blocks under HF's ``encoder.layers`` name."""
 
-    def __init__(self, num_layers: int, dim: int, num_heads: int, mlp_ratio: int,
+    def __init__(self, num_layers: int, dim: int, num_heads: int, mlp_dim: int,
                  precision: str = "default", fused_attn: bool = True,
                  remat: bool = False, act: str = "quick_gelu",
                  ln_eps: float = 1e-5, fused_mlp: bool = False, w8a8: bool = False,
@@ -426,7 +439,7 @@ class Transformer(nn.Module):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
-            TransformerBlock(dim, num_heads, mlp_ratio, precision, act=act,
+            TransformerBlock(dim, num_heads, mlp_dim, precision, act=act,
                              ln_eps=ln_eps, fused_attn=fused_attn,
                              fused_mlp=fused_mlp, w8a8=w8a8,
                              w8a8_static=w8a8_static, int8_attn=int8_attn)
@@ -464,11 +477,14 @@ class _PatchEmbed(nn.Module):
 
 def patch_embed(pixels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) pixels x HF's conv weight ``(D, 3, p, p)`` (in the
-    pixels' dtype) -> (B, patches, D), without bias."""
+    pixels' dtype) -> (B, patches, D), without bias. As the stride-p
+    convolution without padding, rows and columns past the last whole patch
+    are dropped (SigLIP's 384 px are 27 patches of 14 and 6 px)."""
     p = weight.shape[-1]
     b, h, w, c = pixels.shape                       # NHWC
-    x = pixels.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(b, (h // p) * (w // p), p * p * c)
+    gh, gw = h // p, w // p
+    x = pixels[:, :gh * p, :gw * p].reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, gh * gw, p * p * c)
     # (D, c, p, p) -> (p, p, c, D): the (p_h, p_w, c) order of the patch
     return x @ weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
 
@@ -494,8 +510,8 @@ class CLIPVisionTower(nn.Module):
         self.embeddings = _VisionEmbeddings(cfg)
         self.pre_layrnorm = LayerNorm(cfg.hidden_size, eps=1e-5)  # HF's spelling
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                                   cfg.mlp_ratio, precision, fused_attn, remat=remat,
-                                   fused_mlp=fused_mlp, w8a8=w8a8,
+                                   cfg.hidden_size * cfg.mlp_ratio, precision, fused_attn,
+                                   remat=remat, fused_mlp=fused_mlp, w8a8=w8a8,
                                    w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.post_layernorm = LayerNorm(cfg.hidden_size, eps=1e-5)
 
@@ -528,8 +544,8 @@ class CLIPTextTower(nn.Module):
         self.config = cfg
         self.embeddings = _TextEmbeddings(cfg)
         self.encoder = Transformer(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                                   cfg.mlp_ratio, precision, fused_attn, remat=remat,
-                                   fused_mlp=fused_mlp, w8a8=w8a8,
+                                   cfg.hidden_size * cfg.mlp_ratio, precision, fused_attn,
+                                   remat=remat, fused_mlp=fused_mlp, w8a8=w8a8,
                                    w8a8_static=w8a8_static, int8_attn=int8_attn)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=1e-5)
 

@@ -17,6 +17,14 @@ weight ``(D, 3, p, p)``; the towers' ``proj`` matrices become the
 ``text_projection`` / ``visual_projection`` weights (transposed); Flax
 LayerNorm ``scale`` is torch ``weight``.
 
+SigLIP (:mod:`models.siglip`) carries HF ``SiglipModel`` names, the MAP
+head's ``vision_model.head.*``, ``text_model.head.*`` and ``logit_bias``
+included: :func:`load_clip` seeds it or loads a local ``SiglipModel``
+checkpoint when its config is a ``SiglipConfig`` or the checkpoint's
+``model_type`` is ``siglip``, and :func:`from_hf_state_dict` keeps what
+either family's modules hold of an HF state dict. :func:`model_config` is
+the config of a ``model.name``.
+
 The DINO tower (:mod:`models.dino`) carries HF ``ViTModel`` names:
 :func:`from_jax_dino_params` turns the JAX ``DINOTower`` tree into its state
 dict, the JAX package's ``convert_hf_vit_params`` is its exact inverse, and
@@ -25,6 +33,7 @@ dict, the JAX package's ``convert_hf_vit_params`` is its exact inverse, and
 
 from __future__ import annotations
 
+import json
 import logging
 from pathlib import Path
 from typing import Any, Mapping
@@ -34,9 +43,27 @@ import torch
 
 from .clip import CLIPConfig, CLIPModel, CLIPTextConfig, CLIPVisionConfig
 from .dino import DINOConfig, DINOTower, hf_name
+from .siglip import SiglipConfig, SiglipModel, SiglipTextConfig, SiglipVisionConfig
 
-__all__ = ["from_jax_params", "from_optax_state", "hf_config_to_ours", "load_clip",
-           "empty_model", "from_jax_dino_params", "load_dino"]
+__all__ = ["MODEL_NAMES", "from_jax_params", "from_optax_state", "from_hf_state_dict",
+           "hf_config_to_ours", "hf_siglip_config_to_ours", "load_clip", "empty_model",
+           "model_config", "from_jax_dino_params", "load_dino"]
+
+# ``model.name`` -> the towers it builds (HF repository names); each preset
+# is looked up when called
+MODEL_NAMES = {
+    "clip-vit-large-patch14": lambda: CLIPConfig.vit_l_14(),
+    "clip-vit-base-patch32": lambda: CLIPConfig.vit_b_32(),
+    "siglip-so400m-patch14-384": lambda: SiglipConfig.so400m_patch14_384(),
+}
+
+
+def model_config(name: str) -> CLIPConfig | SiglipConfig:
+    """The config of a ``model.name`` (:data:`MODEL_NAMES`)."""
+    try:
+        return MODEL_NAMES[name]()
+    except KeyError:
+        raise ValueError(f"unknown model.name {name!r}; known: {sorted(MODEL_NAMES)}") from None
 
 
 def _tensor(x: Any, transpose: bool = False) -> torch.Tensor:
@@ -141,24 +168,68 @@ def hf_config_to_ours(hf_config: Any) -> CLIPConfig:
     )
 
 
-def empty_model(config: CLIPConfig, device: torch.device | str = "cpu",
-                **kwargs: Any) -> CLIPModel:
-    """A :class:`CLIPModel` with uninitialized parameters on ``device``
-    (built on the meta device, so no default init runs)."""
+def hf_siglip_config_to_ours(hf_config: Any) -> SiglipConfig:
+    """``transformers.SiglipConfig`` -> our dataclass config."""
+    v, t = hf_config.vision_config, hf_config.text_config
+    return SiglipConfig(
+        vision=SiglipVisionConfig(
+            image_size=v.image_size, patch_size=v.patch_size, hidden_size=v.hidden_size,
+            intermediate_size=v.intermediate_size, num_layers=v.num_hidden_layers,
+            num_heads=v.num_attention_heads, ln_eps=v.layer_norm_eps),
+        text=SiglipTextConfig(
+            vocab_size=t.vocab_size, max_length=t.max_position_embeddings,
+            hidden_size=t.hidden_size, intermediate_size=t.intermediate_size,
+            num_layers=t.num_hidden_layers, num_heads=t.num_attention_heads,
+            ln_eps=t.layer_norm_eps),
+    )
+
+
+def empty_model(config: CLIPConfig | SiglipConfig, device: torch.device | str = "cpu",
+                **kwargs: Any) -> CLIPModel | SiglipModel:
+    """The model of ``config``'s family (:class:`CLIPModel` or
+    :class:`SiglipModel`) with uninitialized parameters on ``device`` (built
+    on the meta device, so no default init runs)."""
+    family = SiglipModel if isinstance(config, SiglipConfig) else CLIPModel
     with torch.device("meta"):
-        model = CLIPModel(config, **kwargs)
+        model = family(config, **kwargs)
     return model.to_empty(device=device)
+
+
+def from_hf_state_dict(state_dict: Mapping[str, torch.Tensor],
+                       config: CLIPConfig | SiglipConfig,
+                       device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+    """An HF ``CLIPModel`` or ``SiglipModel`` state dict -> the f32 state
+    dict of :func:`empty_model` ``(config)`` on ``device``: the same names,
+    HF's buffers (``position_ids``) dropped; a name the model holds and the
+    checkpoint lacks raises ``KeyError``."""
+    keys = empty_model(config, "meta").state_dict()
+    missing = sorted(set(keys) - set(state_dict))
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} of the model's tensors: {missing[:4]}")
+    return {k: state_dict[k].detach().float().reshape(keys[k].shape).to(device) for k in keys}
+
+
+def _checkpoint_type(path: str | Path) -> str | None:
+    """``model_type`` of a local HF checkpoint directory's config.json."""
+    try:
+        return json.loads((Path(path) / "config.json").read_text()).get("model_type")
+    except (OSError, ValueError):
+        return None
 
 
 @torch.no_grad()
 def _seeded_init(model: CLIPModel, generator: torch.Generator) -> None:
     """CLIP-style init (the reference's Flax initializers): Linear weights
     lecun-normal, biases zero, LayerNorm ones/zeros, embeddings N(0, 0.02)
-    (text positions N(0, 0.01)), projections N(0, hidden^-1/2)."""
+    (text positions N(0, 0.01)), projections N(0, hidden^-1/2). SigLIP's
+    packed ``in_proj_weight`` and ``probe`` take fan_in too, its
+    ``logit_bias`` the config's init."""
     cfg = model.config
     for name, p in model.named_parameters():
         if name == "logit_scale":
             p.fill_(cfg.logit_scale_init)
+        elif name == "logit_bias":
+            p.fill_(cfg.logit_bias_init)
         elif "layer_norm" in name or "layrnorm" in name or "layernorm" in name:
             p.fill_(1.0 if name.endswith("weight") else 0.0)
         elif name.endswith("bias"):
@@ -176,13 +247,15 @@ def _seeded_init(model: CLIPModel, generator: torch.Generator) -> None:
 
 def load_clip(
     model_name_or_path: str | Path | None = None,
-    config: CLIPConfig | None = None,
+    config: CLIPConfig | SiglipConfig | None = None,
     seed: int = 0,
     device: torch.device | str = "cpu",
-) -> tuple[CLIPConfig, dict[str, torch.Tensor]]:
-    """(config, state dict on ``device``).
+) -> tuple[CLIPConfig | SiglipConfig, dict[str, torch.Tensor]]:
+    """(config, state dict on ``device``) of either tower family.
 
-    A local HF checkpoint directory loads when ``transformers`` imports;
+    A local HF checkpoint directory loads when ``transformers`` imports (a
+    ``SiglipModel`` where ``config`` is a ``SiglipConfig`` or the
+    checkpoint's ``model_type`` is ``siglip``, else a ``CLIPModel``);
     otherwise (or without a path) the towers are initialized at the
     config's full width from ``torch.Generator(device).manual_seed(seed)``.
     Network access is never attempted.
@@ -191,17 +264,15 @@ def load_clip(
         try:
             import transformers
 
-            hf = transformers.CLIPModel.from_pretrained(
-                str(model_name_or_path), local_files_only=True
-            )
-            cfg = hf_config_to_ours(hf.config)
-            keys = set(empty_model(cfg, "meta").state_dict())
-            sd = {k: v.detach().float().to(device)
-                  for k, v in hf.state_dict().items() if k in keys}
-            return cfg, sd
+            siglip = (isinstance(config, SiglipConfig)
+                      or _checkpoint_type(model_name_or_path) == "siglip")
+            family = transformers.SiglipModel if siglip else transformers.CLIPModel
+            hf = family.from_pretrained(str(model_name_or_path), local_files_only=True)
+            cfg = (hf_siglip_config_to_ours if siglip else hf_config_to_ours)(hf.config)
+            return cfg, from_hf_state_dict(hf.state_dict(), cfg, device)
         except (ImportError, OSError, ValueError) as exc:
             logging.getLogger(__name__).warning(
-                "could not load HF CLIP checkpoint from %r (%s: %s) — "
+                "could not load HF checkpoint from %r (%s: %s) — "
                 "using randomly-initialized towers",
                 str(model_name_or_path), type(exc).__name__, exc,
             )

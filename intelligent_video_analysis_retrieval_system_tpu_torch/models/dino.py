@@ -123,8 +123,8 @@ class DINOTower(nn.Module):
         self.dtype = dtype
         self.embeddings = _ViTEmbeddings(config)
         self.encoder = Transformer(config.num_layers, config.hidden_size, config.num_heads,
-                                   config.mlp_ratio, precision, fused_attn, act="gelu",
-                                   ln_eps=config.ln_eps)
+                                   config.hidden_size * config.mlp_ratio, precision,
+                                   fused_attn, act="gelu", ln_eps=config.ln_eps)
         self.layernorm = LayerNorm(config.hidden_size, eps=config.ln_eps)
         self.register_state_dict_post_hook(_to_hf_names)
         self.register_load_state_dict_pre_hook(_to_own_names)

@@ -13,6 +13,10 @@ Dispatch depends only on where the tensors live: CPU tensors take the plain
 :func:`_einsum_attention`; CUDA tensors launch the kernel or raise. The
 backward is the plain einsum recomputed from q, k, v, as the reference's
 custom VJP does (the TPU kernel has no backward either).
+
+Spans (:mod:`..trace`): ``attn.b3`` (``batch``, ``tokens``, ``dim``,
+``heads``, ``variant`` of :func:`mha_plan`) around each launch of the
+kernel, so a reader of the device trace has each launch's shape.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import ctypes
 
 import torch
 
+from .. import trace
 from . import kernels
 
 __all__ = ["fused_mha", "fused_mha_qkv", "mha_plan"]
@@ -51,13 +56,18 @@ def mha_plan(t: int, head_dim: int, blocks: int = 1, sm_count: int = 132) -> dic
                          f"sm_count={sm_count}")
     t_pad = -(-t // 16) * 16
     ld = -(-head_dim // 32) * 32 + 8
-    if t_pad > _MAX_REG_KEYS:
+    if _variant(t) == "stream":
         return {"variant": "stream", "frags": _STREAM_KEYS // 8, "blocks_per_head": -(-t // 128),
                 "warps": 8, "smem_bytes": 2 * _STREAM_KEYS * ld * 2}
     frags = 8 if t_pad <= 64 else 16 if t_pad <= 128 else _MAX_REG_KEYS // 8
     warps = 4 if t_pad > 128 and blocks > 2 * sm_count else min(t_pad // 16, 8)
     return {"variant": "registers", "frags": frags, "blocks_per_head": 1, "warps": warps,
             "smem_bytes": 2 * t_pad * ld * 2}
+
+
+def _variant(t: int) -> str:
+    """The bf16 variant a sequence of ``t`` tokens takes, by ``t`` alone."""
+    return "stream" if -(-t // 16) * 16 > _MAX_REG_KEYS else "registers"
 
 
 def _einsum_attention(
@@ -102,7 +112,8 @@ def _mha_kernel(
                          f"(limit {_MAX_SMEM})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with trace.span("attn.b3", batch=b, tokens=t, dim=d, heads=num_heads,
+                    variant=_variant(t)), torch.cuda.device(q.device):
         rc = lib.ivars_mha_fwd(
             ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
             ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),

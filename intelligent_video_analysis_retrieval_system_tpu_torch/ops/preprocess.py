@@ -1,4 +1,4 @@
-"""Image preprocessing for the CLIP tower: resize, crop, normalize (NHWC).
+"""Image preprocessing for the vision towers: resize, crop, normalize (NHWC).
 
 PyTorch port of ``intelligent_video_analysis_retrieval_system_tpu/ops/preprocess.py``.
 Resizing is two matmuls against separable interpolation matrices (built
@@ -15,6 +15,12 @@ chain inside their one jitted program anyway. Eager PyTorch runs the chain
 as five launches with four round trips through device memory, so the port
 has one normalize on the card, the kernel, and no ``use_pallas`` /
 ``interpret`` arguments.
+
+Each tower family brings its processor's constants (``CLIPConfig`` and
+``SiglipConfig``'s ``image_mean``, ``image_std`` and ``center_crop``): CLIP
+resizes the shortest side and crops the center with OpenAI's mean and std,
+SigLIP resizes straight to the square input with mean and std 0.5.
+:func:`fit_image` is the same resize on the host, for decoded files.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ __all__ = [
     "CLIP_IMAGE_STD",
     "resize_bilinear",
     "center_crop",
+    "fit_image",
     "normalize_images",
     "normalize_images_reference",
     "preprocess_images",
@@ -178,18 +185,42 @@ def normalize_images(
 normalize_images.launches = 0
 
 
+def _resized_shape(h: int, w: int, size: int, crop: bool) -> tuple[int, int]:
+    """(height, width) before the crop: the shortest side to ``size`` where
+    the processor crops, else the square itself."""
+    if not crop:
+        return size, size
+    if h <= w:
+        return size, max(size, round(w * size / h))
+    return max(size, round(h * size / w)), size
+
+
 def preprocess_images(
     images: torch.Tensor,
     image_size: int = 224,
     dtype: torch.dtype = torch.bfloat16,
+    mean: tuple = CLIP_IMAGE_MEAN,
+    std: tuple = CLIP_IMAGE_STD,
+    crop: bool = True,
 ) -> torch.Tensor:
-    """Resize the shortest side (bicubic, antialiased) -> center crop ->
-    normalize. (B, H, W, 3) in [0, 255] -> (B, size, size, 3) ``dtype``."""
+    """Resize (bicubic, antialiased) -> center crop -> normalize. (B, H, W,
+    3) in [0, 255] -> (B, size, size, 3) ``dtype``. ``crop``: the shortest
+    side to ``image_size``, then the center (CLIP); else straight to the
+    square (SigLIP)."""
     _, h, w, _ = images.shape
-    if h <= w:
-        new_h, new_w = image_size, max(image_size, round(w * image_size / h))
-    else:
-        new_h, new_w = max(image_size, round(h * image_size / w)), image_size
+    new_h, new_w = _resized_shape(h, w, image_size, crop)
     x = resize_bilinear(images, new_h, new_w, method="bicubic", antialias=True)
     x = center_crop(x, image_size)
-    return normalize_images(x, dtype=dtype)
+    return normalize_images(x, mean, std, dtype=dtype)
+
+
+def fit_image(img, size: int, crop: bool = True):
+    """A PIL image resized (bicubic) as :func:`preprocess_images` resizes on
+    the device, then center-cropped to ``size`` x ``size``."""
+    from PIL import Image
+
+    w, h = img.size
+    nh, nw = _resized_shape(h, w, size, crop)
+    img = img.resize((nw, nh), Image.BICUBIC)
+    left, top = (nw - size) // 2, (nh - size) // 2
+    return img.crop((left, top, left + size, top + size))

@@ -9,6 +9,11 @@ kernel B3).
 
 - The model lives on an explicit ``torch.device``; asking for ``cuda``
   where CUDA is missing raises.
+- The tower family is the config's type: ``models.clip.CLIPConfig`` (the
+  default, ViT-L/14) or ``models.siglip.SiglipConfig``. The family brings its
+  processor (``image_mean``, ``image_std``, ``center_crop``: CLIP crops the
+  center, SigLIP resizes straight) and its embedding width (``embed_dim``:
+  CLIP's projection, SigLIP's 1,152 hidden). SigLIP has no int8 mode.
 - Parameters stay f32; activations run in bf16 (``compute_dtype``
   ``bfloat16``, and ``float16``, which the reference also runs as bf16) or
   f32; ``parity_mode`` forces f32 with the "highest" attention mode.
@@ -34,6 +39,8 @@ kernel B3).
   ``embed.text`` around a call, and under them ``embed.upload`` (a chunk's
   host-to-device copy and B5's launch), ``embed.dispatch`` (the tower's
   launches) and ``embed.readback`` (the host waiting for the embeddings).
+  ``embed.images`` counts ``embed.tokens``, the tokens through the vision
+  tower's blocks (padded images included).
 """
 
 from __future__ import annotations
@@ -96,7 +103,7 @@ class CLIPEmbedder:
     def __init__(
         self,
         model_path: str | Path | None = None,
-        config: Any | None = None,          # models.clip.CLIPConfig
+        config: Any | None = None,          # models.clip.CLIPConfig or .siglip.SiglipConfig
         compute_dtype: str = "bfloat16",
         parity_mode: bool = False,
         image_batch_size: int = 256,
@@ -236,6 +243,13 @@ class CLIPEmbedder:
     def input_size(self) -> int:
         self.ensure_loaded()
         return self.config.vision.image_size
+
+    @property
+    def center_crop(self) -> bool:
+        """Whether the tower's processor crops the center (CLIP) or resizes
+        straight to the square (SigLIP)."""
+        self.ensure_loaded()
+        return self.config.center_crop
 
     # -- int8_static calibration ---------------------------------------------
 
@@ -399,7 +413,8 @@ class CLIPEmbedder:
 
         Chunks to ``image_batch_size`` and pads to buckets. Images already
         at the tower's input size are only normalized; others are resized
-        (bicubic, antialiased) and center-cropped on the device."""
+        (bicubic, antialiased) and, for CLIP, center-cropped on the device,
+        with the family's mean and std."""
         from ..ops.preprocess import normalize_images, preprocess_images
 
         self.ensure_loaded()
@@ -410,7 +425,8 @@ class CLIPEmbedder:
         if n == 0:
             return np.zeros((0, self.config.vision.projection_dim), np.float32)
         t0 = time.perf_counter()
-        s = self.config.vision.image_size
+        cfg = self.config
+        s = cfg.vision.image_size
         dtype = _COMPUTE_DTYPES[self.compute_dtype]
         outs = []
         with trace.span("embed.images", images=n):
@@ -426,10 +442,12 @@ class CLIPEmbedder:
                     if preprocessed:
                         px = px.to(dtype)
                     elif px.shape[1] == s and px.shape[2] == s:
-                        px = normalize_images(px, dtype=dtype)
+                        px = normalize_images(px, cfg.image_mean, cfg.image_std, dtype=dtype)
                     else:
-                        px = preprocess_images(px, image_size=s, dtype=dtype)
+                        px = preprocess_images(px, s, dtype, cfg.image_mean, cfg.image_std,
+                                               cfg.center_crop)
                 outs.append(self._encode("vision", lambda m: m.encode_image(px))[:b])
+                trace.count("embed.tokens", b_pad * cfg.vision.seq_len)
             result = np.concatenate(outs)
         if self.logger:
             self.logger.log_performance(
@@ -441,11 +459,14 @@ class CLIPEmbedder:
     ) -> tuple[np.ndarray, list[int]]:
         """Decode + encode image files; tolerates failures.
 
-        Returns (embeddings, ok_indices). The host-side resize is HF
-        CLIPImageProcessor's (shortest side to the input size, bicubic,
-        center crop), the same as the index builder's.
+        Returns (embeddings, ok_indices). The host-side resize is the
+        tower's HF processor's (``ops.preprocess.fit_image``: CLIP's
+        shortest side to the input size and center crop, SigLIP's straight
+        resize; bicubic), the same as the index builder's.
         """
         from PIL import Image
+
+        from ..ops.preprocess import fit_image
 
         self.ensure_loaded()
         s = self.config.vision.image_size
@@ -453,15 +474,7 @@ class CLIPEmbedder:
         for i, p in enumerate(paths):
             try:
                 with Image.open(p) as img:
-                    img = img.convert("RGB")
-                    w, h = img.size
-                    if w <= h:
-                        nw, nh = s, max(s, round(h * s / w))
-                    else:
-                        nw, nh = max(s, round(w * s / h)), s
-                    img = img.resize((nw, nh), Image.BICUBIC)
-                    left, top = (nw - s) // 2, (nh - s) // 2
-                    img = img.crop((left, top, left + s, top + s))
+                    img = fit_image(img.convert("RGB"), s, self.config.center_crop)
                     pixels.append(np.asarray(img, np.uint8))
                     ok.append(i)
             except Exception:

@@ -19,6 +19,12 @@ a build removes a stale file and writes the scales as they freeze; a load
 (``load_system``, or ``attach_index`` of an index that has a path) imports
 them, so the towers start static at once.
 
+``model.name`` names the towers (``models.convert.MODEL_NAMES``):
+``clip-vit-large-patch14`` (the default), ``clip-vit-base-patch32`` or
+``siglip-so400m-patch14-384``. The facade builds that embedder and writes
+its widths into ``model.embed_dim`` and ``model.image_size``; the index it
+builds takes the embedder's width (1,152 for SigLIP).
+
 Everything runs on the facade's explicit ``torch.device`` (default
 ``"cuda"``, which raises where CUDA is missing; pass ``"cpu"`` for the
 kernels' plain versions); the embedder, the index and video ingest share
@@ -48,6 +54,7 @@ from ..index.builder import RAGBuilder
 from ..index.metadata import MetadataManager
 from ..index.portable import PortableIndex
 from ..index.unified import UnifiedIndex, UnifiedIndexConfig, resolve_device
+from ..models.convert import model_config
 from ..retrieval.translator import UniversalQueryTranslator
 from ..retrieval.validator import DataConsistencyValidator
 from ..utils.cache import CacheManager
@@ -131,15 +138,21 @@ class EnhancedRetrievalSystem:
         self.dp = DataProcessor()
         self.validator = DataConsistencyValidator()
         self.translator = UniversalQueryTranslator(cache=self.cache)
-        self.embedder = embedder or CLIPEmbedder(
-            model_path=self.config.get("model.path"),
-            compute_dtype=self.config.get("device.compute_dtype", "bfloat16"),
-            parity_mode=bool(self.config.get("device.parity_mode", False)),
-            image_batch_size=int(self.config.get("model.image_batch_size", 256)),
-            logger=self.logger,
-            vocab_dir=self.config.get("model.vocab_dir"),
-            device=self.device,
-        )
+        if embedder is None:
+            towers = model_config(self.config.get("model.name", "clip-vit-large-patch14"))
+            self.config.set("model.embed_dim", towers.vision.projection_dim)
+            self.config.set("model.image_size", towers.vision.image_size)
+            embedder = CLIPEmbedder(
+                model_path=self.config.get("model.path"),
+                config=towers,
+                compute_dtype=self.config.get("device.compute_dtype", "bfloat16"),
+                parity_mode=bool(self.config.get("device.parity_mode", False)),
+                image_batch_size=int(self.config.get("model.image_batch_size", 256)),
+                logger=self.logger,
+                vocab_dir=self.config.get("model.vocab_dir"),
+                device=self.device,
+            )
+        self.embedder = embedder
         self.index: UnifiedIndex | None = None
         self.metadata = MetadataManager(device=self.device, file_manager=self.fm)
         self.health = SystemHealthMonitor(self)
@@ -220,6 +233,7 @@ class EnhancedRetrievalSystem:
             self.embedder.as_embed_fn(),
             self.embedder.embed_dim,
             input_size=self.embedder.input_size,
+            center_crop=self.embedder.center_crop,
             config=index_cfg,
             file_manager=self.fm,
             progress_fn=lambda stage, done, total: self._emit(

@@ -158,12 +158,12 @@ def test_unported_options_raise(jax_params, inputs):
     assert m.vision_model.encoder.layers[0].mlp.fc1.w8a8_static
     assert m.text_model.encoder.layers[0].self_attn.int8_attn
     # a W8A8 block never takes the fused LN+MLP half-block
-    assert not tclip.TransformerBlock(256, 4, 2, fused_mlp=True, w8a8=True).fused_mlp
+    assert not tclip.TransformerBlock(256, 4, 512, fused_mlp=True, w8a8=True).fused_mlp
     # fused_mlp is ported: taken where the gate passes, the unfused chain else
-    assert tclip.TransformerBlock(256, 4, 2, fused_mlp=True).fused_mlp
-    assert not tclip.TransformerBlock(64, 4, 4, fused_mlp=True).fused_mlp
-    assert not tclip.TransformerBlock(256, 4, 2, precision="highest", fused_mlp=True).fused_mlp
-    assert not tclip.TransformerBlock(256, 4, 2).fused_mlp
+    assert tclip.TransformerBlock(256, 4, 512, fused_mlp=True).fused_mlp
+    assert not tclip.TransformerBlock(64, 4, 256, fused_mlp=True).fused_mlp
+    assert not tclip.TransformerBlock(256, 4, 512, precision="highest", fused_mlp=True).fused_mlp
+    assert not tclip.TransformerBlock(256, 4, 512).fused_mlp
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +187,7 @@ def _jax_block(fused, act="quick_gelu"):
 
 
 def _port_block(tree, fused, act="quick_gelu"):
-    blk = tclip.TransformerBlock(256, 4, 2, act=act, fused_mlp=fused)
+    blk = tclip.TransformerBlock(256, 4, 512, act=act, fused_mlp=fused)
     blk.load_state_dict({k[2:]: v for k, v in tconv._block(tree, "b").items()})
     return blk.eval()
 
@@ -218,7 +218,7 @@ def test_flax_tree_of_the_fused_block_carries_across_unchanged():
     tree_u = _jax_block(False).init(jax.random.PRNGKey(0), x)["params"]
     sd_f, sd_u = tconv._block(tree_f, "b"), tconv._block(tree_u, "b")
     assert set(sd_f) == set(sd_u) == {
-        f"b.{k}" for k in tclip.TransformerBlock(256, 4, 2, fused_mlp=True).state_dict()}
+        f"b.{k}" for k in tclip.TransformerBlock(256, 4, 512, fused_mlp=True).state_dict()}
     for key in sd_f:
         assert torch.equal(sd_f[key], sd_u[key]), key
     np.testing.assert_array_equal(sd_f["b.mlp.fc1.weight"].numpy(),
