@@ -18,8 +18,11 @@ non-zero):
             ViT-L/14 shapes, B in {1, 8}, at the bench's ViT-B/32 shape
             (B = 256, T = 50, D = 768, 12 heads) and at SigLIP so400m/14's
             two (B = 256, D = 1152, 16 heads of 72: T = 729, the two-pass
-            stream variant, and T = 64, the text tower), against its plain
-            version (atol = rtol = 2e-2); then SigLIP's text tower at its
+            wgmma variant, and T = 64, the text tower) and at T = 273 there,
+            and on the stream fallback (an unaligned view at T = 300, head
+            dim 36 at T = 729), against its plain version (atol = rtol =
+            2e-2), each launch's variant read from its span, where the
+            library names it; then SigLIP's text tower at its
             published widths in bf16 on 8 texts against the f32 reference
             of the benchmark (``perfbench/reference/siglip.py``, cosine >=
             0.995); B2 (int8 chunk-max sweep) over 10,000,000 x
@@ -445,27 +448,49 @@ def sdpa(q, k, v, h):
         *(y.view(b_, t_, h, d_ // h).transpose(1, 2) for y in (q, k, v)))
 
 
-def check_mha(device, gen, timer: Timer, b: int, t: int, d: int, h: int, timed: bool) -> dict:
+def check_mha(device, gen, timer: Timer, b: int, t: int, d: int, h: int, timed: bool,
+              unaligned: bool = False, want: str | None = None) -> dict:
     """B3 at one shape against its plain version (atol = rtol = TOL_MHA); with
     ``timed`` the kernel, the plain version and SDPA by CUDA-graph replay
-    beside the byte bound."""
+    beside the byte bound. ``unaligned``: q, k, v are views 2 bytes past
+    their allocations (no 16-byte copies, no TMA); ``want``: the variant the
+    shape must take."""
     import torch
 
+    from intelligent_video_analysis_retrieval_system_tpu_torch import trace
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops import attention
 
     on_card = device.type == "cuda"
-    q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
-               for _ in range(3))
-    got = attention.fused_mha(q, k, v, h)
+    if unaligned:
+        raw = torch.randn(3, b * t * d + 1, generator=gen, device=device).to(torch.bfloat16)
+        q, k, v = (raw[i, 1:].view(b, t, d) for i in range(3))
+        assert q.data_ptr() % 16 == 2
+    else:
+        q, k, v = (torch.randn(b, t, d, generator=gen, device=device).to(torch.bfloat16)
+                   for _ in range(3))
+    trace.take()
+    trace.enable()
+    try:
+        got = attention.fused_mha(q, k, v, h)
+    finally:
+        trace.disable()
+    # the variant the launch took, as its span names it (none on the CPU)
+    took = [s.attrs["variant"] for s in trace.take() if s.name == "attn.b3"]
     ref = attention._einsum_attention(q, k, v, h)
     err = float((got.float() - ref.float()).abs().max())
     if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
         raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: max abs err {err} beyond "
                              f"atol=rtol={TOL_MHA}")
-    plan = attention.mha_plan(t, d // h)
+    plan = attention.mha_plan(t, d // h, aligned=not unaligned)
+    if want is not None and plan["variant"] != want:
+        raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: the plan names {plan['variant']}, "
+                             f"not {want}")
+    if on_card and took != [plan["variant"]]:
+        raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: the library launched {took}, the "
+                             f"plan names {plan['variant']}")
     log("kernels", f"B3 fused_mha B={b} T={t} D={d} H={h} bf16 ({plan['variant']}, "
         f"{plan['frags']} fragments): max_abs_err={err:.3e} vs plain (atol=rtol={TOL_MHA})")
-    out = {"shape": [b, t, d, h], "max_abs_err": err}
+    out = {"shape": [b, t, d, h], "variant": plan["variant"], "max_abs_err": err}
     if timed:
         out.update(
             ms=timer(lambda: attention.fused_mha(q, k, v, h), iters=20, graph=on_card),
@@ -548,8 +573,8 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
 
     # B3: the towers' attention shapes, timed (CUDA-graph replay: the kernel is
     # shorter than a launch gap), then the ragged shapes of both variants
-    def mha_case(b, t, d, h, timed):
-        return check_mha(device, gen, timer, b, t, d, h, timed)
+    def mha_case(b, t, d, h, timed, **kw):
+        return check_mha(device, gen, timer, b, t, d, h, timed, **kw)
 
     narrow = dim < DIM   # CPU rehearsal: small widths, few images
     t_l, d_l, h_l = (257, 1024, 16) if not narrow else (17, 64, 4)
@@ -557,19 +582,28 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
     main = mha_case(8, t_l, d_l, h_l, timed=True)           # image queries, self-test
     big = mha_case(256 if not narrow else 4, t_l, d_l, h_l, timed=True)   # the build's batch
     b32 = mha_case(256 if not narrow else 4, 50, 768 if not narrow else 48, 12, timed=True)
-    # SigLIP so400m/14: head dim 72 (padded to 96), 729 tokens (stream) and 64
+    # SigLIP so400m/14: head dim 72, 729 tokens (the wgmma variant at depth 80)
+    # and 64 (registers); 273 tokens, the first length past the register tile
     d_s, h_s = (1152, 16) if not narrow else (144, 2)
     so400m = mha_case(256 if not narrow else 4, 729, d_s, h_s, timed=True)
     so400m_text = mha_case(256 if not narrow else 4, 64, d_s, h_s, timed=True)
+    wg_273 = mha_case(256 if not narrow else 4, 273, d_s, h_s, timed=True)
     ragged = [mha_case(2, t, 256 if not narrow else 64, 4, timed=False)
               for t in (1, 16, 17, 197, 273, 320)]
+    # the two-pass mma.sync fallback past 272 keys, for inputs TMA cannot
+    # read: an unaligned view, and a head dim that is no multiple of 8
+    ragged += [mha_case(2, 300, 256 if not narrow else 64, 4, timed=False, unaligned=True,
+                        want="stream"),
+               mha_case(2, 729, 576 if not narrow else 72, 16 if not narrow else 2,
+                        timed=False, want="stream")]
     mha = {k_: v_ for k_, v_ in main.items() if k_ != "shape"}
     mha["max_abs_err"] = max(c["max_abs_err"]
-                             for c in (main, big, b32, so400m, so400m_text, *ragged))
+                             for c in (main, big, b32, so400m, so400m_text, wg_273, *ragged))
     mha["vit_l_14_b256"] = big
     mha["vit_b_32"] = b32
     mha["siglip_so400m_b256"] = so400m
     mha["siglip_text_b256"] = so400m_text
+    mha["t273_b256"] = wg_273
     mha["siglip_text_tower"] = check_siglip_text(device, timer, narrow)
     if require_kernels and (topk.chunk_max_sweep.launches == 0
                             or attention.fused_mha.launches == 0):

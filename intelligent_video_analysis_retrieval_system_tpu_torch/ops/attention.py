@@ -6,8 +6,9 @@ returns ``(B, T, D)``, with no mask. Per head: ``softmax(q.k^T * dh^-1/2)``
 in f32, the weights rounded to the input dtype, ``. v`` accumulated in f32.
 Heads are sliced by column offset inside the kernel (``csrc/mha.cu``: bf16
 on the tensor cores with K/V of a head staged once per image and the scores
-kept in registers, f32 on the CUDA cores), so no head transpose reaches
-device memory. :func:`mha_plan` says which bf16 variant a shape takes.
+kept in registers, or past 272 keys two passes on ``wgmma`` over a TMA ring;
+f32 on the CUDA cores), so no head transpose reaches device memory.
+:func:`mha_plan` says which bf16 variant a shape takes.
 
 Dispatch depends only on where the tensors live: CPU tensors take the plain
 :func:`_einsum_attention`; CUDA tensors launch the kernel or raise. The
@@ -15,7 +16,8 @@ backward is the plain einsum recomputed from q, k, v, as the reference's
 custom VJP does (the TPU kernel has no backward either).
 
 Spans (:mod:`..trace`): ``attn.b3`` (``batch``, ``tokens``, ``dim``,
-``heads``, ``variant`` of :func:`mha_plan`) around each launch of the
+``heads``, and the ``variant`` the launch takes as the library names it: a
+bf16 variant of :func:`mha_plan`, or ``f32``) around each launch of the
 kernel, so a reader of the device trace has each launch's shape.
 """
 
@@ -34,40 +36,64 @@ __all__ = ["fused_mha", "fused_mha_qkv", "mha_plan"]
 _MAX_SMEM = 232_448
 
 # keys the bf16 kernel's register-resident score tile takes (136 registers
-# a thread); longer sequences take the two-pass variant
+# a thread); longer sequences take a two-pass variant
 _MAX_REG_KEYS = 272
 _STREAM_KEYS = 128
+# the two-pass `wgmma` variant: query rows an item (three warpgroups of 64),
+# keys a score tile, keys and stages of its ring, warps a block
+_WG_ROWS = 192
+_WG_KEYS = 64
+_WG_STAGE_KEYS = 128
+_WG_STAGES = 2
+_WG_WARPS = 13
+# ivars_mha_variant's codes
+_VARIANTS = ("registers", "stream", "wgmma", "f32")
 
 
-def mha_plan(t: int, head_dim: int, blocks: int = 1, sm_count: int = 132) -> dict:
+def mha_plan(t: int, head_dim: int, blocks: int = 1, sm_count: int = 132,
+             aligned: bool = True) -> dict:
     """Which bf16 variant of ``csrc/mha.cu`` runs a sequence of ``t`` tokens
-    (chosen by ``t`` alone, as the C entry point does) and what it needs:
-    ``registers`` (one block per head and image, scores in ``frags``
-    accumulator fragments of 8 keys) up to 272 padded keys, ``stream`` (two
-    passes over key chunks of 128) beyond; ``smem_bytes`` of dynamic shared
-    memory per block (K and V rows of ``head_dim`` padded to a multiple of
-    32, plus 8); ``warps`` per block for a launch of ``blocks`` = heads x
-    images on a card of ``sm_count`` multiprocessors (the C entry point asks
-    the device for its count; 132 is an H100's): one per 16-row query tile up
-    to eight, four where the long register tile meets a grid more than two
-    blocks a multiprocessor deep."""
+    (chosen as the C entry point does: by ``t``, and past 272 padded keys by
+    whether TMA can read the inputs; on the card the library's own answer,
+    ``ivars_mha_variant``, is what the ``attn.b3`` span names, and the card
+    tests hold the two together) and what it needs: ``registers`` (one
+    block per head and image, scores in ``frags`` accumulator fragments of 8
+    keys) up to 272 padded keys; beyond, ``wgmma`` (persistent blocks walking
+    ``blocks_per_head`` items of 192 query rows per head and image, two
+    passes over ring stages of 128 keys loaded by TMA) where ``head_dim`` is
+    a multiple of 8 and q, k, v and the output are ``aligned`` to 16 bytes,
+    else ``stream`` (two passes over key chunks of 128 on ``mma.sync``);
+    ``smem_bytes`` of dynamic shared memory per block (``registers`` and
+    ``stream``: K and V rows of ``head_dim`` padded to a multiple of 32, plus
+    8; ``wgmma``: two buffers of the block's Q and the ring, in boxes of 64
+    columns); ``warps`` per block for a launch of ``blocks`` = heads x images
+    on a card of ``sm_count`` multiprocessors (the C entry point asks the
+    device for its count; 132 is an H100's): one per 16-row query tile up to
+    eight, four where the long register tile meets a grid more than two
+    blocks a multiprocessor deep; ``wgmma`` three warpgroups and a producer
+    warp."""
     if t <= 0 or not 0 < head_dim <= 128 or blocks <= 0 or sm_count <= 0:
         raise ValueError(f"mha_plan: t={t}, head_dim={head_dim}, blocks={blocks}, "
                          f"sm_count={sm_count}")
     t_pad = -(-t // 16) * 16
+    variant = ("registers" if t_pad <= _MAX_REG_KEYS
+               else "wgmma" if aligned and head_dim % 8 == 0 else "stream")
+    if variant == "wgmma":
+        # two buffers of Q (64 rows x 64 columns a box, three warpgroups) and
+        # the ring (K and V of 128 keys a stage), 1 KB of alignment, barriers
+        boxes = 1 if head_dim <= 64 else 2
+        smem = (1024 + boxes * (2 * 3 * 64 * 128 + _WG_STAGES * 2 * _WG_STAGE_KEYS * 128)
+                + 8 * (2 * _WG_STAGES + 4))
+        return {"variant": "wgmma", "frags": _WG_KEYS // 8, "blocks_per_head": -(-t // _WG_ROWS),
+                "warps": _WG_WARPS, "smem_bytes": smem}
     ld = -(-head_dim // 32) * 32 + 8
-    if _variant(t) == "stream":
+    if variant == "stream":
         return {"variant": "stream", "frags": _STREAM_KEYS // 8, "blocks_per_head": -(-t // 128),
                 "warps": 8, "smem_bytes": 2 * _STREAM_KEYS * ld * 2}
     frags = 8 if t_pad <= 64 else 16 if t_pad <= 128 else _MAX_REG_KEYS // 8
     warps = 4 if t_pad > 128 and blocks > 2 * sm_count else min(t_pad // 16, 8)
     return {"variant": "registers", "frags": frags, "blocks_per_head": 1, "warps": warps,
             "smem_bytes": 2 * t_pad * ld * 2}
-
-
-def _variant(t: int) -> str:
-    """The bf16 variant a sequence of ``t`` tokens takes, by ``t`` alone."""
-    return "stream" if -(-t // 16) * 16 > _MAX_REG_KEYS else "registers"
 
 
 def _einsum_attention(
@@ -106,19 +132,21 @@ def _mha_kernel(
         raise ValueError(f"fused_mha: head dim {d}/{num_heads} must be whole "
                          "and at most 128")
     lib = kernels.load()
-    smem = lib.ivars_mha_smem_bytes(t, head_dim, codes[q.dtype])
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    # the C entry point's test for 16-byte copies and TMA, on the same pointers
+    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v, out))
+    smem = lib.ivars_mha_smem_bytes(t, head_dim, codes[q.dtype], int(aligned))
     if smem > _MAX_SMEM:
         raise ValueError(f"fused_mha: T={t} needs {smem} B of shared memory "
                          f"(limit {_MAX_SMEM})")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (q, k, v, out)]
+    # the kernel the launch below takes, as the library chooses it
+    variant = _VARIANTS[lib.ivars_mha_variant(*ptrs, b, t, d, num_heads, codes[q.dtype])]
     with trace.span("attn.b3", batch=b, tokens=t, dim=d, heads=num_heads,
-                    variant=_variant(t)), torch.cuda.device(q.device):
-        rc = lib.ivars_mha_fwd(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            b, t, d, num_heads, codes[q.dtype], kernels.stream_of(q),
-        )
+                    variant=variant), torch.cuda.device(q.device):
+        rc = lib.ivars_mha_fwd(*ptrs, b, t, d, num_heads, codes[q.dtype],
+                               kernels.stream_of(q))
     kernels.check_launch(rc, "mha_fwd")
     fused_mha.launches += 1
     return out

@@ -26,6 +26,15 @@ directory is keyed by the flags, and prints one JSON line per result.
   for the weights (not part of the default run).
 - ``b3-trace``: the same for one warp of B3, cycles per phase of a 16-row
   query tile.
+- ``b3-wgmma-trace``: the same for B3's ``wgmma`` variant at SigLIP so400m/14's
+  shape (256 images, 729 tokens, 16 heads of 72): one warp of each consumer
+  warpgroup of one block, cycles per phase of a 128-key ring stage in each
+  pass of its first item.
+- ``b3-long``: B3 past 272 keys on its ``wgmma`` kernel against the same
+  inputs on its ``stream`` kernel (a build with ``-DIVARS_LAB_NO_WGMMA``),
+  at SigLIP so400m/14's shape and at 577 tokens with head dims 64, 96 and
+  128, each checked against the plain version and timed, twice over in
+  alternation.
 - ``b1-probes``: B1 in bf16 over 1,001,472 x 768 rows at B = 8 and 64, as it
   is (checked against the plain version, beside P3's stream and matmul +
   amax over the same rows), without any product (the TMA ring, the masks
@@ -80,6 +89,9 @@ EXPERIMENTS: dict[str, tuple[bool, list[tuple[str, tuple[str, ...], str]]]] = {
     "b4-trace-no-products": (False, [("b4_trace_no_products",
                                       ("-DIVARS_LAB_TRACE",) + _skip("products"), "b4-trace")]),
     "b3-trace": (True, [("b3_trace", ("-DIVARS_LAB_TRACE",), "b3-trace")]),
+    "b3-wgmma-trace": (True, [("b3_wgmma_trace", ("-DIVARS_LAB_TRACE",), "b3-wgmma-trace")]),
+    "b3-long": (True, 2 * [("wgmma", (), "b3-long"),
+                           ("stream", ("-DIVARS_LAB_NO_WGMMA",), "b3-long")]),
     "b1-probes": (True, [
         ("as_is", (), "b1-time"),
         ("no_products", _skip("products"), "b1-time"),
@@ -184,12 +196,32 @@ def _run(name: str, csrc: str, what: str, flags: tuple[str, ...]) -> None:
                 row["ok"] = row["max_abs_err"] <= 0.01 * float(ref.float().abs().max())
             emit(**row)
     elif what == "b3-check":
-        for b, t, d, h in ((8, 257, 1024, 16), (256, 257, 1024, 16), (256, 50, 768, 12)):
+        for b, t, d, h in ((8, 257, 1024, 16), (256, 257, 1024, 16), (256, 50, 768, 12),
+                           (256, 729, 1152, 16), (256, 273, 1152, 16)):
             q, k, v = (torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
                        for _ in range(3))
             got, ref = attention.fused_mha(q, k, v, h), attention._einsum_attention(q, k, v, h)
             emit(shape=[b, t, d, h], ms=_graph_ms(lambda: attention.fused_mha(q, k, v, h)),
                  ok=bool(torch.allclose(got.float(), ref.float(), atol=2e-2, rtol=2e-2)))
+    elif what == "b3-long":
+        from .. import trace
+
+        for b, t, d, h in ((256, 729, 1152, 16), (128, 577, 1024, 16), (128, 577, 1536, 16),
+                           (128, 577, 2048, 16)):
+            q, k, v = (torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+            trace.take()
+            trace.enable()
+            try:
+                got = attention.fused_mha(q, k, v, h)
+            finally:
+                trace.disable()
+            took = [s.attrs["variant"] for s in trace.take() if s.name == "attn.b3"]
+            ref = attention._einsum_attention(q, k, v, h)
+            emit(shape=[b, t, d, h], head_dim=d // h, took=took,
+                 ms=_graph_ms(lambda: attention.fused_mha(q, k, v, h)),
+                 ok=bool(torch.allclose(got.float(), ref.float(), atol=2e-2, rtol=2e-2)))
+            del got, ref
     elif what == "b4-scale":
         w = _ln_mlp_args(64, 1024, 4096, gen)[1:]
         for tokens in (64, 512, 1024, 2048, 2056, 2112, 4096, 4224, 65_792):
@@ -216,6 +248,28 @@ def _run(name: str, csrc: str, what: str, flags: tuple[str, ...]) -> None:
                 break
             emit(tile=dict(zip(("q_load", "qk", "softmax", "wait_v", "pv", "store"),
                                (s[i + j + 1] - s[i + j] for j in range(6)))))
+    elif what == "b3-wgmma-trace":
+        q, k, v = (torch.randn(256, 729, 1152, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        rows = _stamps(lib, "ivars_mha_set_stamps", 3, lambda: attention.fused_mha(q, k, v, 16))
+        n = 6   # stages of 128 keys a pass at 729 keys
+        for wg, s in enumerate(rows):
+            # an item's stamps: its start, Q ready; pass 1, per stage: landed,
+            # then per 64 keys scores and statistics done; pass 2, per stage:
+            # landed, then per 64 keys scores, weights and P V done; then the
+            # next item's start
+            emit(warpgroup=wg, q_ready=s[1] - s[0], item=s[2 + 12 * n] - s[0],
+                 pass1=s[2 + 5 * n] - s[1], pass2=s[1 + 12 * n] - s[1 + 5 * n],
+                 store=s[2 + 12 * n] - s[1 + 12 * n])
+            for j in range(n):
+                a = s[2 + 5 * j: 8 + 5 * j]
+                b = s[2 + 5 * n + 7 * j: 9 + 5 * n + 7 * j]
+                emit(warpgroup=wg, stage=j,
+                     pass1=dict(wait=a[0] - s[1 + 5 * j], qk=a[1] - a[0] + a[3] - a[2],
+                                stats=a[2] - a[1] + a[4] - a[3]),
+                     pass2=dict(wait=b[0] - s[1 + 5 * n + 7 * j], qk=b[1] - b[0] + b[4] - b[3],
+                                weights=b[2] - b[1] + b[5] - b[4],
+                                pv=b[3] - b[2] + b[6] - b[5]))
     elif what == "b1-time":
         from ..bench import probes
 

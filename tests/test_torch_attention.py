@@ -9,6 +9,9 @@ VJP in f32 within 1e-4. The CUDA kernel is compared with its plain version
 on a card by tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,9 +109,20 @@ def test_mha_plan_is_total_and_fits_the_card(head_dim):
             assert plan["variant"] == "registers" and plan["blocks_per_head"] == 1
             assert plan["frags"] * 8 >= t_pad and plan["frags"] in (8, 16, 34)
             assert plan["smem_bytes"] >= 2 * t_pad * head_dim * 2
+        elif head_dim % 8 == 0:
+            # TMA can read the heads: the wgmma variant, 192 query rows a block
+            assert plan["variant"] == "wgmma" and plan["frags"] == 8
+            assert plan["blocks_per_head"] * 192 >= t > (plan["blocks_per_head"] - 1) * 192
         else:
             assert plan["variant"] == "stream" and plan["frags"] == 16
             assert plan["blocks_per_head"] * 128 >= t
+        # inputs TMA cannot read take the same variant up to 272 keys, the
+        # two-pass mma.sync one beyond
+        fallback = tatt.mha_plan(t, head_dim, aligned=False)
+        assert fallback["smem_bytes"] <= 232_448
+        assert fallback["variant"] == ("registers" if t_pad <= 272 else "stream")
+        if t_pad <= 272:
+            assert fallback == plan
 
 
 @pytest.mark.parametrize("case", [(1, "registers", 8), (50, "registers", 8), (64, "registers", 8),
@@ -117,12 +131,52 @@ def test_mha_plan_is_total_and_fits_the_card(head_dim):
                                   (257, "registers", 34), (272, "registers", 34),
                                   (273, "stream", 16), (320, "stream", 16), (577, "stream", 16)])
 def test_mha_plan_variant_by_t_alone(case):
+    # by t alone where TMA cannot read the inputs; where it can, past 272
+    # keys the wgmma variant takes the place of the stream
     t, variant, frags = case
     for head_dim in (32, 64, 128):
-        plan = tatt.mha_plan(t, head_dim)
+        plan = tatt.mha_plan(t, head_dim, aligned=False)
         assert (plan["variant"], plan["frags"]) == (variant, frags)
+        plan = tatt.mha_plan(t, head_dim)
+        want = ("wgmma", 8) if variant == "stream" else (variant, frags)
+        assert (plan["variant"], plan["frags"]) == want
     # ViT-L/14: 78,336 bytes for K and V of one head
     assert tatt.mha_plan(257, 64)["smem_bytes"] == 2 * 272 * 72 * 2
+
+
+@pytest.mark.parametrize("case", [
+    # (t, head_dim) -> (192-row items a head, smem bytes): 1 KB of alignment,
+    # two buffers of Q for 3 warpgroups in 8 KB boxes of 64 rows x 64 columns,
+    # a ring of 2 stages of K and V of 128 keys in 16 KB boxes (two boxes a
+    # row past 64 columns), and 8 barriers
+    ((273, 64), (2, 1024 + 6 * 8192 + 4 * 16384 + 64)),
+    ((320, 32), (2, 1024 + 6 * 8192 + 4 * 16384 + 64)),
+    ((729, 72), (4, 1024 + 12 * 8192 + 8 * 16384 + 64)),     # SigLIP so400m/14 at 384 px
+    ((729, 80), (4, 1024 + 12 * 8192 + 8 * 16384 + 64)),
+    ((1100, 128), (6, 1024 + 12 * 8192 + 8 * 16384 + 64)),
+    ((4097, 96), (22, 1024 + 12 * 8192 + 8 * 16384 + 64))])
+def test_mha_plan_wgmma_variant(case):
+    (t, head_dim), (blocks_per_head, smem) = case
+    plan = tatt.mha_plan(t, head_dim, blocks=4096)
+    assert plan == {"variant": "wgmma", "frags": 8, "blocks_per_head": blocks_per_head,
+                    "warps": 13, "smem_bytes": smem}
+    assert smem <= 232_448
+    # the same for any grid and card: one block of 416 threads a multiprocessor
+    assert tatt.mha_plan(t, head_dim, blocks=1, sm_count=8) == plan
+
+
+@pytest.mark.parametrize("case", [
+    # (t, head_dim, aligned) -> the variant past 272 keys
+    ((273, 64, False), "stream"), ((729, 72, False), "stream"), ((729, 36, True), "stream"),
+    ((729, 20, True), "stream"), ((300, 1, True), "stream"), ((300, 8, True), "wgmma"),
+    ((729, 72, True), "wgmma"), ((272, 72, False), "registers"), ((272, 72, True), "registers")])
+def test_mha_plan_falls_back_to_the_stream_where_tma_cannot_read(case):
+    (t, head_dim, aligned), variant = case
+    plan = tatt.mha_plan(t, head_dim, aligned=aligned)
+    assert plan["variant"] == variant
+    if variant == "stream":
+        assert plan["warps"] == 8 and plan["frags"] == 16
+        assert plan["smem_bytes"] == 2 * 128 * (-(-head_dim // 32) * 32 + 8) * 2
 
 
 @pytest.mark.parametrize("case", [
@@ -132,9 +186,13 @@ def test_mha_plan_variant_by_t_alone(case):
     ((257, 4096, 132), 4), ((257, 4096, 4096), 8), ((272, 4096, 132), 4), ((273, 4096, 132), 8),
     ((577, 16, 132), 8)])
 def test_mha_plan_warps_by_tiles_and_grid_depth(case):
+    # past 272 keys: 8 warps on the stream (inputs TMA cannot read), 13 (three
+    # warpgroups and the producer's warp) on the wgmma variant
     (t, blocks, sms), warps = case
-    plan = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms)
+    plan = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms, aligned=False)
     assert plan["warps"] == warps
+    aligned = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms)
+    assert aligned["warps"] == (13 if t > 272 else warps)
     if plan["variant"] == "registers":
         # one warp per 16-row query tile at most
         assert 1 <= plan["warps"] <= min(8, -(-t // 16))
@@ -147,3 +205,13 @@ def test_mha_plan_warps_by_tiles_and_grid_depth(case):
 def test_mha_plan_refuses_what_the_kernel_refuses(args):
     with pytest.raises(ValueError):
         tatt.mha_plan(*args)
+
+
+def test_variant_codes_are_the_librarys():
+    # the span names ivars_mha_variant's answer through these codes: they are
+    # the values of csrc/mha.cu's enum, in order
+    src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "mha.cu").read_text()
+    enum = re.search(r"enum Variant \{([^}]*)\};", src).group(1)
+    codes = dict((name.strip(), int(value)) for name, value in
+                 (item.split("=") for item in enum.split(",")))
+    assert codes == {"k" + v.capitalize(): i for i, v in enumerate(tatt._VARIANTS)}
