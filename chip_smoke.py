@@ -19,10 +19,10 @@ non-zero):
             (B = 256, T = 50, D = 768, 12 heads) and at SigLIP so400m/14's
             two (B = 256, D = 1152, 16 heads of 72: T = 729, the two-pass
             wgmma variant, and T = 64, the text tower) and at T = 273 there,
-            and on the stream fallback (an unaligned view at T = 300, head
-            dim 36 at T = 729), against its plain version (atol = rtol =
-            2e-2), each launch's variant read from its span, where the
-            library names it; then SigLIP's text tower at its
+            and on inputs the wrapper copies or pads for it (an unaligned
+            view at T = 300, head dim 36 at T = 729), against its plain
+            version (atol = rtol = 2e-2), each launch's variant read from
+            its span, where the library names it; then SigLIP's text tower at its
             published widths in bf16 on 8 texts against the f32 reference
             of the benchmark (``perfbench/reference/siglip.py``, cosine >=
             0.995); B2 (int8 chunk-max sweep) over 10,000,000 x
@@ -453,8 +453,8 @@ def check_mha(device, gen, timer: Timer, b: int, t: int, d: int, h: int, timed: 
     """B3 at one shape against its plain version (atol = rtol = TOL_MHA); with
     ``timed`` the kernel, the plain version and SDPA by CUDA-graph replay
     beside the byte bound. ``unaligned``: q, k, v are views 2 bytes past
-    their allocations (no 16-byte copies, no TMA); ``want``: the variant the
-    shape must take."""
+    their allocations (the wrapper copies them to a 16-byte boundary);
+    ``want``: the variant the shape must take."""
     import torch
 
     from intelligent_video_analysis_retrieval_system_tpu_torch import trace
@@ -481,7 +481,7 @@ def check_mha(device, gen, timer: Timer, b: int, t: int, d: int, h: int, timed: 
     if not torch.allclose(got.float(), ref.float(), atol=TOL_MHA, rtol=TOL_MHA):
         raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: max abs err {err} beyond "
                              f"atol=rtol={TOL_MHA}")
-    plan = attention.mha_plan(t, d // h, aligned=not unaligned)
+    plan = attention.mha_plan(t, d // h)
     if want is not None and plan["variant"] != want:
         raise AssertionError(f"B3 B={b} T={t} D={d} H={h}: the plan names {plan['variant']}, "
                              f"not {want}")
@@ -590,12 +590,12 @@ def check_kernels(device, n_rows: int, dim: int, timer: Timer, require_kernels: 
     wg_273 = mha_case(256 if not narrow else 4, 273, d_s, h_s, timed=True)
     ragged = [mha_case(2, t, 256 if not narrow else 64, 4, timed=False)
               for t in (1, 16, 17, 197, 273, 320)]
-    # the two-pass mma.sync fallback past 272 keys, for inputs TMA cannot
-    # read: an unaligned view, and a head dim that is no multiple of 8
+    # inputs the bf16 kernels do not read as they come, past 272 keys: an
+    # unaligned view (copied) and a head dim that is no multiple of 8 (padded)
     ragged += [mha_case(2, 300, 256 if not narrow else 64, 4, timed=False, unaligned=True,
-                        want="stream"),
+                        want="wgmma"),
                mha_case(2, 729, 576 if not narrow else 72, 16 if not narrow else 2,
-                        timed=False, want="stream")]
+                        timed=False, want="wgmma")]
     mha = {k_: v_ for k_, v_ in main.items() if k_ != "shape"}
     mha["max_abs_err"] = max(c["max_abs_err"]
                              for c in (main, big, b32, so400m, so400m_text, wg_273, *ragged))

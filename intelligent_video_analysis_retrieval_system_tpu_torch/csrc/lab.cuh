@@ -12,9 +12,6 @@
 //   -DIVARS_LAB_SKIP=n   timing-only builds of ln_mlp.cu and chunk_max.cu that
 //                        leave parts out (bits below); their results are
 //                        wrong on purpose
-//   -DIVARS_LAB_NO_WGMMA mha.cu sends every bf16 call past 272 keys to the
-//                        `stream` kernel, so the two can be timed on the same
-//                        aligned inputs
 
 #pragma once
 
@@ -26,12 +23,6 @@ constexpr bool kLabSkipActivation = (IVARS_LAB_SKIP & 2) != 0;  // the identity
 constexpr bool kLabSkipLoads = (IVARS_LAB_SKIP & 4) != 0;       // no TMA of weights or rows
 constexpr bool kLabSkipExchange = (IVARS_LAB_SKIP & 8) != 0;    // no tiles between blocks
 constexpr bool kLabHeadOnly = (IVARS_LAB_SKIP & 16) != 0;       // no hidden chunk at all
-
-#ifdef IVARS_LAB_NO_WGMMA
-constexpr bool kLabNoWgmma = true;
-#else
-constexpr bool kLabNoWgmma = false;
-#endif
 
 #ifdef IVARS_LAB_TRACE
 #define LAB_STAMP_ROW 256

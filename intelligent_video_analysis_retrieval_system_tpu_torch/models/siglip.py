@@ -21,8 +21,8 @@ is ``perfbench/reference/siglip.py``.
 The blocks are :class:`models.clip.Transformer` at the explicit MLP width
 (4,304 over 1,152, no whole ratio), so in throughput mode both towers'
 self-attention takes kernel B3 on a card: the vision tower at 729 tokens
-(B3's two-pass ``stream`` variant), the text tower at 64, both at head dim
-72 (padded to 96 inside the kernel). The MAP head is plain ``torch`` in the
+(B3's two-pass ``wgmma`` variant), the text tower at 64, both at head dim
+72 (padded to 80 and 96 inside the kernels). The MAP head is plain ``torch`` in the
 compute dtype: one query over the tokens needs no kernel; its k and v
 projections over every token are one GEMM on the compute-dtype copy of the
 packed ``in_proj_weight``, as :class:`models.clip.Dense` runs its own. No

@@ -30,11 +30,6 @@ directory is keyed by the flags, and prints one JSON line per result.
   shape (256 images, 729 tokens, 16 heads of 72): one warp of each consumer
   warpgroup of one block, cycles per phase of a 128-key ring stage in each
   pass of its first item.
-- ``b3-long``: B3 past 272 keys on its ``wgmma`` kernel against the same
-  inputs on its ``stream`` kernel (a build with ``-DIVARS_LAB_NO_WGMMA``),
-  at SigLIP so400m/14's shape and at 577 tokens with head dims 64, 96 and
-  128, each checked against the plain version and timed, twice over in
-  alternation.
 - ``b1-probes``: B1 in bf16 over 1,001,472 x 768 rows at B = 8 and 64, as it
   is (checked against the plain version, beside P3's stream and matmul +
   amax over the same rows), without any product (the TMA ring, the masks
@@ -90,8 +85,6 @@ EXPERIMENTS: dict[str, tuple[bool, list[tuple[str, tuple[str, ...], str]]]] = {
                                       ("-DIVARS_LAB_TRACE",) + _skip("products"), "b4-trace")]),
     "b3-trace": (True, [("b3_trace", ("-DIVARS_LAB_TRACE",), "b3-trace")]),
     "b3-wgmma-trace": (True, [("b3_wgmma_trace", ("-DIVARS_LAB_TRACE",), "b3-wgmma-trace")]),
-    "b3-long": (True, 2 * [("wgmma", (), "b3-long"),
-                           ("stream", ("-DIVARS_LAB_NO_WGMMA",), "b3-long")]),
     "b1-probes": (True, [
         ("as_is", (), "b1-time"),
         ("no_products", _skip("products"), "b1-time"),
@@ -203,25 +196,6 @@ def _run(name: str, csrc: str, what: str, flags: tuple[str, ...]) -> None:
             got, ref = attention.fused_mha(q, k, v, h), attention._einsum_attention(q, k, v, h)
             emit(shape=[b, t, d, h], ms=_graph_ms(lambda: attention.fused_mha(q, k, v, h)),
                  ok=bool(torch.allclose(got.float(), ref.float(), atol=2e-2, rtol=2e-2)))
-    elif what == "b3-long":
-        from .. import trace
-
-        for b, t, d, h in ((256, 729, 1152, 16), (128, 577, 1024, 16), (128, 577, 1536, 16),
-                           (128, 577, 2048, 16)):
-            q, k, v = (torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(3))
-            trace.take()
-            trace.enable()
-            try:
-                got = attention.fused_mha(q, k, v, h)
-            finally:
-                trace.disable()
-            took = [s.attrs["variant"] for s in trace.take() if s.name == "attn.b3"]
-            ref = attention._einsum_attention(q, k, v, h)
-            emit(shape=[b, t, d, h], head_dim=d // h, took=took,
-                 ms=_graph_ms(lambda: attention.fused_mha(q, k, v, h)),
-                 ok=bool(torch.allclose(got.float(), ref.float(), atol=2e-2, rtol=2e-2)))
-            del got, ref
     elif what == "b4-scale":
         w = _ln_mlp_args(64, 1024, 4096, gen)[1:]
         for tokens in (64, 512, 1024, 2048, 2056, 2112, 4096, 4224, 65_792):

@@ -76,13 +76,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ivars_int8_chunk_max_plan.restype = None
     lib.ivars_int8_chunk_max_plan.argtypes = [i64, i32, i32, i32, p, p, p, p, p, p]
     lib.ivars_mha_fwd.restype = i32
-    lib.ivars_mha_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
+    lib.ivars_mha_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, i32, p]
     lib.ivars_mha_variant.restype = i32
-    lib.ivars_mha_variant.argtypes = [p, p, p, p, i32, i32, i32, i32, i32]
+    lib.ivars_mha_variant.argtypes = [i32, i32, i32, i32, i32]
     lib.ivars_mha_smem_bytes.restype = i64
-    lib.ivars_mha_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.ivars_mha_smem_bytes.argtypes = [i32, i32, i32]
     lib.ivars_mha_warps.restype = i32
-    lib.ivars_mha_warps.argtypes = [i32, i32, i64, i32, i32]
+    lib.ivars_mha_warps.argtypes = [i32, i64, i32]
     f32 = ctypes.c_float
     lib.ivars_ln_mlp.restype = i32
     lib.ivars_ln_mlp.argtypes = [p, p, p, p, p, p, p, p, i64, i32, i32, f32, i32, i32, p]

@@ -104,42 +104,30 @@ def test_mha_plan_is_total_and_fits_the_card(head_dim):
         plan = tatt.mha_plan(t, head_dim)
         t_pad = -(-t // 16) * 16
         assert plan["smem_bytes"] <= 232_448, (t, plan)
+        # the kernel runs each head padded to a multiple of 8 columns
+        assert plan["head_dim"] % 8 == 0 and 0 <= plan["head_dim"] - head_dim < 8
         if t_pad <= 272:
             # the whole row's scores fit the register tile, K/V staged once
             assert plan["variant"] == "registers" and plan["blocks_per_head"] == 1
             assert plan["frags"] * 8 >= t_pad and plan["frags"] in (8, 16, 34)
-            assert plan["smem_bytes"] >= 2 * t_pad * head_dim * 2
-        elif head_dim % 8 == 0:
-            # TMA can read the heads: the wgmma variant, 192 query rows a block
+            assert plan["smem_bytes"] >= 2 * t_pad * plan["head_dim"] * 2
+        else:
+            # the wgmma variant, 192 query rows a block, for every head dim
             assert plan["variant"] == "wgmma" and plan["frags"] == 8
             assert plan["blocks_per_head"] * 192 >= t > (plan["blocks_per_head"] - 1) * 192
-        else:
-            assert plan["variant"] == "stream" and plan["frags"] == 16
-            assert plan["blocks_per_head"] * 128 >= t
-        # inputs TMA cannot read take the same variant up to 272 keys, the
-        # two-pass mma.sync one beyond
-        fallback = tatt.mha_plan(t, head_dim, aligned=False)
-        assert fallback["smem_bytes"] <= 232_448
-        assert fallback["variant"] == ("registers" if t_pad <= 272 else "stream")
-        if t_pad <= 272:
-            assert fallback == plan
 
 
 @pytest.mark.parametrize("case", [(1, "registers", 8), (50, "registers", 8), (64, "registers", 8),
                                   (65, "registers", 16), (128, "registers", 16),
                                   (129, "registers", 34), (197, "registers", 34),
                                   (257, "registers", 34), (272, "registers", 34),
-                                  (273, "stream", 16), (320, "stream", 16), (577, "stream", 16)])
+                                  (273, "wgmma", 8), (320, "wgmma", 8), (577, "wgmma", 8)])
 def test_mha_plan_variant_by_t_alone(case):
-    # by t alone where TMA cannot read the inputs; where it can, past 272
-    # keys the wgmma variant takes the place of the stream
+    # the same variant for every head dim, padded where it is no multiple of 8
     t, variant, frags = case
-    for head_dim in (32, 64, 128):
-        plan = tatt.mha_plan(t, head_dim, aligned=False)
-        assert (plan["variant"], plan["frags"]) == (variant, frags)
+    for head_dim in (20, 32, 36, 64, 72, 128):
         plan = tatt.mha_plan(t, head_dim)
-        want = ("wgmma", 8) if variant == "stream" else (variant, frags)
-        assert (plan["variant"], plan["frags"]) == want
+        assert (plan["variant"], plan["frags"]) == (variant, frags)
     # ViT-L/14: 78,336 bytes for K and V of one head
     assert tatt.mha_plan(257, 64)["smem_bytes"] == 2 * 272 * 72 * 2
 
@@ -158,41 +146,38 @@ def test_mha_plan_variant_by_t_alone(case):
 def test_mha_plan_wgmma_variant(case):
     (t, head_dim), (blocks_per_head, smem) = case
     plan = tatt.mha_plan(t, head_dim, blocks=4096)
-    assert plan == {"variant": "wgmma", "frags": 8, "blocks_per_head": blocks_per_head,
-                    "warps": 13, "smem_bytes": smem}
+    assert plan == {"variant": "wgmma", "head_dim": head_dim, "frags": 8,
+                    "blocks_per_head": blocks_per_head, "warps": 13, "smem_bytes": smem}
     assert smem <= 232_448
     # the same for any grid and card: one block of 416 threads a multiprocessor
     assert tatt.mha_plan(t, head_dim, blocks=1, sm_count=8) == plan
 
 
 @pytest.mark.parametrize("case", [
-    # (t, head_dim, aligned) -> the variant past 272 keys
-    ((273, 64, False), "stream"), ((729, 72, False), "stream"), ((729, 36, True), "stream"),
-    ((729, 20, True), "stream"), ((300, 1, True), "stream"), ((300, 8, True), "wgmma"),
-    ((729, 72, True), "wgmma"), ((272, 72, False), "registers"), ((272, 72, True), "registers")])
-def test_mha_plan_falls_back_to_the_stream_where_tma_cannot_read(case):
-    (t, head_dim, aligned), variant = case
-    plan = tatt.mha_plan(t, head_dim, aligned=aligned)
-    assert plan["variant"] == variant
-    if variant == "stream":
-        assert plan["warps"] == 8 and plan["frags"] == 16
-        assert plan["smem_bytes"] == 2 * 128 * (-(-head_dim // 32) * 32 + 8) * 2
+    # (t, head_dim) -> (the head dim the kernel runs at, the variant)
+    ((273, 64), (64, "wgmma")), ((729, 72), (72, "wgmma")), ((729, 36), (40, "wgmma")),
+    ((729, 20), (24, "wgmma")), ((300, 1), (8, "wgmma")), ((300, 8), (8, "wgmma")),
+    ((577, 100), (104, "wgmma")), ((272, 72), (72, "registers")),
+    ((272, 36), (40, "registers"))])
+def test_mha_plan_pads_the_head_dim_to_a_multiple_of_8(case):
+    (t, head_dim), (width, variant) = case
+    plan = tatt.mha_plan(t, head_dim)
+    assert (plan["head_dim"], plan["variant"]) == (width, variant)
+    # the plan of the padded width is the same plan
+    assert tatt.mha_plan(t, width) == plan
 
 
 @pytest.mark.parametrize("case", [
     # (t, blocks = heads x images, multiprocessors) -> warps per block
     ((1, 16, 132), 1), ((50, 3072, 132), 4), ((64, 3072, 132), 4), ((128, 3072, 132), 8),
     ((129, 128, 132), 8), ((257, 128, 132), 8), ((257, 264, 132), 8), ((257, 265, 132), 4),
-    ((257, 4096, 132), 4), ((257, 4096, 4096), 8), ((272, 4096, 132), 4), ((273, 4096, 132), 8),
-    ((577, 16, 132), 8)])
+    ((257, 4096, 132), 4), ((257, 4096, 4096), 8), ((272, 4096, 132), 4),
+    ((273, 4096, 132), 13), ((577, 16, 132), 13)])
 def test_mha_plan_warps_by_tiles_and_grid_depth(case):
-    # past 272 keys: 8 warps on the stream (inputs TMA cannot read), 13 (three
-    # warpgroups and the producer's warp) on the wgmma variant
+    # past 272 keys 13: three warpgroups and the producer's warp
     (t, blocks, sms), warps = case
-    plan = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms, aligned=False)
+    plan = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms)
     assert plan["warps"] == warps
-    aligned = tatt.mha_plan(t, 64, blocks=blocks, sm_count=sms)
-    assert aligned["warps"] == (13 if t > 272 else warps)
     if plan["variant"] == "registers":
         # one warp per 16-row query tile at most
         assert 1 <= plan["warps"] <= min(8, -(-t // 16))
@@ -205,6 +190,23 @@ def test_mha_plan_warps_by_tiles_and_grid_depth(case):
 def test_mha_plan_refuses_what_the_kernel_refuses(args):
     with pytest.raises(ValueError):
         tatt.mha_plan(*args)
+
+
+@pytest.mark.parametrize("t", [17, 300])
+@pytest.mark.parametrize("head_dim", [1, 20, 36, 100])
+def test_padded_heads_give_the_plain_result(head_dim, t):
+    # what the wrapper does for the bf16 kernels: heads padded with zero
+    # columns to a multiple of 8, the true head dim's scale, the output cut
+    # back; the zero columns add exact zeros to every score
+    rng = np.random.default_rng(head_dim * t)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, t, 3 * head_dim)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    width = tatt.mha_plan(t, head_dim)["head_dim"]
+    padded = [tatt._pad_heads(x, 3, width) for x in (q, k, v)]
+    assert padded[0].shape == (2, t, 3 * width)
+    assert torch.equal(tatt._pad_heads(padded[0], 3, head_dim), q)
+    got = tatt._einsum_attention(*padded, 3, scale=head_dim ** -0.5)
+    assert torch.equal(tatt._pad_heads(got, 3, head_dim), tatt._einsum_attention(q, k, v, 3))
 
 
 def test_variant_codes_are_the_librarys():

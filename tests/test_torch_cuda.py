@@ -16,8 +16,9 @@ B5 (normalize) has no sum and is ``torch.equal`` to its plain version. B3 in
 bf16 is swept over sequence lengths on both sides of its variants'
 boundary and head dims on and off its padding, the ``wgmma`` variant past 272
 keys over ragged last query and key tiles and rings wrapped more than once,
-an unaligned view and head dim 36 on the ``stream`` fallback, the variant
-the library names against :func:`mha_plan`; B4 in bf16 over every width
+an unaligned view (copied) and head dim 36 (padded to 40) on the variant of
+their length, the variant the library names and the calls it refuses
+against :func:`mha_plan`; B4 in bf16 over every width
 class and the token counts around its 64-token tile. B4
 (LN+MLP): f32 5e-5 (sums in another order, ``rsqrtf``), bf16 max abs
 difference at most 0.01 of the output's max abs (the same rounding points;
@@ -292,7 +293,7 @@ def test_mha_bf16_kernel_over_sequence_lengths_and_head_dims(cuda_device, t, dh,
     assert tatt.fused_mha.launches == before + 1
     want = tatt._einsum_attention(q, k, v, heads)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    # aligned inputs, head dims multiples of 8: past 272 keys the wgmma variant
+    # past 272 keys the wgmma variant
     assert tatt.mha_plan(t, dh)["variant"] == ("registers" if t <= 272 else "wgmma")
 
 
@@ -345,76 +346,81 @@ def test_mha_wgmma_variant_at_siglips_vision_shape(cuda_device):
 
 @pytest.mark.parametrize("t", [17, 257, 300])
 def test_mha_bf16_kernel_on_an_unaligned_view(cuda_device, t):
-    # data pointers 2 bytes past an allocation: the element-wise path, which
-    # past 272 keys is the two-pass mma.sync variant (TMA needs 16 bytes)
+    # data pointers 2 bytes past an allocation: the wrapper copies them to a
+    # 16-byte boundary, and the variant is that of t
     gen = torch.Generator(device=cuda_device).manual_seed(t)
     raw = torch.randn(3, 2 * t * 128 + 1, generator=gen, device=cuda_device).to(torch.bfloat16)
     q, k, v = (raw[i, 1:].view(2, t, 128) for i in range(3))
     assert q.data_ptr() % 4 == 2
     out = []
     variants = _b3_variants(lambda: out.append(tatt.fused_mha(q, k, v, 2)))
-    assert variants == ["registers" if t <= 272 else "stream"]
-    assert tatt.mha_plan(t, 64, aligned=False)["variant"] == variants[0]
+    assert variants == ["registers" if t <= 272 else "wgmma"]
+    assert tatt.mha_plan(t, 64)["variant"] == variants[0]
     want = tatt._einsum_attention(q, k, v, 2)
     torch.testing.assert_close(out[0].float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("t", [300, 729])
-def test_mha_stream_fallback_for_a_head_dim_off_8(cuda_device, t):
-    # head dim 36: no 16-byte copies, so TMA cannot read the heads; past 272
-    # keys the two-pass mma.sync variant
+def test_mha_pads_a_head_dim_off_8(cuda_device, t):
+    # head dim 36: the wrapper pads each head with zeros to 40 columns and
+    # keeps 36's scale; past 272 keys the wgmma variant
     gen = torch.Generator(device=cuda_device).manual_seed(36 * t)
     q, k, v = (torch.randn(2, t, 4 * 36, generator=gen, device=cuda_device)
                .to(torch.bfloat16) for _ in range(3))
     out = []
-    assert _b3_variants(lambda: out.append(tatt.fused_mha(q, k, v, 4))) == ["stream"]
-    assert tatt.mha_plan(t, 36)["variant"] == "stream"
+    assert _b3_variants(lambda: out.append(tatt.fused_mha(q, k, v, 4))) == ["wgmma"]
+    plan = tatt.mha_plan(t, 36)
+    assert (plan["variant"], plan["head_dim"]) == ("wgmma", 40)
     want = tatt._einsum_attention(q, k, v, 4)
     torch.testing.assert_close(out[0].float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_mha_plan_names_the_variant_the_library_takes(cuda_device):
     # ivars_mha_variant is the choice ivars_mha_fwd launches (and the one the
-    # attn.b3 span names); it reads alignment from the pointers themselves
+    # attn.b3 span names): by t alone, at the head dim the plan pads to
     import ctypes
 
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops import kernels
 
     lib = kernels.load()
     heads = 3
-    for aligned in (False, True):
-        ptr = ctypes.c_void_p(1 << 20 if aligned else (1 << 20) + 2)
-        for t in (1, 64, 257, 272, 273, 300, 577, 729, 4097):
-            for dh in (16, 20, 32, 36, 64, 72, 80, 96, 128):
-                want = tatt.mha_plan(t, dh, aligned=aligned)["variant"]
-                code = lib.ivars_mha_variant(ptr, ptr, ptr, ptr, 2, t, heads * dh, heads, 0)
-                assert tatt._VARIANTS[code] == want, (t, dh, aligned)
-                f32 = lib.ivars_mha_variant(ptr, ptr, ptr, ptr, 2, t, heads * dh, heads, 1)
-                assert tatt._VARIANTS[f32] == "f32"
+    for t in (1, 64, 257, 272, 273, 300, 577, 729, 4097):
+        for dh in (16, 20, 32, 36, 64, 72, 80, 96, 128):
+            plan = tatt.mha_plan(t, dh)
+            code = lib.ivars_mha_variant(2, t, heads * plan["head_dim"], heads, 0)
+            assert tatt._VARIANTS[code] == plan["variant"], (t, dh)
+            f32 = lib.ivars_mha_variant(2, t, heads * dh, heads, 1)
+            assert tatt._VARIANTS[f32] == "f32"
+            # bf16 heads off a multiple of 8 are refused as they come
+            unpadded = lib.ivars_mha_variant(2, t, heads * dh, heads, 0)
+            assert unpadded == (code if dh % 8 == 0 else -1), (t, dh)
     # what ivars_mha_fwd refuses: a head dim past 128, a dtype it lacks
-    assert lib.ivars_mha_variant(ptr, ptr, ptr, ptr, 2, 729, 3 * 136, 3, 0) == -1
-    assert lib.ivars_mha_variant(ptr, ptr, ptr, ptr, 2, 729, 3 * 64, 3, 2) == -1
+    assert lib.ivars_mha_variant(2, 729, 3 * 136, 3, 0) == -1
+    assert lib.ivars_mha_variant(2, 729, 3 * 64, 3, 2) == -1
+    # and a bf16 call off the contract, before any launch: cudaErrorInvalidValue
+    buf = torch.zeros(2 * 300 * 144 + 8, dtype=torch.bfloat16, device=cuda_device)
+    for offset, d in ((2, 128), (0, 4 * 36)):
+        ptr = ctypes.c_void_p(buf.data_ptr() + offset)
+        assert lib.ivars_mha_fwd(ptr, ptr, ptr, ptr, 2, 300, d, 4, d // 4, 0, None) == 1
 
 
 def test_mha_plan_matches_the_library(cuda_device):
     from intelligent_video_analysis_retrieval_system_tpu_torch.ops import kernels
 
     lib = kernels.load()
-    for aligned in (0, 1):
-        for t in (1, 50, 64, 65, 197, 257, 272, 273, 320, 577, 729, 4097):
-            for dh in (16, 20, 32, 64, 72, 80, 96, 128):
-                want = tatt.mha_plan(t, dh, aligned=bool(aligned))["smem_bytes"]
-                assert lib.ivars_mha_smem_bytes(t, dh, 0, aligned) == want, (t, dh, aligned)
+    for t in (1, 50, 64, 65, 197, 257, 272, 273, 320, 577, 729, 4097):
+        for dh in (16, 20, 32, 64, 72, 80, 96, 128):
+            plan = tatt.mha_plan(t, dh)
+            got = lib.ivars_mha_smem_bytes(t, plan["head_dim"], 0)
+            assert got == plan["smem_bytes"], (t, dh)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for aligned in (0, 1):
-        for t in (1, 50, 64, 65, 128, 129, 257, 272, 273, 577):
-            for dh in (64, 72, 36):
-                for blocks in (1, 16, 2 * sms, 2 * sms + 1, 4096):
-                    for count in (0, 64, sms):   # 0: the library asks the device
-                        want = tatt.mha_plan(t, dh, blocks=blocks, sm_count=count or sms,
-                                             aligned=bool(aligned))["warps"]
-                        got = lib.ivars_mha_warps(t, dh, blocks, count, aligned)
-                        assert got == want, (t, dh, blocks, count, aligned)
+    for t in (1, 50, 64, 65, 128, 129, 257, 272, 273, 577):
+        for dh in (64, 72, 36):
+            for blocks in (1, 16, 2 * sms, 2 * sms + 1, 4096):
+                for count in (0, 64, sms):   # 0: the library asks the device
+                    want = tatt.mha_plan(t, dh, blocks=blocks, sm_count=count or sms)["warps"]
+                    got = lib.ivars_mha_warps(t, blocks, count)
+                    assert got == want, (t, dh, blocks, count)
 
 
 def _at_the_end_of_a_segment(values):

@@ -71,12 +71,3 @@ def test_b1_probes_leave_out_parts_that_chunk_max_reads():
                              SOURCES["lab.cuh"]).group(1) == flags[0].split("=")[1]
         else:
             assert flags == ()
-
-
-def test_b3_long_times_the_stream_kernel_by_a_flag_mha_reads():
-    _, variants = kernel_lab.EXPERIMENTS["b3-long"]
-    flags = {variant: flags for variant, flags, what in variants}
-    assert flags == {"wgmma": (), "stream": ("-DIVARS_LAB_NO_WGMMA",)}
-    assert re.search(r"#ifdef IVARS_LAB_NO_WGMMA\s+constexpr bool kLabNoWgmma = true;",
-                     SOURCES["lab.cuh"])
-    assert "!kLabNoWgmma" in SOURCES["mha.cu"]
