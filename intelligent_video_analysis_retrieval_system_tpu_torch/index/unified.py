@@ -50,12 +50,15 @@ tombstoned rows into a fresh container.
 
 from __future__ import annotations
 
+import gc
 import logging
+import math
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -76,6 +79,75 @@ _UPLOAD_ROWS = 262_144
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+_held_lock = threading.Lock()
+_held_depth = 0
+_held_was_on = False
+
+
+@contextmanager
+def _collector_held() -> Iterator[None]:
+    """Python's cyclic collector off for the duration, then as it was found.
+
+    Re-entrant and shared by threads: the first to enter records whether
+    the collector was on and turns it off, the last to leave turns it back
+    on only if it was. Never forces a collection. A call's hits are acyclic
+    records that reference counting frees once the caller drops them; made
+    with the collector on, young collections move them into the older
+    generations, whose growth triggers full collections that free nothing.
+    """
+    global _held_depth, _held_was_on
+    with _held_lock:
+        if _held_depth == 0:
+            _held_was_on = gc.isenabled()
+            gc.disable()
+        _held_depth += 1
+    try:
+        yield
+    finally:
+        with _held_lock:
+            _held_depth -= 1
+            if _held_depth == 0 and _held_was_on:
+                gc.enable()
+
+
+def _collector_passes() -> int:
+    """Collector passes of any generation since the interpreter started."""
+    return sum(s["collections"] for s in gc.get_stats())
+
+
+def _ranked_hits(
+    scores: np.ndarray,
+    indices: np.ndarray,
+    metadata: Sequence[KeyframeMetadata],
+    top_k: int,
+    filter_fn: Callable[[KeyframeMetadata], bool] | None,
+) -> list[list[SearchResult]]:
+    """Each query's ranked ``SearchResult``s from its candidate scores and
+    rows, best first: stop at the first non-finite score (the masked tail
+    when ``top_k`` exceeds the live rows) or at ``top_k`` hits; skip rows
+    outside ``metadata`` and records ``filter_fn`` refuses. One pass over
+    plain Python values: ``tolist`` gives each score as ``float`` of its
+    float32 and each row as an ``int``."""
+    n_meta = len(metadata)
+    out: list[list[SearchResult]] = []
+    for row_scores, row_ids in zip(scores.tolist(), indices.tolist()):
+        hits: list[SearchResult] = []
+        for score, row in zip(row_scores, row_ids):
+            if not math.isfinite(score):
+                break
+            if row < 0 or row >= n_meta:
+                continue
+            meta = metadata[row]
+            if filter_fn is not None and not filter_fn(meta):
+                continue
+            hits.append(SearchResult(metadata=meta, similarity_score=score,
+                                     rank=len(hits) + 1, source="local"))
+            if len(hits) >= top_k:
+                break
+        out.append(hits)
+    return out
 
 
 def _fold_norm_into_scales(rows_i8: np.ndarray, scales: np.ndarray) -> np.ndarray:
@@ -1018,7 +1090,8 @@ class UnifiedIndex:
         ``top_k``, ``path``), and under it ``index.dispatch`` (normalize,
         upload, the path's launches), ``index.readback`` (the host waiting
         for the scores) and ``index.results`` (building the
-        ``SearchResult``s, counted in ``index.hits``).
+        ``SearchResult``s with the cyclic collector held off, counted in
+        ``index.hits``; ``gc_passes``: the collector's passes inside it).
         """
         with trace.span("index.search", top_k=top_k) as call:
             with self._lock:
@@ -1092,24 +1165,14 @@ class UnifiedIndex:
                 # the rows they were computed on
                 metadata = self._metadata
 
-            with trace.span("index.results"):
-                out: list[list[SearchResult]] = []
-                for b in range(len(q)):
-                    hits: list[SearchResult] = []
-                    for score, row in zip(scores[b], indices[b]):
-                        if not np.isfinite(score):
-                            break  # -inf tail: masked rows (k > live rows)
-                        if row < 0 or row >= len(metadata):
-                            continue
-                        meta = metadata[row]
-                        if filter_fn is not None and not filter_fn(meta):
-                            continue
-                        hits.append(SearchResult(metadata=meta,
-                                                 similarity_score=float(score),
-                                                 rank=len(hits) + 1, source="local"))
-                        if len(hits) >= top_k:
-                            break
-                    out.append(hits)
+            # held around the whole span, so that gc_passes covers all of it; the
+            # young collection the hits cost runs once the span has closed
+            with _collector_held(), trace.span("index.results") as results:
+                on = trace.enabled()
+                passes = _collector_passes() if on else 0
+                out = _ranked_hits(scores, indices, metadata, top_k, filter_fn)
+                if on:
+                    results.note(gc_passes=_collector_passes() - passes)
                 trace.count("index.hits", sum(map(len, out)))
             return out
 
