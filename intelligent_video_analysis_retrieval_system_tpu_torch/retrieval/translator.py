@@ -8,8 +8,9 @@ Parity with the reference ``UniversalQueryTranslator`` (``core.py:385-684``):
 language detection, translation to a CLIP-friendly English prompt, a cache
 keyed on the query, and a dictionary fallback for Vietnamese. Differences:
 
-- the LLM call is *pluggable and optional* (``llm_translate_fn``) and never
-  sits on the hot search path by default — the reference paid 5-7 s of
+- the LLM call is *pluggable and optional* (``llm_batch_translate_fn``,
+  every cache miss of a batch in one call) and never sits on the hot
+  search path by default — the reference paid 5-7 s of
   GPT-4o latency per uncached query (``logs/performance.log:8``);
 - language detection is a pure Unicode-range heuristic plus a
   function-word scorer for Latin scripts (the reference used langdetect
@@ -27,6 +28,8 @@ import re
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+from .. import trace
 
 __all__ = [
     "UniversalQueryTranslator",
@@ -381,11 +384,15 @@ class UniversalQueryTranslator:
 
     def __init__(
         self,
-        llm_translate_fn: Callable[[str], str | None] | None = None,
+        llm_batch_translate_fn: Callable[[list[str]], list[str | None]] | None = None,
         cache: Any | None = None,
         min_confidence: float = 0.3,  # reference threshold (system.py:778)
     ) -> None:
-        self.llm_translate_fn = llm_translate_fn
+        """``llm_batch_translate_fn`` takes a list of queries and returns a
+        caption (or None) for each, in one call: the local model
+        (``system/local_llm.py``). A provider of one query at a time, ``f``,
+        is ``lambda qs: [f(q) for q in qs]``."""
+        self.llm_batch_translate_fn = llm_batch_translate_fn
         self.cache = cache
         self.min_confidence = min_confidence
         self._local_cache: dict[str, TranslationResult] = {}
@@ -461,13 +468,59 @@ class UniversalQueryTranslator:
     # -- translation ---------------------------------------------------------
 
     def translate_query(self, query: str) -> TranslationResult:
-        """Translate ``query`` to a CLIP-friendly English prompt.
+        """Translate ``query`` to a CLIP-friendly English prompt: the
+        one-query form of :meth:`translate_queries`.
 
         Resolution order: cache -> English passthrough -> optional LLM ->
         dictionary fallback (Vietnamese) -> passthrough with low confidence.
         Never raises (reference guarantee, ``core.py:518-576``).
         """
-        query = query.strip()
+        return self.translate_queries([query])[0]
+
+    def translate_queries(self, queries: list[str]) -> list[TranslationResult]:
+        """:meth:`translate_query` for each of ``queries``, with every
+        non-English query that misses the caches sent to
+        ``llm_batch_translate_fn`` in ONE call (a query twice in the list is
+        sent once). Never raises."""
+        with trace.span("translate.batch", queries=len(queries), llm=0) as span:
+            out: list[TranslationResult | None] = [None] * len(queries)
+            misses: dict[str, tuple[str, float]] = {}
+            for i, raw in enumerate(queries):
+                query = raw.strip()
+                out[i] = self._cached(query)
+                if out[i] is not None or query in misses:
+                    continue
+                lang, lang_conf = self.detect_language(query)
+                if lang == "en":
+                    out[i] = self._store(query, TranslationResult(
+                        original=query,
+                        clip_prompt=self._clipify(query),
+                        detected_language="en",
+                        confidence=max(lang_conf, 0.9),
+                        method="passthrough",
+                        keywords=self._keywords(query),
+                    ))
+                else:
+                    misses[query] = (lang, lang_conf)
+            if misses:
+                texts: list[str | None] = [None] * len(misses)
+                if self.llm_batch_translate_fn is not None:
+                    span.note(llm=len(misses))
+                    try:
+                        texts = list(self.llm_batch_translate_fn(list(misses)))
+                    except Exception:
+                        texts = []
+                    if len(texts) != len(misses):
+                        texts = [None] * len(misses)
+                done = {
+                    query: self._store(query, self._translate_non_english(
+                        query, lang, lang_conf, texts[j]))
+                    for j, (query, (lang, lang_conf)) in enumerate(misses.items())
+                }
+                out = [r if r is not None else done[q.strip()] for q, r in zip(queries, out)]
+        return out
+
+    def _cached(self, query: str) -> TranslationResult | None:
         with self._lock:
             cached = self._local_cache.get(query)
         if cached is not None:
@@ -479,20 +532,9 @@ class UniversalQueryTranslator:
                 with self._lock:
                     self._local_cache[query] = result
                 return result
+        return None
 
-        lang, lang_conf = self.detect_language(query)
-        if lang == "en":
-            result = TranslationResult(
-                original=query,
-                clip_prompt=self._clipify(query),
-                detected_language="en",
-                confidence=max(lang_conf, 0.9),
-                method="passthrough",
-                keywords=self._keywords(query),
-            )
-        else:
-            result = self._translate_non_english(query, lang, lang_conf)
-
+    def _store(self, query: str, result: TranslationResult) -> TranslationResult:
         with self._lock:
             self._local_cache[query] = result
         if self.cache is not None:
@@ -503,22 +545,18 @@ class UniversalQueryTranslator:
         return result
 
     def _translate_non_english(
-        self, query: str, lang: str, lang_conf: float
+        self, query: str, lang: str, lang_conf: float, translated: str | None
     ) -> TranslationResult:
-        if self.llm_translate_fn is not None:
-            try:
-                translated = self.llm_translate_fn(query)
-            except Exception:
-                translated = None
-            if translated:
-                return TranslationResult(
-                    original=query,
-                    clip_prompt=self._clipify(translated),
-                    detected_language=lang,
-                    confidence=0.9,
-                    method="llm",
-                    keywords=self._keywords(translated),
-                )
+        """``translated``: the batch call's answer for ``query``, if any."""
+        if translated:
+            return TranslationResult(
+                original=query,
+                clip_prompt=self._clipify(translated),
+                detected_language=lang,
+                confidence=0.9,
+                method="llm",
+                keywords=self._keywords(translated),
+            )
         if lang in _DICTS_ORDERED:
             translated, coverage = self._dictionary_translate(query, lang)
             if coverage > 0:

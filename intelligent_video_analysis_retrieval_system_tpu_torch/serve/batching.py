@@ -171,8 +171,8 @@ class QueryBatcher:
             return
         # one translation pass + ONE batched text encode
         prompts = []
-        for p in batch:
-            translation = system.translator.translate_query(p.query)
+        translations = system.translator.translate_queries([p.query for p in batch])
+        for p, translation in zip(batch, translations):
             prompts.append(
                 translation.clip_prompt
                 if translation.confidence >= system.translator.min_confidence

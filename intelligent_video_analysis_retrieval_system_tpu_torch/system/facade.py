@@ -34,7 +34,12 @@ loads shards its rows over the mesh's devices instead (the embedder stays on
 (``serve/rest.py``, on the standard library), ``start_gui`` the web console
 the same way, and ``cleanup`` stops the server. ``enable_llm`` attaches the
 conversational agent (``agents.LLMProcessor``: ``chat`` and the query
-expansion of ``llm_enhanced``); with no provider it answers offline. Peers'
+expansion of ``llm_enhanced``); with no provider it answers offline. With
+``llm.local.enabled`` the facade holds the local translation model
+(``system/local_llm.py``, DeepSeek-V2-Lite; the other ``llm.local.*`` keys
+go to ``LocalTranslator.from_config``, with the batcher's
+``api.batching_max_batch`` as its rows a call) and the translator sends every
+non-English query that misses its caches to it, a batch at a time. Peers'
 indexes appended to ``remote_indexes`` (``serve.p2p.RemoteUnifiedIndex``)
 are searched beside the local rows and merged by score.
 """
@@ -137,7 +142,17 @@ class EnhancedRetrievalSystem:
         self.fm = FileManager(temp_dir=self.config.path("temp_dir"))
         self.dp = DataProcessor()
         self.validator = DataConsistencyValidator()
-        self.translator = UniversalQueryTranslator(cache=self.cache)
+        # the local translation model (``llm.local.*``, off by default)
+        self.local_llm = None
+        local = self.config.section("llm").get("local") or {}
+        if local.get("enabled"):
+            from .local_llm import LocalTranslator
+
+            self.local_llm = LocalTranslator.from_config(
+                local, self.device, int(self.config.get("api.batching_max_batch", 64)))
+        self.translator = UniversalQueryTranslator(
+            cache=self.cache,
+            llm_batch_translate_fn=self.local_llm.translate if self.local_llm else None)
         if embedder is None:
             towers = model_config(self.config.get("model.name", "clip-vit-large-patch14"))
             self.config.set("model.embed_dim", towers.vision.projection_dim)
